@@ -1,0 +1,120 @@
+"""JAX parameter trees -> PyTorch state_dicts (weights carried across).
+
+The exact inverse of ``mdhs_tpu.core.convert``'s torch -> flax converters
+(``convert_mibf_full``, ``convert_bert``, ``convert_resnet_classifier``):
+the input is the JAX package's ``params`` / ``batch_stats`` trees as nested
+dicts of numpy arrays, the output a ``{name: Tensor}`` dict that
+``load_state_dict`` takes. Layouts:
+
+- flax Dense kernel (in, out)  -> nn.Linear weight (out, in)
+- flax Conv kernel HWIO        -> nn.Conv2d weight OIHW
+- BatchNorm scale/bias + batch_stats mean/var -> weight/bias/running_mean/running_var
+- LayerNorm scale -> weight; Embed embedding -> weight
+
+Every value is copied, so the tensors never alias the caller's arrays.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+Tree = Mapping[str, object]
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def _lin(d: Tree, name: str, out: dict) -> None:
+    out[f"{name}.weight"] = _t(np.transpose(np.asarray(d["kernel"]), (1, 0)))
+    out[f"{name}.bias"] = _t(d["bias"])
+
+
+def _ln(d: Tree, name: str, out: dict) -> None:
+    out[f"{name}.weight"] = _t(d["scale"])
+    out[f"{name}.bias"] = _t(d["bias"])
+
+
+def _conv(d: Tree, name: str, out: dict) -> None:
+    out[f"{name}.weight"] = _t(np.transpose(np.asarray(d["kernel"]), (3, 2, 0, 1)))  # HWIO -> OIHW
+
+
+def _bn(p: Tree, s: Tree, name: str, out: dict) -> None:
+    out[f"{name}.weight"] = _t(p["scale"])
+    out[f"{name}.bias"] = _t(p["bias"])
+    out[f"{name}.running_mean"] = _t(s["mean"])
+    out[f"{name}.running_var"] = _t(s["var"])
+
+
+def bert_state_dict_from_jax(params: Tree, prefix: str = "") -> dict[str, torch.Tensor]:
+    """``mdhs_tpu.models.bert.BertModel`` params -> HF-named BertModel state_dict."""
+    out: dict[str, torch.Tensor] = {}
+    for name in ("word_embeddings", "position_embeddings", "token_type_embeddings"):
+        out[f"{prefix}embeddings.{name}.weight"] = _t(params[name]["embedding"])
+    _ln(params["embeddings_layernorm"], f"{prefix}embeddings.LayerNorm", out)
+    n_layers = sum(1 for k in params if k.startswith("layer_"))
+    for i in range(n_layers):
+        p = params[f"layer_{i}"]
+        base = f"{prefix}encoder.layer.{i}."
+        for name in ("query", "key", "value"):
+            _lin(p["attention"][name], base + f"attention.self.{name}", out)
+        _lin(p["attention_output"], base + "attention.output.dense", out)
+        _ln(p["attention_layernorm"], base + "attention.output.LayerNorm", out)
+        _lin(p["intermediate"], base + "intermediate.dense", out)
+        _lin(p["output"], base + "output.dense", out)
+        _ln(p["output_layernorm"], base + "output.LayerNorm", out)
+    return out
+
+
+def resnet_state_dict_from_jax(params: Tree, batch_stats: Tree, prefix: str = "") -> dict[str, torch.Tensor]:
+    """``ResNetClassifier`` trees ({"trunk", "fc"}) -> torchvision-named state_dict."""
+    p, s = params["trunk"], batch_stats["trunk"]
+    out: dict[str, torch.Tensor] = {}
+    _conv(p["stem_conv"], f"{prefix}conv1", out)
+    _bn(p["stem_bn"], s["stem_bn"], f"{prefix}bn1", out)
+    blocks = sorted(
+        (k for k in p if k.startswith("layer")),
+        key=lambda k: tuple(int(x) for x in k[len("layer"):].split("_block")),
+    )
+    for fname in blocks:
+        stage, block = fname[len("layer"):].split("_block")
+        base = f"{prefix}layer{stage}.{block}."
+        bp, bs = p[fname], s[fname]
+        for conv in sorted(k for k in bp if k.startswith("conv")):
+            _conv(bp[conv], base + conv, out)
+            bn = "bn" + conv[len("conv"):]
+            _bn(bp[bn], bs[bn], base + bn, out)
+        if "downsample_conv" in bp:
+            _conv(bp["downsample_conv"], base + "downsample.0", out)
+            _bn(bp["downsample_bn"], bs["downsample_bn"], base + "downsample.1", out)
+    if "fc" in params:
+        _lin(params["fc"], f"{prefix}fc", out)
+    return out
+
+
+def joint_kv_state_dict_from_jax(params: Tree, prefix: str = "") -> dict[str, torch.Tensor]:
+    names = {"to_q_x": "toQ_x", "to_k_x": "toK_x", "to_v_x": "toV_x",
+             "to_k_y": "toK_y", "to_v_y": "toV_y", "to_out": "to_out"}
+    out: dict[str, torch.Tensor] = {}
+    for flax_name, torch_name in names.items():
+        _lin(params[flax_name], f"{prefix}{torch_name}", out)
+    return out
+
+
+def mibf_state_dict_from_jax(params: Tree, batch_stats: Tree) -> dict[str, torch.Tensor]:
+    """``mdhs_tpu.models.mibf.MIBFNet`` (params, batch_stats) -> state_dict of
+    ``mdhs_tpu_torch.models.mibf.MIBFNet``; the inverse of ``convert_mibf_full``."""
+    out = bert_state_dict_from_jax(params["text_encoder"], "text_encoder.bert.")
+    out.update(resnet_state_dict_from_jax(
+        params["image_encoder"], batch_stats["image_encoder"], "image_encoder."))
+    for name in ("textbased_cross_attention", "imagbased_cross_attention"):
+        out.update(joint_kv_state_dict_from_jax(params[name], f"{name}."))
+    _lin(params["fc"], "fc", out)
+    _lin(params["fc_image_hidden"], "fc_image.1", out)
+    _lin(params["fc_image_out"], "fc_image.3", out)
+    _lin(params["fc_text_hidden"], "fc_text.1", out)
+    _lin(params["fc_text_out"], "fc_text.3", out)
+    return out

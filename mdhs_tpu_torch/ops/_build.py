@@ -1,0 +1,129 @@
+"""Build the port's CUDA kernels with nvcc and bind them through ctypes.
+
+All ``csrc/*.cu`` sources compile into one shared library with a plain C
+interface::
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -o build/libmdhs_kernels_<hash>.so csrc/*.cu
+
+The build runs at first use, into ``mdhs_tpu_torch/build/`` (git-ignored),
+keyed on a hash of the sources and flags, so a checkout builds everything
+from its own sources. Nothing here runs at import time, and nothing falls
+back: a missing nvcc or a failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "build"
+SOURCES = ("gemm.cu", "attention_block.cu", "ffn_block.cu")
+HEADERS = ("common.cuh",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-lineinfo", "-Xptxas=-v",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    # x, wqkv, bqkv, wo, bo, gamma, beta, bias, qkv, ctx, out, B, L, HD, heads, scale, eps, stream
+    "attention_block_forward": [_P] * 11 + [_I] * 4 + [_F, _F, _P],
+    # x, w1, b1, w2, b2, gamma, beta, h, out, N, H, Di, eps, act, stream
+    "ffn_block_forward": [_P] * 9 + [_I] * 3 + [_F, _I, _P],
+}
+
+
+def _find_nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"), "/usr/local/cuda"):
+        if root and Path(root, "bin", "nvcc").is_file():
+            return str(Path(root, "bin", "nvcc"))
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME, /usr/local/cuda): cannot build the CUDA kernels")
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES + HEADERS:
+        h.update(name.encode())
+        h.update((CSRC_DIR / name).read_bytes())
+    return BUILD_DIR / f"libmdhs_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> tuple[Path, float]:
+    """Compile the library if it is not built yet; return (path, seconds spent).
+
+    The compiler's output (``-Xptxas=-v``: registers, shared memory, spills
+    of every kernel) is kept beside the library as ``<lib>.log``.
+    """
+    lib = library_path()
+    if lib.is_file():
+        return lib, 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _find_nvcc()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        tmp_lib = Path(tmp) / lib.name
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp_lib), *(str(CSRC_DIR / s) for s in SOURCES)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
+            )
+        Path(str(lib) + ".log").write_text(proc.stdout + proc.stderr)
+        os.replace(tmp_lib, lib)  # atomic: a concurrent process never loads a partial file
+    return lib, time.perf_counter() - t0
+
+
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    """Build if needed, then load the library once per process."""
+    path, _ = build()
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.mdhs_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.mdhs_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check_launch(lib: ctypes.CDLL, err: int, what: str) -> None:
+    if err != 0:
+        msg = lib.mdhs_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def require(t: torch.Tensor, name: str, shape: tuple, dtype: torch.dtype, device: torch.device) -> None:
+    """Check an operand before its pointer goes to a kernel."""
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+    if t.data_ptr() % 16 != 0:
+        raise ValueError(f"{name}: data pointer not 16-byte aligned")
+
+
+def stream_of(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,111 @@
+"""Serving runtime for a live MIBF-Net module.
+
+Counterpart of ``mdhs_tpu/serving.py::ServingModel`` for an ``nn.Module``
+(the exported-artifact loader is ROADMAP item 9). A serving process:
+
+  - keeps the weights resident on the device;
+  - runs a fixed static batch: a partial batch is zero-padded and the
+    logits are sliced back;
+  - ships requests as uint8 canvases (1 byte a pixel) and does the eval
+    preprocessing on the device (``ops/preprocess.py::eval_pipeline``);
+  - in ``predict_stream``, keeps up to ``depth`` requests in flight: the
+    host copies each request into a pinned buffer, the host-to-device copy
+    is ``non_blocking`` on the compute stream, the logits come back into a
+    pinned buffer, and the host waits only on the event of the request it
+    fetches.
+
+A request is a dict of numpy arrays: ``image`` uint8 ``(n, H, W, 3)``,
+``input_ids`` and ``attention_mask`` ``(n, L)``, with ``n <= batch_size``.
+"""
+
+from __future__ import annotations
+
+from collections import deque
+
+import numpy as np
+import torch
+from torch import nn
+
+from .device import resolve_device
+from .ops.preprocess import eval_pipeline
+
+_INPUTS = {"image": torch.uint8, "input_ids": torch.int64, "attention_mask": torch.int64}
+
+
+class ServingModel:
+    def __init__(self, model: nn.Module, batch_size: int, device: str | torch.device,
+                 image_size: int = 224):
+        if batch_size < 1:
+            raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+        self.device = resolve_device(device)
+        self.batch_size = int(batch_size)
+        self.image_size = int(image_size)
+        self.model = model.to(device=self.device, memory_format=torch.channels_last).eval()
+        self.dtype = next(self.model.parameters()).dtype
+        self._slots: list[dict] = []  # host staging buffers, one per in-flight request
+
+    # ------------------------------------------------------------------
+    def _slot(self, i: int, batch: dict) -> dict:
+        """Host buffers of ring slot ``i``, made at the first request's shapes."""
+        while len(self._slots) <= i:
+            pin = self.device.type == "cuda"
+            bufs = {k: torch.zeros((self.batch_size,) + np.shape(batch[k])[1:], dtype=dt, pin_memory=pin)
+                    for k, dt in _INPUTS.items()}
+            self._slots.append(bufs)
+        return self._slots[i]
+
+    def _dispatch(self, batch: dict, slot: int):
+        """Stage one request and enqueue its forward; returns (logits handle, n)."""
+        n = int(np.shape(batch["image"])[0])
+        if not 1 <= n <= self.batch_size:
+            raise ValueError(f"request of {n} rows; the static batch is {self.batch_size}")
+        bufs = self._slot(slot, batch)
+        for k, buf in bufs.items():
+            if k not in batch:
+                raise KeyError(f"serving request missing input {k!r}")
+            v = torch.from_numpy(np.ascontiguousarray(batch[k]))
+            if tuple(v.shape[1:]) != tuple(buf.shape[1:]):
+                raise ValueError(f"input {k!r} has shape {tuple(v.shape)}, expected (n,) + {tuple(buf.shape[1:])}")
+            buf[:n].copy_(v)
+            buf[n:].zero_()
+        with torch.inference_mode():
+            dev = {k: buf.to(self.device, non_blocking=True) for k, buf in bufs.items()}
+            images = eval_pipeline(dev["image"], self.image_size, normalize=False, dtype=self.dtype)
+            logits = self.model(images, dev["input_ids"], dev["attention_mask"])["image_text"]
+            if self.device.type != "cuda":
+                return logits, n
+            host = torch.empty(logits.shape, dtype=logits.dtype, pin_memory=True)
+            host.copy_(logits, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return (host, done), n
+
+    def _fetch(self, handle, n: int) -> np.ndarray:
+        if self.device.type != "cuda":
+            return handle[:n].numpy().copy()
+        host, done = handle
+        done.synchronize()
+        return host[:n].numpy().copy()
+
+    # ------------------------------------------------------------------
+    def predict(self, batch: dict) -> np.ndarray:
+        """Synchronous call: ``image_text`` logits for the request's rows."""
+        handle, n = self._dispatch(batch, 0)
+        return self._fetch(handle, n)
+
+    def predict_stream(self, batches, depth: int = 2):
+        """Pipelined loop: yields the logits of each request, in order.
+
+        Request k+1 is staged and enqueued while request k computes; with
+        ``depth`` requests in flight, ring slot j % (depth + 1) is reused only
+        after request j - depth - 1 has been fetched, so its host buffers are
+        free. ``depth=0`` is the synchronous loop.
+        """
+        depth = max(int(depth), 0)
+        inflight = deque()
+        for j, batch in enumerate(batches):
+            inflight.append(self._dispatch(batch, j % (depth + 1)))
+            while len(inflight) > depth:
+                yield self._fetch(*inflight.popleft())
+        while inflight:
+            yield self._fetch(*inflight.popleft())

@@ -1,0 +1,131 @@
+"""mdhs_tpu_torch.serving.ServingModel and the package's import hygiene, on the CPU.
+
+The model is the full MIBF-Net graph cut to one narrow BERT layer and a 64^2
+crop, with weights drawn from a seeded torch.Generator.
+"""
+
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from mdhs_tpu_torch import resolve_device
+from mdhs_tpu_torch.models.bert import BertConfig
+from mdhs_tpu_torch.models.init import init_parameters
+from mdhs_tpu_torch.models.mibf import MIBFNet
+from mdhs_tpu_torch.ops.preprocess import eval_pipeline
+from mdhs_tpu_torch.serving import ServingModel
+
+torch.set_num_threads(2)
+
+REPO = Path(__file__).resolve().parent.parent
+CANVAS, CROP, SEQ, LABELS, BATCH = 72, 64, 12, 7, 4
+TINY_BERT = BertConfig(vocab_size=128, num_hidden_layers=1, intermediate_size=128,
+                       max_position_embeddings=64)
+
+
+@pytest.fixture(scope="module")
+def model():
+    return init_parameters(MIBFNet(LABELS, TINY_BERT), torch.Generator().manual_seed(0)).eval()
+
+
+def _request(n, seed):
+    rng = np.random.default_rng(seed)
+    mask = np.ones((n, SEQ), np.int64)
+    mask[n // 2:, SEQ - 4:] = 0
+    return {
+        "image": rng.integers(0, 256, (n, CANVAS, CANVAS, 3), dtype=np.uint8),
+        "input_ids": rng.integers(0, 128, (n, SEQ)).astype(np.int64),
+        "attention_mask": mask,
+    }
+
+
+def _direct(model, req):
+    with torch.no_grad():
+        img = eval_pipeline(torch.from_numpy(req["image"]), CROP, normalize=False, dtype=torch.float32)
+        out = model(img, torch.from_numpy(req["input_ids"]), torch.from_numpy(req["attention_mask"]))
+    return out["image_text"].numpy()
+
+
+@pytest.mark.parametrize("n", [1, 3, BATCH])
+def test_predict_pads_partial_batches_and_matches_a_direct_forward(model, n):
+    server = ServingModel(model, BATCH, "cpu", image_size=CROP)
+    req = _request(n, seed=n)
+    out = server.predict(req)
+    assert out.shape == (n, LABELS) and out.dtype == np.float32
+    np.testing.assert_allclose(out, _direct(model, req), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("depth", [0, 1, 2, 5])
+def test_predict_stream_keeps_request_order(model, depth):
+    server = ServingModel(model, BATCH, "cpu", image_size=CROP)
+    reqs = [_request(n, seed=10 + i) for i, n in enumerate((4, 1, 3, 4, 2))]
+    outs = list(server.predict_stream(iter(reqs), depth=depth))
+    assert [o.shape[0] for o in outs] == [4, 1, 3, 4, 2]
+    for req, out in zip(reqs, outs):
+        np.testing.assert_allclose(out, _direct(model, req), atol=1e-5, rtol=1e-5)
+
+
+def test_padding_rows_do_not_leak_into_real_rows(model):
+    server = ServingModel(model, BATCH, "cpu", image_size=CROP)
+    full = _request(BATCH, seed=3)
+    part = {k: v[:2] for k, v in full.items()}
+    np.testing.assert_allclose(server.predict(part), server.predict(full)[:2], atol=1e-5, rtol=1e-5)
+
+
+def test_serving_rejects_bad_requests(model):
+    server = ServingModel(model, BATCH, "cpu", image_size=CROP)
+    with pytest.raises(ValueError, match="static batch"):
+        server.predict(_request(BATCH + 1, seed=0))
+    bad = _request(2, seed=0)
+    del bad["attention_mask"]
+    with pytest.raises(KeyError):
+        server.predict(bad)
+    with pytest.raises(ValueError, match="batch_size"):
+        ServingModel(model, 0, "cpu")
+
+
+def test_resolve_device():
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            resolve_device("cuda")
+
+
+def test_package_imports_no_jax_and_runs_the_slice():
+    """A fresh interpreter: the port's modules and a CPU run of the slice
+    leave jax, flax and mdhs_tpu out of sys.modules (this test process has
+    them, because the suite's conftest imports jax)."""
+    script = textwrap.dedent(f"""
+        import sys
+        import numpy as np, torch
+        import mdhs_tpu_torch
+        from mdhs_tpu_torch.core import convert
+        from mdhs_tpu_torch.models import bert, init, mibf, resnet
+        from mdhs_tpu_torch.modules import attention
+        from mdhs_tpu_torch.ops import _build, attention_block, ffn_block, gelu, preprocess
+        from mdhs_tpu_torch.serving import ServingModel
+        cfg = bert.BertConfig(vocab_size=64, num_hidden_layers=1, intermediate_size=64,
+                              max_position_embeddings=16)
+        m = init.init_parameters(mibf.MIBFNet(3, cfg), torch.Generator().manual_seed(0))
+        rng = np.random.default_rng(0)
+        req = dict(image=rng.integers(0, 256, (2, 40, 40, 3), dtype=np.uint8),
+                   input_ids=rng.integers(0, 64, (2, 8)), attention_mask=np.ones((2, 8), np.int64))
+        out = ServingModel(m, 2, "cpu", image_size=32).predict(req)
+        assert out.shape == (2, 3) and np.isfinite(out).all()
+        bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "flax", "mdhs_tpu"))
+        print("LEAKED", bad)
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                          cwd=REPO, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "LEAKED []" in proc.stdout, proc.stdout
