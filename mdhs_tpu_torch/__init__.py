@@ -3,15 +3,18 @@
 The JAX package ``mdhs_tpu`` is the reference; this package mirrors its
 module names so each counterpart is easy to find:
 
-- ``mdhs_tpu_torch.ops``      eval preprocessing, GELU, and the hand-written
-                              CUDA sublayer kernels (``attention_block``,
-                              ``ffn_block``) with their plain PyTorch versions
+- ``mdhs_tpu_torch.ops``      eval preprocessing, GELU, int8 quantization,
+                              and the hand-written CUDA kernels
+                              (``attention_block``, ``ffn_block``,
+                              ``fused_attention``, ``quant_kernel``'s int8
+                              sublayers) with their plain PyTorch versions
 - ``mdhs_tpu_torch.models``   ResNet, BERT and MIBF-Net as ``nn.Module``s
                               with torchvision / HF state_dict names
 - ``mdhs_tpu_torch.modules``  ``JointKVCrossAttention``
 - ``mdhs_tpu_torch.core``     weights carried across from the JAX trees
 - ``mdhs_tpu_torch.serving``  ``ServingModel``: resident weights, static
-                              batch, pipelined request loop
+                              batch, pipelined request loop; the int8 serving
+                              preset ``MIBF_HAM_SERVING``
 
 The package imports torch and numpy only: never jax, flax or mdhs_tpu.
 """

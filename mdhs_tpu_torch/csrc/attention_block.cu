@@ -176,6 +176,8 @@ __global__ void __launch_bounds__(at::THREADS)
   }
 }
 
+}  // namespace
+
 cudaError_t launch_attention(const bf16* qkv, const float* bias, bf16* ctx, int B, int L, int HD,
                              int num_heads, float sm_scale, cudaStream_t stream) {
   if (B <= 0 || L <= 0 || num_heads <= 0 || HD % num_heads != 0) return cudaErrorInvalidValue;
@@ -191,7 +193,6 @@ cudaError_t launch_attention(const bf16* qkv, const float* bias, bf16* ctx, int 
   return cudaGetLastError();
 }
 
-}  // namespace
 }  // namespace mdhs
 
 // x, out: (B*L, HD) bf16; wqkv: (3*HD, HD) bf16 = [Wq; Wk; Wv] in nn.Linear

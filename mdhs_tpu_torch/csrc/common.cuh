@@ -89,4 +89,39 @@ cudaError_t launch_gemm_residual_ln(const bf16* A, const bf16* W, const bf16* bi
                                     bf16* out, int M, int N, int K, float eps,
                                     cudaStream_t stream);
 
+// The attention core of attention_block.cu: ctx[B*L, HD] bf16 from the packed
+// qkv[B*L, 3*HD] bf16 and the (B, L) float32 key bias; the whole L of one head
+// sits in shared memory (the supports() gate of ops/attention_block.py).
+cudaError_t launch_attention(const bf16* qkv, const float* bias, bf16* ctx, int B, int L, int HD,
+                             int num_heads, float sm_scale, cudaStream_t stream);
+
+// ---------------------------------------------------------------------------
+// int8 (a8w8) pieces, int8_gemm.cu. Quantization is symmetric absmax with
+// round-half-to-even (rintf), as mdhs_tpu/ops/quant_kernel.py::_rowquant_f32:
+//   scale = max(absmax, 1e-8) * float32(1/127);  q = clip(rint(x / scale), -127, 127)
+// ---------------------------------------------------------------------------
+
+// q[M, K] int8 and scale[M] float32 from the rows of x[M, K] (bf16 or float32).
+// Needs K % 8 == 0.
+cudaError_t launch_row_quantize(const bf16* x, int8_t* q, float* scale, int M, int K,
+                                cudaStream_t stream);
+cudaError_t launch_row_quantize(const float* x, int8_t* q, float* scale, int M, int K,
+                                cudaStream_t stream);
+
+// C[M, N] = epi(float(A_i8[M, K] @ W_i8[N, K]^T) * sa[m] * sw[n] + bias[n]), the integer
+// product accumulated in int32. C is bf16 or float32. Needs N % 128 == 0, K % 64 == 0.
+cudaError_t launch_gemm_s8(int epilogue, const int8_t* A, const int8_t* W, const float* sa,
+                           const float* sw, const float* bias, bf16* C, int M, int N, int K,
+                           cudaStream_t stream);
+cudaError_t launch_gemm_s8(int epilogue, const int8_t* A, const int8_t* W, const float* sa,
+                           const float* sw, const float* bias, float* C, int M, int N, int K,
+                           cudaStream_t stream);
+
+// out[M, N] = LayerNorm((resid + float(A_i8 @ W_i8^T) * sa[m] * sw[n]) + bias[n]) * gamma + beta,
+// float32 statistics. Needs N % 128 == 0, N <= 1024, K % 64 == 0.
+cudaError_t launch_gemm_s8_residual_ln(const int8_t* A, const int8_t* W, const float* sa,
+                                       const float* sw, const float* bias, const bf16* resid,
+                                       const float* gamma, const float* beta, bf16* out, int M,
+                                       int N, int K, float eps, cudaStream_t stream);
+
 }  // namespace mdhs

@@ -1,36 +1,50 @@
 """BERT text encoder with HF state_dict names.
 
 Counterpart of ``mdhs_tpu/models/bert.py``. Returns the last hidden state
-and all hidden states. The attention and FFN sublayers of each layer run as
-the hand-written CUDA kernels (``ops/attention_block.py``,
-``ops/ffn_block.py``) when the model is in eval mode, the activations are
-bf16 on CUDA, ``attention_impl`` is "auto" or "fused", and the kernel's
-``supports()`` accepts the shape; otherwise the layer takes the plain module
-path (f32 softmax, erf-GELU, as the JAX "xla" path).
+and all hidden states. When the model is in eval mode, the activations are
+bf16 on CUDA and ``attention_impl`` is "auto" or "fused", each layer runs
+hand-written CUDA kernels where their ``supports()`` gates accept the shape:
+
+- the attention sublayer as ``ops/attention_block.py``; where that rejects
+  the sequence length (L > 320 at head_dim 64, seq 512 among them), the
+  attention core as ``ops/fused_attention.py`` between cuBLAS projections;
+- the FFN sublayer as ``ops/ffn_block.py``;
+- under ``quantize="int8"`` (the int8 serving preset, eval only), the two
+  sublayers as ``ops/quant_kernel.py``'s a8w8 kernels instead.
+
+Elsewhere the layer takes the plain module path (f32 softmax, erf-GELU, as
+the JAX "xla" path), or under int8 the ``ops/quant.py`` composite, as the JAX
+package does off the TPU.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
 
 from ..ops import attention_block as _ab
 from ..ops import ffn_block as _fb
+from ..ops import fused_attention as _fa
+from ..ops import quant_kernel as _qk
 from ..ops.gelu import gelu
+from ..ops.quant import int8_linear, quantize_weight
 
 _IMPLS = ("auto", "fused", "plain")
+_QUANTIZE = ("none", "int8")
 
 
 @dataclasses.dataclass(frozen=True)
 class BertConfig:
     """Same fields and defaults as ``mdhs_tpu.models.bert.BertConfig``.
 
-    ``attention_impl``: "auto" (sublayer kernels where eligible), "plain"
-    (the module path, the JAX package's "xla"), or "fused" (the kernels, and
-    an error where a CUDA bf16 eval call has a shape they do not support).
+    ``attention_impl``: "auto" (kernels where eligible), "plain" (the module
+    path, the JAX package's "xla"; with ``quantize="int8"`` the int8
+    composite), or "fused" (the kernels, and an error where a CUDA bf16 eval
+    call has a shape they do not support).
+    ``quantize``: "none" (exact path) or "int8" (a8w8 serving preset, eval only).
     """
 
     vocab_size: int = 30522
@@ -64,14 +78,12 @@ class BertConfig:
     def check_ported(self) -> None:
         """Raise for options the port does not have yet, naming the
         ROADMAP item that ports each; never ignore one silently."""
-        if self.quantize != "none":
-            raise NotImplementedError(
-                f"quantize={self.quantize!r}: the int8 serving preset is ROADMAP Queue 1 "
-                "item 7 with Queue 2 items 4-5 (int8_ffn_block, int8_attention_block)"
-            )
+        if self.quantize not in _QUANTIZE:
+            raise ValueError(f"quantize={self.quantize!r}: expected one of {_QUANTIZE}")
         if self.attention_impl == "flash":
             raise NotImplementedError(
-                "attention_impl='flash' is ported with fused_attention, ROADMAP Queue 2 item 3"
+                "attention_impl='flash' (a flash-attention kernel with the JAX flash path's "
+                "pad-row semantics) is not ported yet: ROADMAP Queue 2 item 3"
             )
         if self.attention_impl not in _IMPLS:
             raise ValueError(f"attention_impl={self.attention_impl!r}: expected one of {_IMPLS}")
@@ -99,7 +111,8 @@ class BertEmbeddings(nn.Module):
 
 
 class BertSelfAttention(nn.Module):
-    """Plain multi-head attention core: returns ctx (B, L, H)."""
+    """Multi-head attention core: returns ctx (B, L, H). With ``fused`` the
+    core after the projections is ``ops/fused_attention.py``."""
 
     def __init__(self, cfg: BertConfig, device=None, dtype=None):
         super().__init__()
@@ -111,10 +124,13 @@ class BertSelfAttention(nn.Module):
         self.value = nn.Linear(H, H, **f)
         self.dropout = nn.Dropout(cfg.attention_dropout)
 
-    def forward(self, hidden: torch.Tensor, attn_bias: torch.Tensor) -> torch.Tensor:
+    def forward(self, hidden: torch.Tensor, attn_bias: torch.Tensor, fused: bool = False) -> torch.Tensor:
         c = self.cfg
         B, L, H = hidden.shape
         D = H // c.num_attention_heads
+        if fused:
+            return _fa.fused_attention(self.query(hidden), self.key(hidden), self.value(hidden),
+                                       attn_bias.reshape(B, L), c.num_attention_heads, float(D) ** -0.5)
 
         def split(t):
             return t.reshape(B, L, c.num_attention_heads, D).transpose(1, 2)
@@ -166,6 +182,33 @@ class BertOutput(nn.Module):
         self.dropout = nn.Dropout(cfg.hidden_dropout)
 
 
+class _Int8Weights(NamedTuple):
+    """One BertLayer's six matrices quantized per output channel (int8 with
+    float32 scales), and its biases and LayerNorm parameters in float32."""
+
+    wqkv: torch.Tensor
+    sqkv: torch.Tensor
+    bqkv: torch.Tensor
+    wo: torch.Tensor
+    so: torch.Tensor
+    bo: torch.Tensor
+    g1: torch.Tensor
+    be1: torch.Tensor
+    w1: torch.Tensor
+    s1: torch.Tensor
+    b1: torch.Tensor
+    w2: torch.Tensor
+    s2: torch.Tensor
+    b2: torch.Tensor
+    g2: torch.Tensor
+    be2: torch.Tensor
+
+
+def _drop_int8_weights(layer: "BertLayer", incompatible_keys) -> None:
+    """load_state_dict post-hook: the parameters may be new objects (assign=True)."""
+    layer._int8 = None
+
+
 class BertLayer(nn.Module):
     def __init__(self, cfg: BertConfig, device=None, dtype=None):
         super().__init__()
@@ -173,6 +216,40 @@ class BertLayer(nn.Module):
         self.attention = BertAttention(cfg, device=device, dtype=dtype)
         self.intermediate = BertIntermediate(cfg, device=device, dtype=dtype)
         self.output = BertOutput(cfg, device=device, dtype=dtype)
+        # int8 weights, made once from the parameters and kept beside them on
+        # their device. Plain attributes, not buffers: state_dict keeps the
+        # converter's keys, and module.to(dtype) does not cast the scales.
+        self._int8: Optional[_Int8Weights] = None
+        self._int8_from: tuple = ()  # (parameter, is an inference tensor) it was made from
+        self._int8_key: tuple = ()
+        self.register_load_state_dict_post_hook(_drop_int8_weights)
+
+    def _int8_version(self) -> tuple:
+        # an inference tensor has no version counter (nor an in-place update outside inference mode)
+        return tuple((p.data_ptr(), 0 if inf else p._version) for p, inf in self._int8_from)
+
+    def int8_weights(self) -> _Int8Weights:
+        """The quantized weights, made again whenever a parameter has changed
+        since they were made: load_state_dict drops them, and a move or an
+        in-place update changes a parameter's storage or version counter."""
+        if self._int8 is None or self._int8_version() != self._int8_key:
+            a, s, o = self.attention, self.attention.self, self.output
+            with torch.inference_mode(False), torch.no_grad():
+                wqkv, sqkv = quantize_weight(torch.cat([s.query.weight, s.key.weight, s.value.weight]))
+                wo, so = quantize_weight(a.output.dense.weight)
+                w1, s1 = quantize_weight(self.intermediate.dense.weight)
+                w2, s2 = quantize_weight(o.dense.weight)
+                f32 = lambda t: t.detach().float().contiguous()  # noqa: E731
+                self._int8 = _Int8Weights(
+                    wqkv, sqkv, f32(torch.cat([s.query.bias, s.key.bias, s.value.bias])),
+                    wo, so, f32(a.output.dense.bias),
+                    f32(a.output.LayerNorm.weight), f32(a.output.LayerNorm.bias),
+                    w1, s1, f32(self.intermediate.dense.bias), w2, s2, f32(o.dense.bias),
+                    f32(o.LayerNorm.weight), f32(o.LayerNorm.bias),
+                )
+            self._int8_from = tuple((p, p.is_inference()) for p in self.parameters())
+            self._int8_key = self._int8_version()
+        return self._int8
 
     def _kernels_eligible(self, hidden: torch.Tensor) -> bool:
         return (
@@ -182,11 +259,13 @@ class BertLayer(nn.Module):
             and hidden.is_cuda
         )
 
-    def attention_sublayer(self, hidden, attn_bias, kernel: bool) -> torch.Tensor:
-        """LN(hidden + attention(hidden)); attn_bias is (B, 1, 1, L) float32."""
+    def attention_sublayer(self, hidden, attn_bias, kernel: bool, fused_core: bool = False) -> torch.Tensor:
+        """LN(hidden + attention(hidden)); attn_bias is (B, 1, 1, L) float32.
+        ``kernel``: the whole sublayer as one kernel; else ``fused_core``: the
+        attention core as one kernel between the module's projections."""
         a = self.attention
         if not kernel:
-            return a.output(a.self(hidden, attn_bias), hidden)
+            return a.output(a.self(hidden, attn_bias, fused_core), hidden)
         c = self.cfg
         s = a.self
         wqkv = torch.cat([s.query.weight, s.key.weight, s.value.weight], dim=0)
@@ -215,20 +294,66 @@ class BertLayer(nn.Module):
         )
         return out.reshape(B, L, H)
 
+    def int8_attention_sublayer(self, hidden, attn_bias, w: _Int8Weights, kernel: bool) -> torch.Tensor:
+        """a8w8 LN(hidden + attention(hidden)): the int8 kernel, or the
+        ``int8_dense`` composite of ``mdhs_tpu/models/bert.py:274-287`` (f32
+        softmax also under fast_math)."""
+        c = self.cfg
+        B, L, H = hidden.shape
+        heads = c.num_attention_heads
+        D = H // heads
+        if kernel:
+            return _qk.int8_attention_block(
+                hidden.contiguous(), w.wqkv, w.sqkv, w.bqkv, w.wo, w.so, w.bo, w.g1, w.be1,
+                attn_bias.reshape(B, L), heads, float(D) ** -0.5, c.layer_norm_eps,
+            )
+        dt = hidden.dtype
+        qkv = int8_linear(hidden, w.wqkv, w.sqkv, w.bqkv, dt)
+        q, k, v = (t.reshape(B, L, heads, D).transpose(1, 2) for t in qkv.split(H, dim=-1))
+        scores = (q @ k.transpose(-1, -2)).float() / float(D) ** 0.5 + attn_bias
+        probs = torch.softmax(scores, dim=-1).to(dt)
+        ctx = (probs @ v).transpose(1, 2).reshape(B, L, H)
+        return self.attention.output.LayerNorm(hidden + int8_linear(ctx, w.wo, w.so, w.bo, dt))
+
+    def int8_ffn_sublayer(self, hidden, w: _Int8Weights, kernel: bool) -> torch.Tensor:
+        """a8w8 LN(hidden + W2 gelu(W1 hidden)): the int8 kernel, or the
+        composite of ``mdhs_tpu/models/bert.py:298-301``."""
+        c = self.cfg
+        act = "tanh" if c.fast_math else "erf"
+        B, L, H = hidden.shape
+        if kernel:
+            out = _qk.int8_ffn_block(hidden.reshape(B * L, H), w.w1, w.s1, w.b1, w.w2, w.s2, w.b2,
+                                     w.g2, w.be2, c.layer_norm_eps, act)
+            return out.reshape(B, L, H)
+        dt = hidden.dtype
+        inter = gelu(int8_linear(hidden, w.w1, w.s1, w.b1, dt), act)
+        return self.output.LayerNorm(hidden + int8_linear(inter, w.w2, w.s2, w.b2, dt))
+
     def forward(self, hidden: torch.Tensor, attn_bias: torch.Tensor) -> torch.Tensor:
         c = self.cfg
-        use_attn = use_ffn = False
+        int8 = c.quantize == "int8" and not self.training  # the knob is ignored in training
+        use_attn = use_core = use_ffn = False
         if self._kernels_eligible(hidden):
             B, L, H = hidden.shape
-            use_attn = _ab.supports(hidden.dtype, L, H, c.num_attention_heads)
-            use_ffn = _fb.supports(hidden.dtype, B * L, H, c.intermediate_size)
-            if c.attention_impl == "fused" and not (use_attn and use_ffn):
+            heads = c.num_attention_heads
+            if int8:
+                use_attn = _qk.attn_supports(hidden.dtype, L, H, heads)
+                use_ffn = _qk.supports(hidden.dtype, B * L, H, c.intermediate_size)
+            else:
+                use_attn = _ab.supports(hidden.dtype, L, H, heads)
+                use_core = not use_attn and _fa.supports(hidden.dtype, L, H, heads)
+                use_ffn = _fb.supports(hidden.dtype, B * L, H, c.intermediate_size)
+            if c.attention_impl == "fused" and not ((use_attn or use_core) and use_ffn):
                 raise ValueError(
-                    "attention_impl='fused' but the sublayer kernels do not support "
-                    f"dtype={hidden.dtype}, L={L}, hidden={H}, heads={c.num_attention_heads}, "
+                    f"attention_impl='fused' but the {'int8 ' if int8 else ''}kernels do not support "
+                    f"dtype={hidden.dtype}, L={L}, hidden={H}, heads={heads}, "
                     f"intermediate={c.intermediate_size}"
                 )
-        hidden = self.attention_sublayer(hidden, attn_bias, use_attn)
+        if int8:
+            w = self.int8_weights()
+            hidden = self.int8_attention_sublayer(hidden, attn_bias, w, use_attn)
+            return self.int8_ffn_sublayer(hidden, w, use_ffn)
+        hidden = self.attention_sublayer(hidden, attn_bias, use_attn, use_core)
         return self.ffn_sublayer(hidden, use_ffn)
 
 

@@ -1,4 +1,5 @@
-"""Eval preprocessing, GELU, and the hand-written CUDA sublayer kernels
-(``attention_block``, ``ffn_block``) with their plain PyTorch versions.
-CUDA sources live in ``mdhs_tpu_torch/csrc``; ``_build`` compiles them at
-first use."""
+"""Eval preprocessing, GELU, int8 quantization, and the hand-written CUDA
+kernels (the BERT sublayers ``attention_block`` and ``ffn_block``, their int8
+twins in ``quant_kernel``, the attention core ``fused_attention``) with their
+plain PyTorch versions. CUDA sources live in ``mdhs_tpu_torch/csrc``;
+``_build`` compiles them at first use."""

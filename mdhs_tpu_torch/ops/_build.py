@@ -1,10 +1,11 @@
 """Build the port's CUDA kernels with nvcc and bind them through ctypes.
 
 All ``csrc/*.cu`` sources compile into one shared library with a plain C
-interface::
+interface: one nvcc per source, all started together, then one link::
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o build/libmdhs_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \\
+         -c csrc/<source>.cu -o <source>.o                    (each source at once)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o build/libmdhs_kernels_<hash>.so *.o
 
 The build runs at first use, into ``mdhs_tpu_torch/build/`` (git-ignored),
 keyed on a hash of the sources and flags, so a checkout builds everything
@@ -29,13 +30,11 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("gemm.cu", "attention_block.cu", "ffn_block.cu")
+SOURCES = ("gemm.cu", "attention_block.cu", "ffn_block.cu", "int8_gemm.cu", "int8_ffn_block.cu",
+           "int8_attention_block.cu", "fused_attention.cu")
 HEADERS = ("common.cuh",)
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-lineinfo", "-Xptxas=-v",
-    "-shared", "-Xcompiler", "-fPIC",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-lineinfo", "-Xptxas=-v", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -45,6 +44,13 @@ _SIGNATURES = {
     "attention_block_forward": [_P] * 11 + [_I] * 4 + [_F, _F, _P],
     # x, w1, b1, w2, b2, gamma, beta, h, out, N, H, Di, eps, act, stream
     "ffn_block_forward": [_P] * 9 + [_I] * 3 + [_F, _I, _P],
+    # x, w1, s1, b1, w2, s2, b2, gamma, beta, x_q, sx, h, h_q, sh, out, N, H, Di, eps, act, stream
+    "int8_ffn_block_forward": [_P] * 15 + [_I] * 3 + [_F, _I, _P],
+    # x, wqkv, sqkv, bqkv, wo, so, bo, gamma, beta, bias, x_q, sx, qkv, ctx, c_q, sc, out,
+    # B, L, HD, heads, scale, eps, stream
+    "int8_attention_block_forward": [_P] * 17 + [_I] * 4 + [_F, _F, _P],
+    # q, k, v, bias, ctx, B, L, HD, heads, scale, stream
+    "fused_attention_forward": [_P] * 5 + [_I] * 4 + [_F, _P],
 }
 
 
@@ -69,8 +75,9 @@ def library_path() -> Path:
 def build() -> tuple[Path, float]:
     """Compile the library if it is not built yet; return (path, seconds spent).
 
-    The compiler's output (``-Xptxas=-v``: registers, shared memory, spills
-    of every kernel) is kept beside the library as ``<lib>.log``.
+    Each source compiles in its own nvcc process, all at once; the compiler's
+    output (``-Xptxas=-v``: registers, shared memory, spills of every kernel)
+    is kept beside the library as ``<lib>.log``.
     """
     lib = library_path()
     if lib.is_file():
@@ -79,14 +86,19 @@ def build() -> tuple[Path, float]:
     nvcc = _find_nvcc()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / (Path(s).stem + ".o") for s in SOURCES]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", str(CSRC_DIR / s), "-o", str(o)] for s, o in zip(SOURCES, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for c in cmds]
+        logs = [p.communicate()[0] for p in procs]  # waits for every process, failed or not
+        for cmd, proc, log in zip(cmds, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
         tmp_lib = Path(tmp) / lib.name
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp_lib), *(str(CSRC_DIR / s) for s in SOURCES)]
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp_lib), *map(str, objs)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
-            )
-        Path(str(lib) + ".log").write_text(proc.stdout + proc.stderr)
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+        Path(str(lib) + ".log").write_text("".join(logs) + proc.stdout + proc.stderr)
         os.replace(tmp_lib, lib)  # atomic: a concurrent process never loads a partial file
     return lib, time.perf_counter() - t0
 

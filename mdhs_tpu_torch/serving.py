@@ -16,10 +16,15 @@ Counterpart of ``mdhs_tpu/serving.py::ServingModel`` for an ``nn.Module``
 
 A request is a dict of numpy arrays: ``image`` uint8 ``(n, H, W, 3)``,
 ``input_ids`` and ``attention_mask`` ``(n, L)``, with ``n <= batch_size``.
+
+``MIBF_HAM_SERVING`` is the int8 serving preset of
+``configs/serving/mibf_ham_serving.yml``, resolved (the card's machine has no
+yaml reader; a test holds the two equal).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from collections import deque
 
 import numpy as np
@@ -27,13 +32,33 @@ import torch
 from torch import nn
 
 from .device import resolve_device
+from .models.bert import BertConfig
 from .ops.preprocess import eval_pipeline
+
+
+@dataclasses.dataclass(frozen=True)
+class ServingPreset:
+    """A serving configuration: the text tower, the static batch, the
+    tokenizer length and the label count."""
+
+    bert: BertConfig
+    batch_size: int
+    seq_len: int
+    num_labels: int
+
+
+# configs/serving/mibf_ham_serving.yml over configs/mibf/mibf_ham.yml:
+# model.fast_math true, model.text_encoder.quantize int8 (BERT-base preset),
+# inference.batch_size 512, tokenizer.max_length 256, model.num_classes 7.
+MIBF_HAM_SERVING = ServingPreset(
+    bert=BertConfig(fast_math=True, quantize="int8"), batch_size=512, seq_len=256, num_labels=7,
+)
 
 _INPUTS = {"image": torch.uint8, "input_ids": torch.int64, "attention_mask": torch.int64}
 
 
 class ServingModel:
-    def __init__(self, model: nn.Module, batch_size: int, device: str | torch.device,
+    def __init__(self, model: nn.Module, batch_size: int, device: str | torch.device = "cuda",
                  image_size: int = 224):
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")

@@ -254,7 +254,7 @@ def test_bert_plain_and_auto_agree_on_cpu(bert_pair, fast_math):
 
 
 @pytest.mark.parametrize("field, value, exc", [
-    ("quantize", "int8", NotImplementedError),
+    ("quantize", "int4", ValueError),
     ("attention_impl", "flash", NotImplementedError),
     ("sp_mesh_shape", (("data", 1), ("model", 2)), NotImplementedError),
     ("remat", "full", NotImplementedError),

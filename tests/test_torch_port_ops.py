@@ -134,7 +134,7 @@ def test_gelu_keeps_bf16_dtype_and_rejects_unknown_act():
     ((torch.bfloat16, 100, 768, 12), True),   # ragged L: the kernel masks it
     ((torch.bfloat16, 320, 768, 12), True),   # largest L whose tile fits 227 KB at head_dim 64
     ((torch.bfloat16, 336, 768, 12), False),
-    ((torch.bfloat16, 512, 768, 12), False),  # fused_attention's length: not ported yet
+    ((torch.bfloat16, 512, 768, 12), False),  # BERT takes fused_attention there
     ((torch.float32, 128, 768, 12), False),   # float32 parity path -> plain
     ((torch.bfloat16, 128, 64, 4), False),    # hidden not a multiple of 128
     ((torch.bfloat16, 128, 768, 10), False),  # 768 % 10 != 0

@@ -4,6 +4,7 @@ The model is the full MIBF-Net graph cut to one narrow BERT layer and a 64^2
 crop, with weights drawn from a seeded torch.Generator.
 """
 
+import copy
 import os
 import subprocess
 import sys
@@ -99,19 +100,28 @@ def test_resolve_device():
             resolve_device("cuda")
 
 
+def test_serving_runs_on_the_card_unless_asked_for_the_cpu(model):
+    if torch.cuda.is_available():
+        assert ServingModel(copy.deepcopy(model), 1).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="cuda"):
+            ServingModel(model, 1)
+
+
 def test_package_imports_no_jax_and_runs_the_slice():
     """A fresh interpreter: the port's modules and a CPU run of the slice
     leave jax, flax and mdhs_tpu out of sys.modules (this test process has
     them, because the suite's conftest imports jax)."""
     script = textwrap.dedent(f"""
-        import sys
+        import dataclasses, sys
         import numpy as np, torch
         import mdhs_tpu_torch
         from mdhs_tpu_torch.core import convert
         from mdhs_tpu_torch.models import bert, init, mibf, resnet
         from mdhs_tpu_torch.modules import attention
-        from mdhs_tpu_torch.ops import _build, attention_block, ffn_block, gelu, preprocess
-        from mdhs_tpu_torch.serving import ServingModel
+        from mdhs_tpu_torch.ops import (_build, attention_block, ffn_block, fused_attention, gelu,
+                                        preprocess, quant, quant_kernel)
+        from mdhs_tpu_torch.serving import MIBF_HAM_SERVING, ServingModel
         cfg = bert.BertConfig(vocab_size=64, num_hidden_layers=1, intermediate_size=64,
                               max_position_embeddings=16)
         m = init.init_parameters(mibf.MIBFNet(3, cfg), torch.Generator().manual_seed(0))
@@ -119,6 +129,10 @@ def test_package_imports_no_jax_and_runs_the_slice():
         req = dict(image=rng.integers(0, 256, (2, 40, 40, 3), dtype=np.uint8),
                    input_ids=rng.integers(0, 64, (2, 8)), attention_mask=np.ones((2, 8), np.int64))
         out = ServingModel(m, 2, "cpu", image_size=32).predict(req)
+        assert out.shape == (2, 3) and np.isfinite(out).all()
+        q = mibf.MIBFNet(3, dataclasses.replace(cfg, fast_math=True, quantize="int8"))
+        q.load_state_dict(m.state_dict())
+        out = ServingModel(q, 2, "cpu", image_size=32).predict(req)
         assert out.shape == (2, 3) and np.isfinite(out).all()
         bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "flax", "mdhs_tpu"))
         print("LEAKED", bad)
