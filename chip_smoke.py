@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's MIBF-Net serving paths once on an NVIDIA GPU.
+"""Drive the PyTorch port's MIBF-Net serving and training paths once on an NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
 
@@ -12,10 +12,16 @@ Phases, each printing JSON lines:
               max |d| <= 6e-2 and mean |d| < 5e-3 (tests/test_fused_attention.py:
               126-127), the int8 kernels within max |d| <= 0.01 * max |plain|
               (tests/test_quant.py:160) and mean |d| < 5e-3; median CUDA-event
-              times of kernel and plain version, the bound (the larger of
+              times of kernel and plain version (around one call: the
+              wrapper's host launch included), the kernel's device time
+              (torch.profiler), the bound (the larger of
               bytes / 3.35 TB/s and operations / peak rate, from this run's
-              shapes), and for fused_attention the time of
-              scaled_dot_product_attention on the same inputs (timing only)
+              shapes), and as the library call (timing only) on the same
+              inputs scaled_dot_product_attention for fused_attention,
+              grid_sample for shear_sublane and var_mean for bn_stats;
+              shear_sublane bit-exact; bn_stats within rtol 1e-5 and atol
+              1e-6 * E|x| (mean) or * E[x^2] (variance), and its backward
+              within 1e-5 of the largest gradient
   4. slice    full-width MIBF-Net (ResNet50 + BERT-base, 7 labels), bf16,
               exact-parity, seeded random weights, through ServingModel(batch
               32): 3 requests (32, 32, 5 rows, seq 128) via predict_stream with
@@ -39,6 +45,27 @@ Phases, each printing JSON lines:
   6. seq512   the exact bf16 MIBF-Net, one request of 32 rows at seq 512:
               fused_attention and ffn_block launched 12 times, attention_block
               none; BERT output and logits within 0.15 / 0.01 of the plain path
+  7. train    MIBF-Net training at full width (MIBF_HAM_TRAIN: batch 32, seq
+              256, canvas 256 -> 224, Adam, cosine, MP-Loss), a bf16 module
+              with float32 masters, seeded random weights with each
+              bottleneck's last BatchNorm scale at 0.1: Trainer.fit over 2
+              epochs x 3 steps (the last batch short, n_valid 21) with
+              validation on 2 batches an epoch; shear_sublane launched 3 times
+              a step and no serving kernel in a step, attention_block and
+              ffn_block 12 times a validation forward; finite losses, masters
+              and float32 BatchNorm running statistics updated; one batch's
+              augmentation through the kernel and the plain shear bit-exact;
+              images/s at batch 32 (host clock, 8 steps), step ms split into
+              augmentation, forward + backward and optimizer (CUDA events),
+              the device breakdown and the step's share of 989 TFLOP/s; the
+              bn_stats A/B on the same weights and batch (one launch per
+              BatchNorm input the gate takes, none in eval, loss within 1e-2
+              relative of cuDNN BatchNorm, step ms of both in turns), the
+              kernel's side a trainer of MIBFNet(bn_stats_kernel=True); one step
+              of the bf16 module against a float32 twin on the same weights
+              and batch with dropout 0 (loss within 2e-2 relative, per-tower
+              gradient cosine >= 0.99; reported, not checked, for the seeded
+              weights undamped)
 Then a JSON line of the kernels, the nvidia-smi line, and the result line.
 Each path sets every launch count to 0 just before it runs and reads them
 just after. Any failure raises: the exit code is not 0 and no result line is
@@ -48,6 +75,7 @@ printed.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -58,19 +86,25 @@ import time
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 from mdhs_tpu_torch import resolve_device
 from mdhs_tpu_torch.models.bert import BertConfig
 from mdhs_tpu_torch.models.init import init_parameters
 from mdhs_tpu_torch.models.mibf import MIBFNet
+from mdhs_tpu_torch.models.norm import BatchNorm2d
 from mdhs_tpu_torch.ops import _build
 from mdhs_tpu_torch.ops import attention_block as ab
+from mdhs_tpu_torch.ops import augment as aug
+from mdhs_tpu_torch.ops import bn_stats as bns
 from mdhs_tpu_torch.ops import ffn_block as fb
 from mdhs_tpu_torch.ops import fused_attention as fa
 from mdhs_tpu_torch.ops import quant_kernel as qk
+from mdhs_tpu_torch.ops import shear as sh
 from mdhs_tpu_torch.ops.preprocess import eval_pipeline
 from mdhs_tpu_torch.ops.quant import quantize_weight
 from mdhs_tpu_torch.serving import MIBF_HAM_SERVING, ServingModel
+from mdhs_tpu_torch.train.trainer import MIBF_HAM_TRAIN, Trainer
 
 MAX_ABS, MEAN_ABS = 6e-2, 5e-3           # bf16 kernel vs plain version
 INT8_FRAC = 0.01                         # int8 kernel vs plain: max |d| <= 0.01 * max |plain|
@@ -88,8 +122,22 @@ BATCH, SEQ, LONG_SEQ, CANVAS, LABELS = 32, 128, 256, 256, 7
 SEQ512 = 512
 VOCAB = 30522
 HD, HEADS, DI = 768, 12, 3072
-# H100 SXM datasheet peaks at 700 W: bytes/s of HBM, dense ops/s
-HBM_BPS, BF16_OPS, INT8_OPS = 3.35e12, 989e12, 1979e12
+# bn_stats vs its two-pass plain version: float32 sums in another order; a
+# mean near zero has no relative precision, so the atol scales with the data
+STATS_RTOL, STATS_ATOL = 1e-5, 1e-6      # atol * E|x| on the mean, * E[x^2] on the variance
+# bf16 training step against a float32 twin on the same weights and batch, dropout 0
+MIXED_LOSS_REL, MIXED_GRAD_COS = 2e-2, 0.99
+BN_AB_LOSS_REL = 1e-2                    # bn_stats kernel vs cuDNN BatchNorm, one step's loss
+# The train phase's ResNet50 takes each bottleneck's last BatchNorm scale at
+# 0.1: with every scale at 1 (the seeded init) a training-mode ResNet50 is
+# chaotic, so a bf16 step and a float32 step differ by the weights'
+# conditioning, not by their arithmetic (the phase reports that comparison
+# too: "seeded_init"; the JAX package's own bf16 step reads as low on these
+# weights, tests/test_torch_port_mixed_precision.py). A trained ResNet's
+# residual branches are damped (torchvision's zero_init_residual takes them to 0).
+RESIDUAL_BN_SCALE = 0.1
+# H100 SXM datasheet peaks at 700 W: bytes/s of HBM, dense ops/s (float32 outside the tensor cores)
+HBM_BPS, BF16_OPS, INT8_OPS, F32_OPS = 3.35e12, 989e12, 1979e12, 67e12
 
 KERNELS = {  # name: (module, source, TPU kernel it replaces)
     "attention_block": (ab.attention_block, "mdhs_tpu_torch/csrc/attention_block.cu",
@@ -101,6 +149,8 @@ KERNELS = {  # name: (module, source, TPU kernel it replaces)
                        "mdhs_tpu/ops/quant_kernel.py:97"),
     "int8_attention_block": (qk.int8_attention_block, "mdhs_tpu_torch/csrc/int8_attention_block.cu",
                              "mdhs_tpu/ops/quant_kernel.py:230"),
+    "shear_sublane": (sh.shear_sublane, "mdhs_tpu_torch/csrc/shear.cu", "mdhs_tpu/ops/shear.py:93"),
+    "bn_stats": (bns.bn_stats, "mdhs_tpu_torch/csrc/bn_stats.cu", "mdhs_tpu/ops/bn_stats.py:138"),
 }
 
 
@@ -147,6 +197,8 @@ def diff(out: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
 # convolutions are "fprop" kernels, so they are tested before cuBLAS's GEMMs;
 # fused_attention_kernel before attention_kernel, the s8 GEMMs before both)
 _FAMILIES = {
+    "shear_kernel": ("shear_sublane_kernel",),
+    "bn_stats_kernel": ("bn_stats_",),
     "gemm_s8_residual_ln_kernel": ("gemm_s8_residual_ln_kernel",),
     "gemm_s8_kernel": ("gemm_s8_kernel",),
     "row_quantize_kernel": ("row_quantize_kernel",),
@@ -154,15 +206,23 @@ _FAMILIES = {
     "gemm_bias_kernel": ("gemm_bias_kernel",),
     "fused_attention_kernel": ("fused_attention_kernel",),
     "attention_kernel": ("attention_kernel",),
-    "cudnn_conv": ("fprop", "conv"),
+    "cudnn_conv": ("fprop", "dgrad", "wgrad", "conv"),
     "batch_norm": ("batch_norm",),
     "cublas_gemm": ("nvjet", "gemm", "cublas"),
+    # PyTorch's own kernels, which the training step adds
+    "layer_norm": ("layer_norm",),
+    "softmax": ("softmax",),
+    "dropout": ("dropout",),
+    "optimizer_foreach": ("multi_tensor_apply",),
+    "elementwise": ("elementwise",),
+    "reduce": ("reduce_kernel",),
+    "copy_cat": ("copy", "cat"),
 }
 
 
-def device_profile(fn, forward_ms: float, reps: int = 3) -> dict:
-    """Device time per forward by kernel family (torch.profiler, CUDA events
-    only), and its share of the unprofiled CUDA-event time of the forward."""
+def _device_kernels(fn, reps: int) -> list:
+    """(name, device ms per call, launches per call) of every CUDA kernel fn
+    runs, from torch.profiler over ``reps`` calls after one warm-up call."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -170,15 +230,32 @@ def device_profile(fn, forward_ms: float, reps: int = 3) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    # a user annotation (torch.optim's "Optimizer.step#Adam.step") spans kernels counted on their own
+    return [(e.key, e.self_device_time_total / 1e3 / reps, e.count / reps) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
+
+
+def device_profile(fn, forward_ms: float, reps: int = 3, top: int = 0) -> dict:
+    """Device time per call by kernel family (torch.profiler, CUDA events
+    only), its share of the unprofiled CUDA-event time of the call, and the
+    ``top`` kernels by device time."""
+    kernels = _device_kernels(fn, reps)
     by = dict.fromkeys([*_FAMILIES, "other"], 0.0)
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        name = e.key.lower()
-        fam = next((f for f, frags in _FAMILIES.items() if any(x in name for x in frags)), "other")
-        by[fam] += e.self_device_time_total / 1e3 / reps
+    for name, ms, _ in kernels:
+        low = name.lower()
+        by[next((f for f, frags in _FAMILIES.items() if any(x in low for x in frags)), "other")] += ms
     busy = sum(by.values())
-    return {"kernel_ms": busy, "busy_share": busy / forward_ms, "by_family_ms": by}
+    out = {"kernel_ms": busy, "busy_share": busy / forward_ms, "by_family_ms": by}
+    if top:
+        out["top_kernels"] = [{"name": n[:120], "ms": ms, "launches": c}
+                              for n, ms, c in sorted(kernels, key=lambda k: -k[1])[:top]]
+    return out
+
+
+def kernel_device_ms(fn, reps: int = 10) -> float:
+    """Device time of one call (the sum of its kernels' times), without the
+    host's launch overhead that CUDA events around a short call include."""
+    return sum(ms for _, ms, _ in _device_kernels(fn, reps))
 
 
 # --- bounds: the least time the card could take for each kernel's work -------
@@ -216,6 +293,16 @@ def bound_fused_attention(B, L):
     return _bound(2 * (4 * B * L * HD) + 4 * B * L, 4 * B * HEADS * L * L * D / BF16_OPS)
 
 
+def bound_shear(B, C, S, L, pad):
+    # output column r reads rows s_r .. s_r + W of its plane: W + 1 of the S padded rows
+    W = S - 2 * pad
+    return _bound(4 * (B * C * (W + 1) * L + B * C * W * L + B * L), 3 * B * C * W * L / F32_OPS)
+
+
+def bound_bn_stats(R, C, itemsize):
+    return _bound(R * C * itemsize + 8 * C, 5 * R * C / F32_OPS)
+
+
 # ---------------------------------------------------------------------------
 def phase_device() -> tuple[torch.device, str]:
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
@@ -250,8 +337,62 @@ def _key_bias(B, L, n_pad, dev):
     return torch.tensor((1.0 - mask) * -1e9, device=dev)
 
 
+def judge_bf16(out, ref):
+    mx, mean = diff(out, ref)
+    return mx, mean, MAX_ABS, mx <= MAX_ABS and mean < MEAN_ABS
+
+
+def judge_int8(out, ref):
+    mx, mean = diff(out, ref)
+    bound = INT8_FRAC * ref.float().abs().max().item()
+    return mx, mean, bound, mx <= bound and mean < MEAN_ABS
+
+
+def judge_exact(out, ref):
+    mx, mean = diff(out, ref)
+    return mx, mean, 0.0, mx == 0.0
+
+
+def judge_stats(x):
+    """bn_stats' (mean, var) against the plain version's: rtol STATS_RTOL and
+    atol STATS_ATOL * E|x| (mean) or * E[x^2] (variance), element by element."""
+    xf = x.float()
+    atols = (STATS_ATOL * xf.abs().mean().item(), STATS_ATOL * xf.square().mean().item())
+
+    def judge(out, ref):
+        ok, mx, mean, bound = True, 0.0, 0.0, 0.0
+        for o, r, atol in zip(out, ref, atols):
+            d = (o - r).abs()
+            ok = ok and bool((d <= atol + STATS_RTOL * r.abs()).all())
+            mx, mean = max(mx, d.max().item()), max(mean, d.mean().item())
+            bound = max(bound, atol + STATS_RTOL * r.abs().max().item())
+        return mx, mean, bound, ok
+
+    return judge
+
+
+def _shear_case(rng, B, pad, max_degrees, axis, dev):
+    """A shear_sublane input as rotate_3shear makes it: (B, 3, 224 + 2 pad, 224)
+    with a zero border, and d = tan(angle / 2) * idx (the W shears) or
+    -sin(angle) * idx (the H shear)."""
+    O = 224
+    x = torch.zeros((B, 3, O + 2 * pad, O), dtype=torch.float32)
+    x[:, :, pad:pad + O] = torch.from_numpy(rng.random((B, 3, O, O), dtype=np.float32))
+    ang = np.radians(rng.uniform(-max_degrees, max_degrees, (B, 1)))
+    slope = np.tan(ang / 2) if axis == "w" else -np.sin(ang)
+    d = (slope * (np.arange(O) - (O - 1) / 2.0)).astype(np.float32)
+    x, d = x.to(dev), torch.from_numpy(d).to(dev)
+    # the same function as one grid_sample call: column r exactly, row v + pad + d[r] (timing only)
+    S = O + 2 * pad
+    cols = (2.0 * torch.arange(O, device=dev) / (O - 1) - 1.0).expand(B, O, O)
+    rows = 2.0 * (torch.arange(O, device=dev)[None, :, None] + pad + d[:, None, :]) / (S - 1) - 1.0
+    grid = torch.stack([cols, rows], dim=-1)
+    library = lambda: F.grid_sample(x, grid, mode="bilinear", padding_mode="zeros", align_corners=True)  # noqa: E731
+    return (x, d, pad), library
+
+
 def _kernel_cases(dev, rng):
-    """(name, shape, plain, args, main path?, (bound_ms, bound_by), library call or None, int8?)."""
+    """(name, shape, plain, args, main path?, (bound_ms, bound_by), library call or None, judge)."""
     cases = []
     for B, L in ((8, 128), (8, 256), (BATCH, SEQ)):
         args = (_rand(rng, (B, L, HD), 1.0, dev), _rand(rng, (3 * HD, HD), 0.03, dev),
@@ -259,7 +400,7 @@ def _kernel_cases(dev, rng):
                 (1.0 + _rand(rng, (HD,), 0.1, dev)).contiguous(), _rand(rng, (HD,), 0.1, dev),
                 _key_bias(B, L, 28, dev), HEADS, 0.125, 1e-12)
         cases.append(("attention_block", f"B={B},L={L}", ab.attention_block_reference, args,
-                      (B, L) == (BATCH, SEQ), bound_attention_block(B, L), None, False))
+                      (B, L) == (BATCH, SEQ), bound_attention_block(B, L), None, judge_bf16))
     for N in (128, BATCH * SEQ):
         for act in ("erf", "tanh"):
             args = (_rand(rng, (N, HD), 1.0, dev), _rand(rng, (DI, HD), 0.03, dev),
@@ -267,7 +408,7 @@ def _kernel_cases(dev, rng):
                     _rand(rng, (HD,), 0.01, dev), (1.0 + _rand(rng, (HD,), 0.1, dev)).contiguous(),
                     _rand(rng, (HD,), 0.1, dev), 1e-12, act)
             cases.append(("ffn_block", f"N={N},act={act}", fb.ffn_block_reference, args,
-                          (N, act) == (BATCH * SEQ, "erf"), bound_ffn_block(N), None, False))
+                          (N, act) == (BATCH * SEQ, "erf"), bound_ffn_block(N), None, judge_bf16))
     P = MIBF_HAM_SERVING.batch_size
     for N in (128, P * SEQ):
         for act in ("erf", "tanh"):  # the preset's fast_math takes tanh
@@ -277,7 +418,7 @@ def _kernel_cases(dev, rng):
                     _rand_f32(rng, (HD,), 0.01, dev), _rand_f32(rng, (HD,), 0.1, dev, 1.0),
                     _rand_f32(rng, (HD,), 0.1, dev), 1e-12, act)
             cases.append(("int8_ffn_block", f"N={N},act={act}", qk.int8_ffn_block_reference, args,
-                          (N, act) == (P * SEQ, "tanh"), bound_int8_ffn_block(N), None, True))
+                          (N, act) == (P * SEQ, "tanh"), bound_int8_ffn_block(N), None, judge_int8))
     for B, L in ((8, 128), (8, LONG_SEQ), (P, SEQ)):
         wqkv, sqkv = quantize_weight(_rand(rng, (3 * HD, HD), 0.03, dev))
         wo, so = quantize_weight(_rand(rng, (HD, HD), 0.03, dev))
@@ -285,7 +426,7 @@ def _kernel_cases(dev, rng):
                 _rand_f32(rng, (HD,), 0.01, dev), _rand_f32(rng, (HD,), 0.1, dev, 1.0),
                 _rand_f32(rng, (HD,), 0.1, dev), _key_bias(B, L, 28, dev), HEADS, 0.125, 1e-12)
         cases.append(("int8_attention_block", f"B={B},L={L}", qk.int8_attention_block_reference, args,
-                      (B, L) == (P, SEQ), bound_int8_attention_block(B, L), None, True))
+                      (B, L) == (P, SEQ), bound_int8_attention_block(B, L), None, judge_int8))
     for B, L in ((8, 384), (8, 500), (8, SEQ512), (BATCH, SEQ512)):
         q, k, v = (_rand(rng, (B, L, HD), 1.0, dev) for _ in range(3))
         bias = _key_bias(B, L, L // 5, dev)
@@ -294,34 +435,64 @@ def _kernel_cases(dev, rng):
         keep = (bias == 0)[:, None, None, :]
         library = lambda h=heads, m=keep: F.scaled_dot_product_attention(*h, attn_mask=m, scale=0.125)  # noqa: E731
         cases.append(("fused_attention", f"B={B},L={L}", fa.attention_reference, args,
-                      (B, L) == (BATCH, SEQ512), bound_fused_attention(B, L), library, False))
+                      (B, L) == (BATCH, SEQ512), bound_fused_attention(B, L), library, judge_bf16))
+    # the training step's rotation: pads 17 (W shears) and 31 (H shear) at 15 degrees, batch 32;
+    # the baseline family's 45 degrees (pads 49 / 82) on a smaller batch
+    for B, pad, deg, axis in ((BATCH, 17, 15.0, "w"), (BATCH, 31, 15.0, "h"), (8, 49, 45.0, "w"), (8, 82, 45.0, "h")):
+        args, library = _shear_case(rng, B, pad, deg, axis, dev)
+        x = args[0]
+        cases.append(("shear_sublane", f"x={tuple(x.shape)},pad={pad}", sh.shear_reference, args, pad == 17,
+                      bound_shear(*x.shape, pad), library, judge_exact))
+    # ResNet50's BatchNorm inputs at batch 32, channels-last rows, bf16: stem, layer1 (bn3), layer4 (bn3)
+    for R, C in ((BATCH * 112 * 112, 64), (BATCH * 56 * 56, 256), (BATCH * 7 * 7, 2048)):
+        x = (torch.randn((R, C), device=dev, generator=torch.Generator(device=dev).manual_seed(R + C)) * 2.0
+             + 0.5).to(torch.bfloat16)
+        library = lambda x=x: torch.var_mean(x, dim=0, unbiased=False)  # noqa: E731
+        cases.append(("bn_stats", f"R={R},C={C},bf16", bns.bn_stats_reference, (x,), C == 64,
+                      bound_bn_stats(R, C, 2), library, judge_stats(x)))
     return cases
 
 
 def phase_kernels(dev, rng) -> dict:
     """Each kernel against its plain version; returns per-kernel summaries."""
     summary = {}
-    for name, shape, plain, args, main_path, (bound_ms, bound_by), library, int8 in _kernel_cases(dev, rng):
+    for name, shape, plain, args, main_path, (bound_ms, bound_by), library, judge in _kernel_cases(dev, rng):
         kernel = KERNELS[name][0]
         out = kernel(*args)
         torch.cuda.synchronize()
         ref = plain(*args)
-        mx, mean = diff(out, ref)
-        check(bool(torch.isfinite(out.float()).all()), f"{name} {shape}: non-finite output")
-        max_bound = INT8_FRAC * ref.float().abs().max().item() if int8 else MAX_ABS
-        check(mx <= max_bound and mean < MEAN_ABS,
-              f"{name} {shape}: max|d|={mx} mean|d|={mean} beyond {max_bound}/{MEAN_ABS}")
+        outs = out if isinstance(out, tuple) else (out,)
+        check(all(bool(torch.isfinite(o.float()).all()) for o in outs), f"{name} {shape}: non-finite output")
+        mx, mean, max_bound, ok = judge(out, ref)
+        check(ok, f"{name} {shape}: max|d|={mx} mean|d|={mean} beyond {max_bound}")
         ms, plain_ms = cuda_ms(lambda: kernel(*args)), cuda_ms(lambda: plain(*args))
         library_ms = cuda_ms(library) if library is not None else None
+        device_ms = kernel_device_ms(lambda: kernel(*args))
         emit({"phase": "kernels", "kernel": name, "shape": shape, "max_abs_err": mx, "mean_abs_err": mean,
-              "max_abs_bound": max_bound, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-              "bound_by": bound_by, "library_ms": library_ms})
+              "max_abs_bound": max_bound, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+              "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms})
         s = summary.setdefault(name, {"max_abs_err": 0.0})
         s["max_abs_err"] = max(s["max_abs_err"], mx)
         if main_path:
-            s.update(shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                     library_ms=library_ms)
+            s.update(shape=shape, ms=ms, device_ms=device_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                     bound_by=bound_by, library_ms=library_ms)
         del out, ref
+    # bn_stats' backward (the analytic VJP) against autograd through the plain version,
+    # float32 at layer1's bn3 input
+    x0 = torch.randn((BATCH * 56 * 56, 256), device=dev, generator=torch.Generator(device=dev).manual_seed(3))
+    w = torch.randn(256, device=dev, generator=torch.Generator(device=dev).manual_seed(4))
+    grads = []
+    for fn in (bns.bn_stats, bns.bn_stats_reference):
+        x = x0.clone().requires_grad_()
+        m, v = fn(x)
+        (torch.sum(w * m) + torch.sum(torch.sqrt(v + 1e-5))).backward()
+        grads.append(x.grad)
+    d = (grads[0] - grads[1]).abs()
+    scale = grads[1].abs().max().item()
+    check(bool((d <= 1e-5 * scale + 1e-4 * grads[1].abs()).all()), f"bn_stats backward: max|d|={d.max().item()}")
+    emit({"phase": "kernels", "kernel": "bn_stats", "shape": f"backward R={x0.shape[0]},C=256,f32",
+          "max_abs_err": d.max().item(), "max_abs_bound": 1e-5 * scale})
+    del x0, grads, d
     torch.cuda.empty_cache()
     return summary
 
@@ -555,6 +726,257 @@ def phase_seq512(dev, rng, model, plain) -> dict:
     return launches
 
 
+def _train_batch(rng, n_valid: int) -> dict:
+    """A loader-shaped host batch: uint8 canvases, seq-256 tokens, labels and n_valid."""
+    b = _request(rng, MIBF_HAM_TRAIN.batch_size, MIBF_HAM_TRAIN.seq_len)
+    b["label"] = rng.integers(0, LABELS, MIBF_HAM_TRAIN.batch_size).astype(np.int64)
+    b["n_valid"] = np.int32(n_valid)
+    return b
+
+
+@contextlib.contextmanager
+def _plain_shears():
+    """rotate_3shear through shear_sublane's plain version, on the card (comparison only)."""
+    kernel = aug.shear_sublane
+    aug.shear_sublane = sh.shear_reference
+    try:
+        yield
+    finally:
+        aug.shear_sublane = kernel
+
+
+def _towers(model) -> dict:
+    """Parameter-name prefixes of the towers whose gradients are compared."""
+    groups = {"image_encoder": [], "text_encoder": [], "textbased_cross_attention": [],
+              "imagbased_cross_attention": [], "heads": []}
+    for name, p in model.named_parameters():
+        top = name.split(".")[0]
+        groups[top if top in groups else "heads"].append(p)
+    return groups
+
+
+def _grad_cosines(a, b) -> dict:
+    out = {}
+    for (name, pa), (_, pb) in zip(_towers(a).items(), _towers(b).items()):
+        ga = torch.cat([p.grad.double().flatten() for p in pa])
+        gb = torch.cat([p.grad.double().flatten() for p in pb])
+        out[name] = (ga @ gb / (ga.norm() * gb.norm() + 1e-30)).item()
+    return out
+
+
+def _forward_flops(model, images, ids, mask) -> float:
+    """FLOPs of one training-mode forward, from the shapes: every convolution
+    and Linear (2 * outputs * fan-in) plus BERT's attention products (4 B L^2 H
+    a layer). The step is counted as three forwards (backward ~ 2x)."""
+    total = [0.0]
+
+    def conv(m, i, o):
+        total[0] += 2.0 * o.numel() * (m.in_channels // m.groups) * m.kernel_size[0] * m.kernel_size[1]
+
+    def lin(m, i, o):
+        total[0] += 2.0 * o.numel() * m.in_features
+
+    hooks = [m.register_forward_hook(conv if isinstance(m, nn.Conv2d) else lin)
+             for m in model.modules() if isinstance(m, (nn.Conv2d, nn.Linear))]
+    try:
+        with torch.no_grad():
+            model.train()
+            model(images, ids, mask)
+    finally:
+        for h in hooks:
+            h.remove()
+    cfg = model.text_encoder.bert.cfg
+    B, L = ids.shape
+    return total[0] + 4.0 * B * L * L * cfg.hidden_size * cfg.num_hidden_layers
+
+
+def _step_parts_ms(trainer, batch, reps: int = 5) -> dict:
+    """Median CUDA-event times of one step's parts: augmentation, forward +
+    backward, optimizer (H2D staged before the first event)."""
+    parts = {"augment_ms": [], "forward_backward_ms": [], "optimizer_ms": [], "step_ms": []}
+    for _ in range(reps):
+        dev_b = trainer.to_device(batch)
+        valid = trainer.valid_mask(batch, dev_b["label"].shape[0])
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        images = trainer.augment(dev_b["image"])
+        ev[1].record()
+        trainer.forward_backward(images, dev_b, valid)
+        ev[2].record()
+        trainer.optimizer_step()
+        ev[3].record()
+        ev[3].synchronize()
+        parts["augment_ms"].append(ev[0].elapsed_time(ev[1]))
+        parts["forward_backward_ms"].append(ev[1].elapsed_time(ev[2]))
+        parts["optimizer_ms"].append(ev[2].elapsed_time(ev[3]))
+        parts["step_ms"].append(ev[0].elapsed_time(ev[3]))
+    return {k: statistics.median(v) for k, v in parts.items()}
+
+
+def _images_per_s(trainer, batches, steps: int = 8) -> float:
+    """Host clock over ``steps`` whole train_steps (H2D, augmentation, forward,
+    backward, Adam) after two of warm-up."""
+    for b in batches[:2]:
+        trainer.train_step(b)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        trainer.train_step(batches[i % len(batches)])
+    torch.cuda.synchronize()
+    return steps * MIBF_HAM_TRAIN.batch_size / (time.perf_counter() - t0)
+
+
+def _damp_residual_branches(model) -> nn.Module:
+    with torch.no_grad():
+        for name, m in model.image_encoder.named_modules():
+            if name.endswith(".bn3"):
+                m.weight.fill_(RESIDUAL_BN_SCALE)
+    return model
+
+
+def phase_train(dev, rng, seed: int) -> dict:
+    """MIBF-Net training at full width (MIBF_HAM_TRAIN): Trainer.fit, the
+    launches of each path, augmentation kernel vs plain, rates and times, the
+    bf16 step against a float32 twin, and the bn_stats A/B."""
+    preset = MIBF_HAM_TRAIN
+    B = preset.batch_size
+    g = torch.Generator(device=dev).manual_seed(seed + 2)
+    master = _damp_residual_branches(init_parameters(MIBFNet(preset.num_labels, preset.bert, device=dev), g))
+    trainer = Trainer(preset, model=master, device=dev)  # bf16 working module
+    train = [_train_batch(rng, n) for n in (B, B, 21)]  # the last batch is short: 11 padded rows
+    val = [_train_batch(rng, B), _train_batch(rng, 19)]
+    masters = dict(zip((n for n, _ in trainer.model.named_parameters()), trainer.master_parameters()))
+    watch = {n: masters[n].detach().clone() for n in ("fc.weight", "image_encoder.conv1.weight",
+                                                      "text_encoder.bert.encoder.layer.0.attention.self.query.weight")}
+    bn1 = trainer.model.image_encoder.bn1
+    rm0 = bn1.running_mean.clone()
+
+    # --- the main path: Trainer.fit, 2 epochs x 3 steps, validation on 2 batches an epoch
+    zero_counts()
+    history = trainer.fit(train, val, num_epochs=2, steps_per_epoch=3)
+    launches = read_counts()
+    layers, n_steps, n_val = preset.bert.num_hidden_layers, 6, 4
+    want = {**dict.fromkeys(KERNELS, 0), "shear_sublane": 3 * n_steps, "attention_block": layers * n_val,
+            "ffn_block": layers * n_val}
+    check(launches == want, f"fit launches {launches}, expected {want}")
+    losses = [x for h in history for x in h["train_losses"]] + [h["val_loss"] for h in history]
+    check(all(np.isfinite(losses)), f"non-finite losses {losses}")
+    check(all(not torch.equal(p, masters[n]) for n, p in watch.items()), "parameters unchanged")
+    check(bn1.running_var.dtype == torch.float32 and bn1.running_mean.dtype == torch.float32
+          and not torch.equal(bn1.running_mean, rm0), "BatchNorm running statistics not updated in float32")
+    check(int(bn1.num_batches_tracked) == n_steps, f"num_batches_tracked {int(bn1.num_batches_tracked)}")
+
+    # --- each path alone: a training step launches the three shears and nothing else;
+    # --- a validation forward the two sublayer kernels, 12 each
+    zero_counts()
+    trainer.train_step(train[0])
+    step_launches = read_counts()
+    check(step_launches == {**dict.fromkeys(KERNELS, 0), "shear_sublane": 3}, f"train_step launches {step_launches}")
+    zero_counts()
+    trainer.validate(val[:1])
+    val_launches = read_counts()
+    check(val_launches == {**dict.fromkeys(KERNELS, 0), "attention_block": layers, "ffn_block": layers},
+          f"validation launches {val_launches}")
+
+    # --- the augmentation: kernel against plain version on the same sampled values
+    canv = trainer.to_device(train[1])["image"]
+    p = aug.sample_crop_flip_rotate(B, preset.canvas, trainer.generator, vflip=preset.vflip, degrees=preset.degrees)
+    x_kernel = trainer.augment(canv, params=p)
+    with _plain_shears():
+        x_plain = trainer.augment(canv, params=p)
+    aug_d = diff(x_kernel, x_plain)
+    check(aug_d[0] == 0.0 and x_kernel.shape == (B, 3, preset.image_size, preset.image_size),
+          f"augmentation kernel vs plain: {aug_d}, shape {tuple(x_kernel.shape)}")
+
+    # --- rates and times of the step
+    images_per_s = _images_per_s(trainer, train)
+    parts = _step_parts_ms(trainer, train[0])
+    device = device_profile(lambda: trainer.train_step(train[0]), parts["step_ms"], reps=2, top=15)
+    with torch.no_grad():
+        dev_b = trainer.to_device(train[0])
+        images = trainer.augment(dev_b["image"])
+    step_flops = 3.0 * _forward_flops(trainer.model, images, dev_b["input_ids"], dev_b["attention_mask"])
+    flop_share = step_flops / (parts["step_ms"] / 1e3) / BF16_OPS
+
+    # --- bn_stats A/B: the same weights and batch, cuDNN BatchNorm against
+    # --- MIBFNet(bn_stats_kernel=True) in a trainer of its own
+    twin = MIBFNet(preset.num_labels, preset.bert, bn_stats_kernel=True, device=dev)
+    twin.load_state_dict({k: v.float() if v.is_floating_point() else v for k, v in trainer.model.state_dict().items()})
+    trainers = {"cudnn": trainer, "bn_stats": Trainer(preset, model=twin, device=dev)}
+    valid = trainer.valid_mask(train[0], B)
+    bn_inputs = []
+    hooks = [m.register_forward_pre_hook(lambda m, i: bn_inputs.append((tuple(i[0].shape), i[0].dtype)))
+             for m in trainer.model.modules() if isinstance(m, BatchNorm2d)]
+    zero_counts()
+    torch.manual_seed(seed)  # the same dropout masks in both runs
+    loss_cudnn, _ = trainer.forward_backward(images, dev_b, valid)
+    for h in hooks:
+        h.remove()
+    check(bns.bn_stats.launches == 0, "bn_stats launched with the switch off")
+    accepted = sum(bns.supports((s[0] * s[2] * s[3], s[1]), dt) for s, dt in bn_inputs)
+    zero_counts()
+    torch.manual_seed(seed)
+    loss_kernel, _ = trainers["bn_stats"].forward_backward(images, dev_b, valid)
+    ab_launches = read_counts()
+    check(ab_launches == {**dict.fromkeys(KERNELS, 0), "bn_stats": accepted},
+          f"bn_stats A/B launches {ab_launches}, expected {accepted} of {len(bn_inputs)} BatchNorm inputs")
+    rel = abs(loss_kernel.item() - loss_cudnn.item()) / abs(loss_cudnn.item())
+    check(rel <= BN_AB_LOSS_REL, f"bn_stats A/B loss {loss_kernel.item()} vs {loss_cudnn.item()}")
+    zero_counts()
+    trainers["bn_stats"].validate(val[:1])
+    check(bns.bn_stats.launches == 0, "bn_stats launched in eval")
+    ab_parts = {"cudnn": [], "bn_stats": []}
+    for which in ("cudnn", "bn_stats", "bn_stats", "cudnn"):
+        ab_parts[which].append(_step_parts_ms(trainers[which], train[0], reps=3))
+    ab_ms = {w: [p["step_ms"] for p in v] for w, v in ab_parts.items()}
+    ab_device = {}
+    for which in trainers:
+        fb_ms = statistics.median(p["forward_backward_ms"] for p in ab_parts[which])
+        ab_device[which] = device_profile(lambda t=trainers[which]: t.forward_backward(images, dev_b, valid),
+                                          fb_ms, reps=1)
+    del trainer, trainers, master, twin
+    torch.cuda.empty_cache()
+
+    # --- the bf16 step against a float32 twin: same weights, same augmented batch, dropout 0;
+    # --- checked with the damped residual branches, reported for the seeded init as it is
+    nodrop = dataclasses.replace(preset, bert=dataclasses.replace(preset.bert, hidden_dropout=0.0,
+                                                                 attention_dropout=0.0))
+    mixed = {}
+    for which, damp in (("damped", True), ("seeded_init", False)):
+        g = torch.Generator(device=dev).manual_seed(seed + 3)
+        m16 = init_parameters(MIBFNet(preset.num_labels, nodrop.bert, device=dev), g)
+        t16 = Trainer(nodrop, model=_damp_residual_branches(m16) if damp else m16, device=dev)
+        twin = MIBFNet(preset.num_labels, nodrop.bert, device=dev)
+        twin.load_state_dict({k: v.float() if v.is_floating_point() else v for k, v in t16.model.state_dict().items()})
+        t32 = Trainer(dataclasses.replace(nodrop, precision="f32"), model=twin, device=dev)
+        dev_b = t32.to_device(train[0])
+        valid = t32.valid_mask(train[0], B)
+        x32 = t32.augment(dev_b["image"])
+        loss32, _ = t32.forward_backward(x32, dev_b, valid)
+        loss16, _ = t16.forward_backward(x32.to(torch.bfloat16), dev_b, valid)
+        mixed[which] = {"loss_bf16": loss16.item(), "loss_f32": loss32.item(),
+                        "loss_rel": abs(loss16.item() - loss32.item()) / abs(loss32.item()),
+                        "grad_cosine": _grad_cosines(t16.model, t32.model)}
+        del t16, t32, twin, m16
+        torch.cuda.empty_cache()
+    d = mixed["damped"]
+    check(d["loss_rel"] <= MIXED_LOSS_REL, f"bf16 vs float32 loss: {mixed}")
+    check(all(c >= MIXED_GRAD_COS for c in d["grad_cosine"].values()), f"bf16 vs float32 gradients: {mixed}")
+
+    emit({"phase": "train", "model": "MIBFNet(num_labels=7): ResNet50 + BERT-base, bf16 module with float32 "
+          f"masters, residual-branch BatchNorm scale {RESIDUAL_BN_SCALE}, MIBF_HAM_TRAIN (configs/mibf/mibf_ham.yml): batch 32, seq 256, canvas 256 -> 224, Adam 2e-5, "
+          "cosine, KL_loss, degrees 15",
+          "history": history, "launches_fit": launches, "launches_train_step": step_launches,
+          "launches_validation_forward": val_launches, "augment_kernel_vs_plain_max_abs": aug_d[0],
+          "images_per_s_b32": images_per_s, "step_parts_ms": parts, "device": device,
+          "step_tflop": step_flops / 1e12, "flop_share_of_989_tflops": flop_share,
+          "bn_stats_ab": {"bn_inputs": len(bn_inputs), "accepted": accepted, "launches": ab_launches["bn_stats"],
+                          "loss_cudnn": loss_cudnn.item(), "loss_bn_stats": loss_kernel.item(), "loss_rel": rel,
+                          "step_ms": ab_ms, "device_forward_backward": ab_device},
+          "bf16_vs_f32": mixed})
+    return {"launches": launches, "ab_launches": ab_launches}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -569,13 +991,16 @@ def main() -> int:
     del model, plain
     torch.cuda.empty_cache()
     preset_launches = phase_preset(dev, rng, seed)
+    torch.cuda.empty_cache()
+    train = phase_train(dev, rng, seed)
     main_path = {"attention_block": slice_launches, "ffn_block": slice_launches,
                  "fused_attention": seq512_launches, "int8_ffn_block": preset_launches,
-                 "int8_attention_block": preset_launches}
+                 "int8_attention_block": preset_launches, "shear_sublane": train["launches"],
+                 "bn_stats": train["ab_launches"]}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": main_path[name][name], "max_abs_err": summary[name]["max_abs_err"],
-         "ms": summary[name]["ms"], "plain_ms": summary[name]["plain_ms"],
+         "ms": summary[name]["ms"], "device_ms": summary[name]["device_ms"], "plain_ms": summary[name]["plain_ms"],
          "bound_ms": summary[name]["bound_ms"], "bound_by": summary[name]["bound_by"],
          "library_ms": summary[name]["library_ms"]}
         for name, (_, src, rep) in KERNELS.items()]})

@@ -3,13 +3,18 @@
 The JAX package ``mdhs_tpu`` is the reference; this package mirrors its
 module names so each counterpart is easy to find:
 
-- ``mdhs_tpu_torch.ops``      eval preprocessing, GELU, int8 quantization,
-                              and the hand-written CUDA kernels
-                              (``attention_block``, ``ffn_block``,
-                              ``fused_attention``, ``quant_kernel``'s int8
-                              sublayers) with their plain PyTorch versions
-- ``mdhs_tpu_torch.models``   ResNet, BERT and MIBF-Net as ``nn.Module``s
-                              with torchvision / HF state_dict names
+- ``mdhs_tpu_torch.ops``      eval preprocessing, the training augmentation,
+                              GELU, int8 quantization, and the hand-written
+                              CUDA kernels (``attention_block``,
+                              ``ffn_block``, ``fused_attention``,
+                              ``quant_kernel``'s int8 sublayers, ``shear``'s
+                              ``shear_sublane``, ``bn_stats``) with their
+                              plain PyTorch versions
+- ``mdhs_tpu_torch.models``   ResNet, BERT, MIBF-Net and BatchNorm as
+                              ``nn.Module``s with torchvision / HF
+                              state_dict names
+- ``mdhs_tpu_torch.train``    losses, schedules and optimizers, metrics, and
+                              the MIBF ``Trainer`` with ``MIBF_HAM_TRAIN``
 - ``mdhs_tpu_torch.modules``  ``JointKVCrossAttention``
 - ``mdhs_tpu_torch.core``     weights carried across from the JAX trees
 - ``mdhs_tpu_torch.serving``  ``ServingModel``: resident weights, static

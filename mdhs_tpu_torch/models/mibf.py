@@ -4,6 +4,12 @@ Counterpart of ``mdhs_tpu/models/mibf.py``. Submodule names are the ones
 ``mdhs_tpu.core.convert.convert_mibf_full`` reads: ``text_encoder.bert.*``,
 ``image_encoder.*``, ``{textbased,imagbased}_cross_attention.*``, ``fc``,
 ``fc_image.{1,3}`` and ``fc_text.{1,3}``.
+
+In training mode (``model.train()``) BatchNorm takes batch statistics and
+BERT's dropout is live at the JAX package's four places
+(``mdhs_tpu/models/bert.py:228, :338, :376, :415``); ``bn_stats_kernel=True``
+makes the ResNet tower's BatchNorms take those statistics from the
+``bn_stats`` kernel (``models/norm.py``).
 """
 
 from __future__ import annotations
@@ -34,11 +40,12 @@ def _mlp_head(num_labels: int, **factory) -> nn.Sequential:
 
 
 class MIBFNet(nn.Module):
-    def __init__(self, num_labels: int = 6, bert: BertConfig = BertConfig(), device=None, dtype=None):
+    def __init__(self, num_labels: int = 6, bert: BertConfig = BertConfig(), bn_stats_kernel: bool = False,
+                 device=None, dtype=None):
         super().__init__()
         f = dict(device=device, dtype=dtype)
         self.text_encoder = TextEncoder(bert, **f)
-        self.image_encoder = ResNetClassifier("resnet50", num_outputs=768, **f)
+        self.image_encoder = ResNetClassifier("resnet50", num_outputs=768, bn_stats_kernel=bn_stats_kernel, **f)
         self.textbased_cross_attention = JointKVCrossAttention(768, 1, **f)
         self.imagbased_cross_attention = JointKVCrossAttention(768, 1, **f)
         self.fc = nn.Linear(768 * 2, num_labels, **f)

@@ -8,7 +8,9 @@ ResNet50 (Bottleneck, torch v1.5 stride placement), and ``ResNetClassifier``
 converters read this state_dict directly.
 
 Convolutions pad symmetrically by k//2, as the JAX package does; they are
-cuDNN's, in ``channels_last`` on the card. BatchNorm is torch's, eps 1e-5.
+cuDNN's, in ``channels_last`` on the card. BatchNorm is ``models/norm.py``'s
+(torch's, eps 1e-5, momentum 0.1); ``bn_stats_kernel=True`` makes every one
+of them take training-mode statistics from the ``bn_stats`` kernel.
 The JAX package's space-to-depth stem (``S2DStemConv``) is a TPU layout
 trick computing the same dot products and is not ported.
 """
@@ -17,6 +19,8 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+
+from .norm import BatchNorm2d
 
 STAGE_SIZES = {
     "resnet18": [2, 2, 2, 2],
@@ -29,14 +33,14 @@ def _conv(cin: int, cout: int, k: int, stride: int = 1, **factory) -> nn.Conv2d:
     return nn.Conv2d(cin, cout, k, stride, padding=k // 2, bias=False, **factory)
 
 
-def _bn(c: int, **factory) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=1e-5, momentum=0.1, **factory)
+def _bn(c: int, bn_stats_kernel: bool = False, **factory) -> BatchNorm2d:
+    return BatchNorm2d(c, eps=1e-5, momentum=0.1, bn_stats_kernel=bn_stats_kernel, **factory)
 
 
-def _downsample(cin: int, cout: int, stride: int, **factory):
+def _downsample(cin: int, cout: int, stride: int, bn_stats_kernel: bool = False, **factory):
     if stride == 1 and cin == cout:
         return None
-    return nn.Sequential(_conv(cin, cout, 1, stride, **factory), _bn(cout, **factory))
+    return nn.Sequential(_conv(cin, cout, 1, stride, **factory), _bn(cout, bn_stats_kernel, **factory))
 
 
 class BasicBlock(nn.Module):
@@ -44,14 +48,15 @@ class BasicBlock(nn.Module):
 
     expansion = 1
 
-    def __init__(self, cin: int, width: int, stride: int = 1, device=None, dtype=None):
+    def __init__(self, cin: int, width: int, stride: int = 1, bn_stats_kernel: bool = False,
+                 device=None, dtype=None):
         super().__init__()
         f = dict(device=device, dtype=dtype)
         self.conv1 = _conv(cin, width, 3, stride, **f)
-        self.bn1 = _bn(width, **f)
+        self.bn1 = _bn(width, bn_stats_kernel, **f)
         self.conv2 = _conv(width, width, 3, **f)
-        self.bn2 = _bn(width, **f)
-        self.downsample = _downsample(cin, width, stride, **f)
+        self.bn2 = _bn(width, bn_stats_kernel, **f)
+        self.downsample = _downsample(cin, width, stride, bn_stats_kernel, **f)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         residual = x if self.downsample is None else self.downsample(x)
@@ -65,16 +70,17 @@ class Bottleneck(nn.Module):
 
     expansion = 4
 
-    def __init__(self, cin: int, width: int, stride: int = 1, device=None, dtype=None):
+    def __init__(self, cin: int, width: int, stride: int = 1, bn_stats_kernel: bool = False,
+                 device=None, dtype=None):
         super().__init__()
         f = dict(device=device, dtype=dtype)
         self.conv1 = _conv(cin, width, 1, **f)
-        self.bn1 = _bn(width, **f)
+        self.bn1 = _bn(width, bn_stats_kernel, **f)
         self.conv2 = _conv(width, width, 3, stride, **f)
-        self.bn2 = _bn(width, **f)
+        self.bn2 = _bn(width, bn_stats_kernel, **f)
         self.conv3 = _conv(width, width * 4, 1, **f)
-        self.bn3 = _bn(width * 4, **f)
-        self.downsample = _downsample(cin, width * 4, stride, **f)
+        self.bn3 = _bn(width * 4, bn_stats_kernel, **f)
+        self.downsample = _downsample(cin, width * 4, stride, bn_stats_kernel, **f)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         residual = x if self.downsample is None else self.downsample(x)
@@ -91,20 +97,20 @@ class ResNet(nn.Module):
     """ResNet trunk. ``forward(x)`` takes NCHW and returns the taps
     ``stem`` (after the max-pool) and ``layer1`` .. ``layer4``."""
 
-    def __init__(self, backbone: str = "resnet18", device=None, dtype=None):
+    def __init__(self, backbone: str = "resnet18", bn_stats_kernel: bool = False, device=None, dtype=None):
         super().__init__()
         if backbone not in STAGE_SIZES:
             raise ValueError(f"Unsupported backbone: {backbone}")
         f = dict(device=device, dtype=dtype)
         self.conv1 = _conv(3, 64, 7, 2, **f)
-        self.bn1 = _bn(64, **f)
+        self.bn1 = _bn(64, bn_stats_kernel, **f)
         self.maxpool = nn.MaxPool2d(3, 2, padding=1)
         block = BLOCK_CLS[backbone]
         cin = 64
         for i, (n_blocks, width) in enumerate(zip(STAGE_SIZES[backbone], (64, 128, 256, 512))):
             blocks = []
             for j in range(n_blocks):
-                blocks.append(block(cin, width, 2 if (i > 0 and j == 0) else 1, **f))
+                blocks.append(block(cin, width, 2 if (i > 0 and j == 0) else 1, bn_stats_kernel, **f))
                 cin = width * block.expansion
             setattr(self, f"layer{i + 1}", nn.Sequential(*blocks))
         self.out_channels = cin
@@ -121,8 +127,9 @@ class ResNet(nn.Module):
 class ResNetClassifier(ResNet):
     """ResNet trunk + global mean pool + Linear head; returns (logits, taps)."""
 
-    def __init__(self, backbone: str = "resnet50", num_outputs: int = 768, device=None, dtype=None):
-        super().__init__(backbone, device=device, dtype=dtype)
+    def __init__(self, backbone: str = "resnet50", num_outputs: int = 768, bn_stats_kernel: bool = False,
+                 device=None, dtype=None):
+        super().__init__(backbone, bn_stats_kernel, device=device, dtype=dtype)
         self.fc = nn.Linear(self.out_channels, num_outputs, device=device, dtype=dtype)
 
     def forward(self, x: torch.Tensor):

@@ -31,7 +31,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 SOURCES = ("gemm.cu", "attention_block.cu", "ffn_block.cu", "int8_gemm.cu", "int8_ffn_block.cu",
-           "int8_attention_block.cu", "fused_attention.cu")
+           "int8_attention_block.cu", "fused_attention.cu", "shear.cu", "bn_stats.cu")
 HEADERS = ("common.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-lineinfo", "-Xptxas=-v", "-Xcompiler", "-fPIC")
@@ -51,6 +51,10 @@ _SIGNATURES = {
     "int8_attention_block_forward": [_P] * 17 + [_I] * 4 + [_F, _F, _P],
     # q, k, v, bias, ctx, B, L, HD, heads, scale, stream
     "fused_attention_forward": [_P] * 5 + [_I] * 4 + [_F, _P],
+    # x, d, out, B, C, S, L, pad, stream
+    "shear_sublane_forward": [_P] * 3 + [_I] * 5 + [_P],
+    # x, dtype, pmean, pm2, mean, var, R, C, rows_per_group, groups, stream
+    "bn_stats_forward": [_P, _I] + [_P] * 4 + [_I] * 4 + [_P],
 }
 
 

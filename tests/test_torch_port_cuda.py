@@ -242,3 +242,146 @@ def test_fused_impl_raises_where_no_kernel_takes_the_shape(dev):
                       device=dev, dtype=torch.bfloat16).eval()
     with pytest.raises(ValueError, match="attention_impl='fused'"), torch.inference_mode():
         model(torch.zeros((1, 16), dtype=torch.int64, device=dev))
+
+
+# --------------------------------------------------------------------------- the training step's kernels
+# shear_sublane: bit-exact against its plain version (two products and one
+# sum, each rounded). bn_stats: float32 sums in another order than torch's
+# reduction: rtol 1e-5 on mean and variance, with atol 1e-6 * E|x| on the
+# mean and 1e-6 * E[x^2] on the variance (a mean near zero has no relative
+# precision); its backward within 1e-5 of the largest gradient.
+from mdhs_tpu_torch.models.norm import BatchNorm2d  # noqa: E402
+from mdhs_tpu_torch.ops import augment as aug  # noqa: E402
+from mdhs_tpu_torch.ops import bn_stats as bns  # noqa: E402
+from mdhs_tpu_torch.ops import shear as sh  # noqa: E402
+
+
+@pytest.mark.parametrize("B, C, W, L, pad", [(32, 3, 224, 224, 17), (32, 3, 224, 224, 31), (4, 3, 224, 224, 49),
+                                             (4, 3, 224, 224, 82), (3, 2, 37, 45, 5), (1, 1, 1, 1, 1)])
+def test_shear_kernel_is_bit_exact(dev, B, C, W, L, pad):
+    rng = np.random.default_rng(W + L + pad)
+    x = torch.zeros((B, C, W + 2 * pad, L), dtype=torch.float32)
+    x[:, :, pad:pad + W] = torch.from_numpy(rng.random((B, C, W, L)).astype(np.float32))
+    d = torch.from_numpy((rng.uniform(-1, 1, (B, L)) * (pad - 0.01)).astype(np.float32))
+    x, d = x.to(dev), d.to(dev)
+    n = sh.shear_sublane.launches
+    out = sh.shear_sublane(x, d, pad)
+    torch.cuda.synchronize()
+    assert sh.shear_sublane.launches == n + 1
+    assert torch.equal(out, sh.shear_reference(x, d, pad))
+    assert torch.equal(out.cpu(), sh.shear_reference(x.cpu(), d.cpu(), pad))
+
+
+def test_rotation_launches_three_shears(dev):
+    rng = np.random.default_rng(0)
+    imgs = torch.from_numpy(rng.random((4, 64, 64, 3)).astype(np.float32))
+    angles = torch.from_numpy(np.radians(rng.uniform(-15, 15, 4)).astype(np.float32))
+    n = sh.shear_sublane.launches
+    out = aug.rotate_3shear(imgs.to(dev), angles.to(dev), 15.0)
+    assert sh.shear_sublane.launches == n + 3
+    # tan / sin of float32 angles may differ by an ulp between the card and the CPU
+    torch.testing.assert_close(out.cpu(), aug.rotate_3shear(imgs, angles, 15.0), atol=1e-5, rtol=0)
+
+
+def _close_stats(got, want, x):
+    (m, v), (mr, vr) = got, want
+    xf = x.float()
+    torch.testing.assert_close(m, mr, rtol=1e-5, atol=1e-6 * xf.abs().mean().item())
+    torch.testing.assert_close(v, vr, rtol=1e-5, atol=1e-6 * xf.square().mean().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(32 * 56 * 56, 64), (32 * 7 * 7, 2048), (1000, 40), (129, 3), (1, 5)])
+def test_bn_stats_kernel_matches_plain(dev, shape, dtype):
+    rng = np.random.default_rng(shape[0] + shape[1])
+    x = torch.from_numpy((rng.standard_normal(shape) * 3 + 5).astype(np.float32)).to(dev, dtype)
+    n = bns.bn_stats.launches
+    got = bns.bn_stats(x)
+    torch.cuda.synchronize()
+    assert bns.bn_stats.launches == n + 1
+    assert got[0].dtype == got[1].dtype == torch.float32
+    _close_stats(got, bns.bn_stats_reference(x), x)
+
+
+def test_bn_stats_kernel_backward_matches_plain_autograd(dev):
+    rng = np.random.default_rng(1)
+    x0 = torch.from_numpy(rng.standard_normal((16, 28, 28, 128)).astype(np.float32)).to(dev)
+    w = torch.from_numpy(rng.standard_normal(128).astype(np.float32)).to(dev)
+    grads = []
+    for fn in (bns.bn_stats, bns.bn_stats_reference):
+        x = x0.clone().requires_grad_()
+        m, v = fn(x)
+        (torch.sum(w * m) + torch.sum(torch.sqrt(v + 1e-5))).backward()
+        grads.append(x.grad)
+    scale = grads[1].abs().max().item()
+    torch.testing.assert_close(grads[0], grads[1], atol=1e-5 * scale, rtol=1e-4)
+
+
+def test_batchnorm_switch_launches_bn_stats_in_training_only(dev):
+    bn = BatchNorm2d(64, bn_stats_kernel=True, device=dev)
+    ref = torch.nn.BatchNorm2d(64, device=dev)
+    x = torch.randn(8, 64, 28, 28, device=dev, dtype=torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    n = bns.bn_stats.launches
+    y = bn(x)
+    assert bns.bn_stats.launches == n + 1 and y.dtype == torch.bfloat16
+    _close(y, ref(x))
+    torch.testing.assert_close(bn.running_var, ref.running_var, atol=1e-4, rtol=1e-3)
+    bn.eval()
+    bn(x)
+    assert bns.bn_stats.launches == n + 1
+
+
+def test_training_kernel_wrappers_raise_instead_of_falling_back(dev):
+    with pytest.raises(ValueError, match="unsupported"):
+        sh.shear_sublane(torch.zeros((2, 3, 40, 16), device=dev, dtype=torch.bfloat16),
+                         torch.zeros((2, 16), device=dev), 5)
+    with pytest.raises(ValueError, match="contiguous"):
+        sh.shear_sublane(torch.zeros((2, 3, 16, 40), device=dev).transpose(2, 3), torch.zeros((2, 16), device=dev), 5)
+    with pytest.raises(ValueError, match="unsupported"):
+        bns.bn_stats(torch.zeros((64, 32), device=dev, dtype=torch.float16))
+
+
+def test_trainer_launches_the_shear_in_steps_and_the_sublayers_in_validation(dev):
+    import dataclasses as dc
+
+    from mdhs_tpu_torch.train.trainer import MIBF_HAM_TRAIN, Trainer
+
+    bert = BertConfig(vocab_size=512, num_hidden_layers=2, intermediate_size=512,  # MIBF's fusion is 768 wide
+                      max_position_embeddings=128)
+    preset = dc.replace(MIBF_HAM_TRAIN, bert=bert, batch_size=4, seq_len=40, canvas=72, image_size=64)
+    trainer = Trainer(preset, device=dev)
+    rng = np.random.default_rng(0)
+
+    def batch(n_valid):
+        return {"image": rng.integers(0, 256, (4, 72, 72, 3), dtype=np.uint8),
+                "input_ids": rng.integers(0, 512, (4, 40)), "attention_mask": np.ones((4, 40), np.int64),
+                "label": rng.integers(0, 7, 4), "n_valid": np.int32(n_valid)}
+
+    before = _counts() + (sh.shear_sublane.launches,)
+    m = trainer.train_step(batch(3))
+    assert [a - b for a, b in zip(_counts() + (sh.shear_sublane.launches,), before)] == [0, 0, 0, 0, 0, 3]
+    assert bool(torch.isfinite(m["loss"]))
+    before = _counts()
+    trainer.validate([batch(4), batch(2)])
+    assert [a - b for a, b in zip(_counts(), before)] == [4, 4, 0, 0, 0]
+    assert trainer.model.image_encoder.bn1.running_var.dtype == torch.float32
+
+
+def test_trainer_validates_before_its_first_step(dev):
+    """Staging buffers made inside validate's inference mode are written again by train steps."""
+    import dataclasses as dc
+
+    from mdhs_tpu_torch.train.trainer import MIBF_HAM_TRAIN, Trainer
+
+    bert = BertConfig(vocab_size=512, num_hidden_layers=1, intermediate_size=512, max_position_embeddings=128)
+    trainer = Trainer(dc.replace(MIBF_HAM_TRAIN, bert=bert, batch_size=4, seq_len=40, canvas=72, image_size=64),
+                      device=dev)
+    rng = np.random.default_rng(1)
+    batch = {"image": rng.integers(0, 256, (4, 72, 72, 3), dtype=np.uint8),
+             "input_ids": rng.integers(0, 512, (4, 40)), "attention_mask": np.ones((4, 40), np.int64),
+             "label": rng.integers(0, 7, 4)}
+    for _ in range(2):  # both slots of the staging ring
+        loss, _ = trainer.validate([batch])
+        assert np.isfinite(loss)
+    for _ in range(2):
+        assert bool(torch.isfinite(trainer.train_step(batch)["loss"]))

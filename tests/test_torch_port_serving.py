@@ -109,8 +109,8 @@ def test_serving_runs_on_the_card_unless_asked_for_the_cpu(model):
 
 
 def test_package_imports_no_jax_and_runs_the_slice():
-    """A fresh interpreter: the port's modules and a CPU run of the slice
-    leave jax, flax and mdhs_tpu out of sys.modules (this test process has
+    """A fresh interpreter: the port's modules, a CPU run of the serving slice
+    and a training step leave jax, flax and mdhs_tpu out of sys.modules (this test process has
     them, because the suite's conftest imports jax)."""
     script = textwrap.dedent(f"""
         import dataclasses, sys
@@ -119,9 +119,11 @@ def test_package_imports_no_jax_and_runs_the_slice():
         from mdhs_tpu_torch.core import convert
         from mdhs_tpu_torch.models import bert, init, mibf, resnet
         from mdhs_tpu_torch.modules import attention
-        from mdhs_tpu_torch.ops import (_build, attention_block, ffn_block, fused_attention, gelu,
-                                        preprocess, quant, quant_kernel)
+        from mdhs_tpu_torch.models import norm
+        from mdhs_tpu_torch.ops import (_build, attention_block, augment, bn_stats, ffn_block, fused_attention,
+                                        gelu, preprocess, quant, quant_kernel, shear)
         from mdhs_tpu_torch.serving import MIBF_HAM_SERVING, ServingModel
+        from mdhs_tpu_torch.train import losses, metrics, optim, trainer
         cfg = bert.BertConfig(vocab_size=64, num_hidden_layers=1, intermediate_size=64,
                               max_position_embeddings=16)
         m = init.init_parameters(mibf.MIBFNet(3, cfg), torch.Generator().manual_seed(0))
@@ -134,6 +136,11 @@ def test_package_imports_no_jax_and_runs_the_slice():
         q.load_state_dict(m.state_dict())
         out = ServingModel(q, 2, "cpu", image_size=32).predict(req)
         assert out.shape == (2, 3) and np.isfinite(out).all()
+        preset = dataclasses.replace(trainer.MIBF_HAM_TRAIN, bert=cfg, num_labels=3, batch_size=2, seq_len=8,
+                                     canvas=40, image_size=32)
+        step = trainer.Trainer(preset, model=m, device="cpu").train_step(
+            dict(req, label=np.array([0, 2]), n_valid=np.int32(1)))
+        assert np.isfinite(float(step["loss"]))
         bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "flax", "mdhs_tpu"))
         print("LEAKED", bad)
     """)
