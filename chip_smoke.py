@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's MIBF-Net serving and training paths once on an NVIDIA GPU.
+"""Drive the PyTorch port's serving and training paths once on an NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
 
@@ -18,10 +18,13 @@ Phases, each printing JSON lines:
               bytes / 3.35 TB/s and operations / peak rate, from this run's
               shapes), and as the library call (timing only) on the same
               inputs scaled_dot_product_attention for fused_attention,
-              grid_sample for shear_sublane and var_mean for bn_stats;
-              shear_sublane bit-exact; bn_stats within rtol 1e-5 and atol
-              1e-6 * E|x| (mean) or * E[x^2] (variance), and its backward
-              within 1e-5 of the largest gradient
+              grid_sample for shear_sublane and var_mean for bn_stats (none
+              for selective_scan and kan_forward: no one PyTorch call computes
+              either); shear_sublane bit-exact; bn_stats within rtol 1e-5 and
+              atol 1e-6 * E|x| (mean) or * E[x^2] (variance), and its backward
+              within 1e-5 of the largest gradient; selective_scan (N 16, and
+              N 8 and 128) and kan_forward (both layers of the MoE bank)
+              within max |d| <= 1e-4 * max |plain| (float32)
   4. slice    full-width MIBF-Net (ResNet50 + BERT-base, 7 labels), bf16,
               exact-parity, seeded random weights, through ServingModel(batch
               32): 3 requests (32, 32, 5 rows, seq 128) via predict_stream with
@@ -45,7 +48,21 @@ Phases, each printing JSON lines:
   6. seq512   the exact bf16 MIBF-Net, one request of 32 rows at seq 512:
               fused_attention and ffn_block launched 12 times, attention_block
               none; BERT output and logits within 0.15 / 0.01 of the plain path
-  7. train    MIBF-Net training at full width (MIBF_HAM_TRAIN: batch 32, seq
+  7. baseline the baseline family's two served configurations at full width
+              (configs/ham/ham_fusion_ssm_v1.yml: ResNet18 layer4 tokens, BERT-
+              base, the Mamba fusion, an MLP head; ham_head_moe_v1.yml: layer2/3/4
+              tokens, the multiscale fusion, the KAN-expert MoE head), bf16,
+              seeded random weights (w_gate drawn, then made orthogonal to the
+              mean fused feature so that rows route apart), through ServingModel(batch
+              64): 3 requests (64, 64, 9 rows, seq 128) via predict_stream and
+              one of 1 row, with attention_block and ffn_block launched 12
+              times a forward and selective_scan once or kan_forward twice;
+              the same weights with that op routed to its plain version within
+              max |d| <= 2^-6 * max |logit| (two bf16 steps: BF16_STEPS says
+              why) and mean |d| <= 2^-10 * max |logit|; images/s at batch 64,
+              the share of rows routed to each pair of experts; p50 latency
+              at batch 1, forward time and the device breakdown
+  8. train    MIBF-Net training at full width (MIBF_HAM_TRAIN: batch 32, seq
               256, canvas 256 -> 224, Adam, cosine, MP-Loss), a bf16 module
               with float32 masters, seeded random weights with each
               bottleneck's last BatchNorm scale at 0.1: Trainer.fit over 2
@@ -89,21 +106,27 @@ import torch.nn.functional as F
 from torch import nn
 
 from mdhs_tpu_torch import resolve_device
+from mdhs_tpu_torch.models.baseline import MultimodalBaselineModel
 from mdhs_tpu_torch.models.bert import BertConfig
 from mdhs_tpu_torch.models.init import init_parameters
 from mdhs_tpu_torch.models.mibf import MIBFNet
 from mdhs_tpu_torch.models.norm import BatchNorm2d
+from mdhs_tpu_torch.modules.kan import make_grid
+from mdhs_tpu_torch.modules.moe import noisy_top_k_gating
 from mdhs_tpu_torch.ops import _build
 from mdhs_tpu_torch.ops import attention_block as ab
 from mdhs_tpu_torch.ops import augment as aug
 from mdhs_tpu_torch.ops import bn_stats as bns
 from mdhs_tpu_torch.ops import ffn_block as fb
 from mdhs_tpu_torch.ops import fused_attention as fa
+from mdhs_tpu_torch.ops import kan_spline as ks
 from mdhs_tpu_torch.ops import quant_kernel as qk
+from mdhs_tpu_torch.ops import selective_scan as ss
 from mdhs_tpu_torch.ops import shear as sh
 from mdhs_tpu_torch.ops.preprocess import eval_pipeline
 from mdhs_tpu_torch.ops.quant import quantize_weight
-from mdhs_tpu_torch.serving import MIBF_HAM_SERVING, ServingModel
+from mdhs_tpu_torch.serving import (BASELINE_BATCH, BASELINE_SEQ, HAM_FUSION_SSM, HAM_HEAD_MOE, MIBF_HAM_SERVING,
+                                    ServingModel)
 from mdhs_tpu_torch.train.trainer import MIBF_HAM_TRAIN, Trainer
 
 MAX_ABS, MEAN_ABS = 6e-2, 5e-3           # bf16 kernel vs plain version
@@ -128,6 +151,13 @@ STATS_RTOL, STATS_ATOL = 1e-5, 1e-6      # atol * E|x| on the mean, * E[x^2] on 
 # bf16 training step against a float32 twin on the same weights and batch, dropout 0
 MIXED_LOSS_REL, MIXED_GRAD_COS = 2e-2, 0.99
 BN_AB_LOSS_REL = 1e-2                    # bn_stats kernel vs cuDNN BatchNorm, one step's loss
+F32_FRAC = 1e-4                          # float32 kernels vs plain: max |d| <= 1e-4 * max |plain|
+# A baseline model with a float32 kernel vs the same weights with its plain op: the
+# two agree to ~1e-6 relative, which flips a bf16 rounding now and then downstream
+# (the scan's and each KAN layer's outputs are cast to bf16, the MLP head's logits
+# are bf16): max |d| within two bf16 steps of the largest logit (2^-6 of it), mean
+# |d| within 2^-10 of it. Relative, as the two heads' logits differ in scale by 10^3.
+BF16_STEPS, BF16_MEAN = 2.0 ** -6, 2.0 ** -10
 # The train phase's ResNet50 takes each bottleneck's last BatchNorm scale at
 # 0.1: with every scale at 1 (the seeded init) a training-mode ResNet50 is
 # chaotic, so a bf16 step and a float32 step differ by the weights'
@@ -151,6 +181,9 @@ KERNELS = {  # name: (module, source, TPU kernel it replaces)
                              "mdhs_tpu/ops/quant_kernel.py:230"),
     "shear_sublane": (sh.shear_sublane, "mdhs_tpu_torch/csrc/shear.cu", "mdhs_tpu/ops/shear.py:93"),
     "bn_stats": (bns.bn_stats, "mdhs_tpu_torch/csrc/bn_stats.cu", "mdhs_tpu/ops/bn_stats.py:138"),
+    "selective_scan": (ss.selective_scan, "mdhs_tpu_torch/csrc/selective_scan.cu",
+                       "mdhs_tpu/ops/selective_scan.py:112"),
+    "kan_forward": (ks.kan_forward, "mdhs_tpu_torch/csrc/kan_spline.cu", "mdhs_tpu/ops/kan_spline.py:114"),
 }
 
 
@@ -197,6 +230,8 @@ def diff(out: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
 # convolutions are "fprop" kernels, so they are tested before cuBLAS's GEMMs;
 # fused_attention_kernel before attention_kernel, the s8 GEMMs before both)
 _FAMILIES = {
+    "selective_scan_kernel": ("selective_scan_kernel",),
+    "kan_forward_kernel": ("kan_forward_kernel",),
     "shear_kernel": ("shear_sublane_kernel",),
     "bn_stats_kernel": ("bn_stats_",),
     "gemm_s8_residual_ln_kernel": ("gemm_s8_residual_ln_kernel",),
@@ -303,6 +338,28 @@ def bound_bn_stats(R, C, itemsize):
     return _bound(R * C * itemsize + 8 * C, 5 * R * C / F32_OPS)
 
 
+def bound_selective_scan(B, L, D, N):
+    # x, dt read and y written (B, L, D); A (D, N); B, C (B, L, N); D_skip. A step
+    # of one state: dt * A, exp, the decay product and the drive (2), the C product and sum (2)
+    nbytes = 4 * (3 * B * L * D + D * N + 2 * B * L * N + D)
+    return _bound(nbytes, 7 * B * L * D * N / F32_OPS)
+
+
+# The bases of one (row, input) on 12 knots, order 3: 11 interval tests (3 operations
+# each), then the 2 + 3 + 4 combinations that have a nonzero term (of the full
+# recursion's 10 + 9 + 8; the rest are exactly 0), 9 operations each (4
+# subtractions, 2 divisions, 2 products, 1 sum); silu 4
+KAN_BASIS_OPS = 3 * 11 + 9 * (2 + 3 + 4) + 4
+
+
+def bound_kan_forward(E, B, IN, OUT, shared):
+    # x read once (once for all experts when shared), grid, Wb, Ws (C = 8), y written;
+    # the product 2 * (C + 1) a (row, input, output) and the bases of each x once
+    rows = B if shared else E * B
+    nbytes = 4 * (rows * IN + E * IN * 12 + E * OUT * IN * 9 + E * B * OUT)
+    return _bound(nbytes, (2 * 9 * E * B * IN * OUT + KAN_BASIS_OPS * rows * IN) / F32_OPS)
+
+
 # ---------------------------------------------------------------------------
 def phase_device() -> tuple[torch.device, str]:
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
@@ -346,6 +403,12 @@ def judge_int8(out, ref):
     mx, mean = diff(out, ref)
     bound = INT8_FRAC * ref.float().abs().max().item()
     return mx, mean, bound, mx <= bound and mean < MEAN_ABS
+
+
+def judge_f32(out, ref):
+    mx, mean = diff(out, ref)
+    bound = F32_FRAC * ref.float().abs().max().item()
+    return mx, mean, bound, mx <= bound
 
 
 def judge_exact(out, ref):
@@ -450,6 +513,24 @@ def _kernel_cases(dev, rng):
         library = lambda x=x: torch.var_mean(x, dim=0, unbiased=False)  # noqa: E731
         cases.append(("bn_stats", f"R={R},C={C},bf16", bns.bn_stats_reference, (x,), C == 64,
                       bound_bn_stats(R, C, 2), library, judge_stats(x)))
+    # the Mamba fusion's scan at batch 64: 49 layer4 tokens, d_inner 512, N 16; and the
+    # gate's other state sizes (MambaVision's N 8, the multimodal Mamba fusion's N 128)
+    for B, L, D, N in ((BASELINE_BATCH, 49, 512, 16), (BASELINE_BATCH, 196, 320, 8), (16, 64, 512, 128)):
+        f = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+        args = (f(rng.standard_normal((B, L, D))), f(np.log1p(np.exp(rng.standard_normal((B, L, D)) - 2.0))),
+                -torch.arange(1, N + 1, dtype=torch.float32, device=dev).expand(D, N).contiguous(),
+                f(rng.standard_normal((B, L, N))), f(rng.standard_normal((B, L, N))), f(np.ones(D)))
+        cases.append(("selective_scan", f"B={B},L={L},D={D},N={N}", ss.selective_scan_reference, args, N == 16,
+                      bound_selective_scan(B, L, D, N), None, judge_f32))
+    # the MoE head's KAN bank at batch 64: 4 experts, layer 0 (256 -> 1024, x shared) and layer 1 (1024 -> 7)
+    E, H = HAM_HEAD_MOE.moe_num_experts, HAM_HEAD_MOE.hidden_dim
+    for IN, OUT, shared in ((H, 4 * H, True), (4 * H, HAM_HEAD_MOE.num_classes, False)):
+        f = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+        x = f(rng.standard_normal((BASELINE_BATCH, IN) if shared else (E, BASELINE_BATCH, IN)) * 0.7)
+        args = (x, make_grid(IN, 5, 3, device=dev).expand(E, IN, 12).contiguous(),
+                f(rng.uniform(-1, 1, (E, OUT, IN)) / np.sqrt(IN)), f(rng.standard_normal((E, OUT, IN, 8)) * 0.01))
+        cases.append(("kan_forward", f"E={E},x={tuple(x.shape)},OUT={OUT}", ks.kan_forward_reference, args, shared,
+                      bound_kan_forward(E, BASELINE_BATCH, IN, OUT, shared), None, judge_f32))
     return cases
 
 
@@ -726,23 +807,113 @@ def phase_seq512(dev, rng, model, plain) -> dict:
     return launches
 
 
+@contextlib.contextmanager
+def _plain_op(module, name: str, plain):
+    """``module.name`` routed to its plain version, on the card (comparison only)."""
+    kernel = getattr(module, name)
+    setattr(module, name, plain)
+    try:
+        yield
+    finally:
+        setattr(module, name, kernel)
+
+
+def _route_rows_apart(model, request, dev, g) -> None:
+    """Draw the MoE gate at random, then take out its component along the
+    mean fused feature of ``request``: with random weights the rows' features
+    share most of their direction, so a gate drawn as it is (or JAX's zero
+    init) sends every row to the same two experts."""
+    with torch.inference_mode():
+        img = eval_pipeline(torch.from_numpy(request["image"]).to(dev), 224, normalize=True, dtype=torch.bfloat16)
+        feats = model.forward_features(img, torch.from_numpy(request["input_ids"]).to(dev),
+                                       torch.from_numpy(request["attention_mask"]).to(dev)).float()
+    m = feats.mean(dim=0)
+    w = torch.randn(model.classifier.moe.w_gate.shape, generator=g, device=dev)
+    with torch.no_grad():
+        model.classifier.moe.w_gate.copy_(w - m[:, None] * (m @ w)[None, :] / (m @ m))
+
+
+def phase_baseline(dev, rng, seed: int) -> dict:
+    """The baseline family's two served configurations at full width, bf16,
+    through ServingModel(batch 64); returns the launches of each main path."""
+    result = {}
+    runs = (("ham_fusion_ssm_v1", HAM_FUSION_SSM, "selective_scan", 1, ss, ss.selective_scan_reference),
+            ("ham_head_moe_v1", HAM_HEAD_MOE, "kan_forward", 2, ks, ks.kan_forward_reference))
+    for i, (name, cfg, kernel, per_forward, module, plain) in enumerate(runs):
+        g = torch.Generator(device=dev).manual_seed(seed + 10 + i)
+        model = init_parameters(MultimodalBaselineModel(cfg, device=dev, dtype=torch.bfloat16), g).eval()
+        requests = [_request(rng, n, BASELINE_SEQ) for n in (BASELINE_BATCH, BASELINE_BATCH, 9)]
+        if cfg.classifier_type == "moe":
+            _route_rows_apart(model, requests[0], dev, g)
+        server = ServingModel(model, BASELINE_BATCH, dev)
+        layers = cfg.bert.num_hidden_layers
+
+        # --- the main path: three requests through predict_stream, then one of 1 row
+        zero_counts()
+        outs = list(server.predict_stream(iter(requests), depth=2))
+        launches = read_counts()
+        want = {**dict.fromkeys(KERNELS, 0), "attention_block": layers * 3, "ffn_block": layers * 3,
+                kernel: per_forward * 3}
+        check(launches == want, f"{name} launches {launches}, expected {want}")
+        for req, out in zip(requests, outs):
+            n = req["image"].shape[0]
+            check(out.shape == (n, cfg.num_classes) and bool(np.isfinite(out).all()), f"{name} logits {out.shape}")
+        one = {k: v[:1] for k, v in requests[2].items()}
+        zero_counts()
+        one_out = ServingModel(model, 1, dev).predict(one)
+        one_launches = read_counts()
+        check(one_launches == {**dict.fromkeys(KERNELS, 0), "attention_block": layers, "ffn_block": layers,
+                               kernel: per_forward}, f"{name} batch-1 launches {one_launches}")
+        check(bool(np.isfinite(one_out).all()), f"{name} batch-1 logits")
+
+        # --- the same weights with the op routed to its plain version ---------
+        with _plain_op(module, kernel, plain):
+            plain_outs = [server.predict(r) for r in requests]
+        logit_d = [diff(torch.from_numpy(o), torch.from_numpy(p)) for o, p in zip(outs, plain_outs)]
+        lmax, lmean = max(d[0] for d in logit_d), max(d[1] for d in logit_d)
+        scale = max(float(np.abs(p).max()) for p in plain_outs)
+        bound = BF16_STEPS * scale
+        check(lmax <= bound and lmean <= BF16_MEAN * scale,
+              f"{name} logits kernel vs plain op: max {lmax} (bound {bound}) mean {lmean}, max |logit| {scale}")
+
+        # --- rates, forward time, device breakdown ---------------------------
+        images_per_s = _stream_rate(server, requests[:2], 16)
+        p50 = _p50_ms(model, requests[0], dev)
+        r = requests[0]
+        with torch.inference_mode():
+            img = eval_pipeline(torch.from_numpy(r["image"]).to(dev), 224, normalize=True, dtype=torch.bfloat16)
+            ids = torch.from_numpy(r["input_ids"]).to(dev)
+            mask = torch.from_numpy(r["attention_mask"]).to(dev)
+            fwd = lambda: server.model(img, ids, mask)  # noqa: E731
+            forward_ms = cuda_ms(fwd, reps=10)
+            with _plain_op(module, kernel, plain):
+                forward_plain_op_ms = cuda_ms(fwd, reps=10)
+            device = device_profile(fwd, forward_ms, top=8)
+            routes = None
+            if cfg.classifier_type == "moe":
+                gates, _ = noisy_top_k_gating(server.model.forward_features(img, ids, mask),
+                                              server.model.classifier.moe.w_gate, None, cfg.moe_k)
+                chosen = ["+".join(map(str, np.flatnonzero(row))) for row in (gates > 0).cpu().numpy()]
+                routes = {pair: chosen.count(pair) / len(chosen) for pair in sorted(set(chosen))}
+        emit({"phase": "baseline", "config": name, "model": f"MultimodalBaselineModel: {cfg.image_backbone} + "
+              f"BERT-base, fusion {cfg.fusion_type}, head {cfg.classifier_type}, hidden {cfg.hidden_dim}, bf16",
+              "requests": [int(q["image"].shape[0]) for q in requests], "launches": launches,
+              "launches_batch1": one_launches, "logits_vs_plain_op": {"max_abs": lmax, "mean_abs": lmean, "max_abs_bound": bound,
+                                                        "max_abs_logit": scale},
+              "expert_pair_share_b64": routes, "images_per_s_b64_stream": images_per_s, "p50_latency_ms_b1": p50,
+              "forward_ms_b64": forward_ms, "forward_plain_op_ms_b64": forward_plain_op_ms, "device_b64": device})
+        result[kernel] = launches
+        del model, server
+        torch.cuda.empty_cache()
+    return result
+
+
 def _train_batch(rng, n_valid: int) -> dict:
     """A loader-shaped host batch: uint8 canvases, seq-256 tokens, labels and n_valid."""
     b = _request(rng, MIBF_HAM_TRAIN.batch_size, MIBF_HAM_TRAIN.seq_len)
     b["label"] = rng.integers(0, LABELS, MIBF_HAM_TRAIN.batch_size).astype(np.int64)
     b["n_valid"] = np.int32(n_valid)
     return b
-
-
-@contextlib.contextmanager
-def _plain_shears():
-    """rotate_3shear through shear_sublane's plain version, on the card (comparison only)."""
-    kernel = aug.shear_sublane
-    aug.shear_sublane = sh.shear_reference
-    try:
-        yield
-    finally:
-        aug.shear_sublane = kernel
 
 
 def _towers(model) -> dict:
@@ -882,7 +1053,7 @@ def phase_train(dev, rng, seed: int) -> dict:
     canv = trainer.to_device(train[1])["image"]
     p = aug.sample_crop_flip_rotate(B, preset.canvas, trainer.generator, vflip=preset.vflip, degrees=preset.degrees)
     x_kernel = trainer.augment(canv, params=p)
-    with _plain_shears():
+    with _plain_op(aug, "shear_sublane", sh.shear_reference):  # rotate_3shear through the plain shear
         x_plain = trainer.augment(canv, params=p)
     aug_d = diff(x_kernel, x_plain)
     check(aug_d[0] == 0.0 and x_kernel.shape == (B, 3, preset.image_size, preset.image_size),
@@ -992,11 +1163,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     preset_launches = phase_preset(dev, rng, seed)
     torch.cuda.empty_cache()
+    baseline = phase_baseline(dev, rng, seed)
     train = phase_train(dev, rng, seed)
     main_path = {"attention_block": slice_launches, "ffn_block": slice_launches,
                  "fused_attention": seq512_launches, "int8_ffn_block": preset_launches,
                  "int8_attention_block": preset_launches, "shear_sublane": train["launches"],
-                 "bn_stats": train["ab_launches"]}
+                 "bn_stats": train["ab_launches"], **baseline}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": main_path[name][name], "max_abs_err": summary[name]["max_abs_err"],

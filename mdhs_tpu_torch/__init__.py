@@ -8,18 +8,26 @@ module names so each counterpart is easy to find:
                               CUDA kernels (``attention_block``,
                               ``ffn_block``, ``fused_attention``,
                               ``quant_kernel``'s int8 sublayers, ``shear``'s
-                              ``shear_sublane``, ``bn_stats``) with their
-                              plain PyTorch versions
-- ``mdhs_tpu_torch.models``   ResNet, BERT, MIBF-Net and BatchNorm as
-                              ``nn.Module``s with torchvision / HF
-                              state_dict names
+                              ``shear_sublane``, ``bn_stats``,
+                              ``selective_scan``, ``kan_spline``'s
+                              ``kan_forward``) with their plain PyTorch
+                              versions
+- ``mdhs_tpu_torch.models``   ResNet, BERT, MIBF-Net, the baseline family
+                              (``MultimodalBaselineModel`` and its encoders)
+                              and BatchNorm as ``nn.Module``s with
+                              torchvision / HF / reference state_dict names
 - ``mdhs_tpu_torch.train``    losses, schedules and optimizers, metrics, and
                               the MIBF ``Trainer`` with ``MIBF_HAM_TRAIN``
-- ``mdhs_tpu_torch.modules``  ``JointKVCrossAttention``
+- ``mdhs_tpu_torch.modules``  attention (``JointKVCrossAttention``,
+                              ``MultiHeadAttention``), the baseline's fusions
+                              and heads, Mamba, KAN and the KAN-expert MoE
 - ``mdhs_tpu_torch.core``     weights carried across from the JAX trees
 - ``mdhs_tpu_torch.serving``  ``ServingModel``: resident weights, static
-                              batch, pipelined request loop; the int8 serving
-                              preset ``MIBF_HAM_SERVING``
+                              batch, pipelined request loop, for either
+                              family; the int8 serving preset
+                              ``MIBF_HAM_SERVING`` and the baseline
+                              configurations ``HAM_FUSION_SSM``,
+                              ``HAM_HEAD_MOE``
 
 The package imports torch and numpy only: never jax, flax or mdhs_tpu.
 """

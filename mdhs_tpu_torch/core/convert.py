@@ -1,15 +1,19 @@
 """JAX parameter trees -> PyTorch state_dicts (weights carried across).
 
 The exact inverse of ``mdhs_tpu.core.convert``'s torch -> flax converters
-(``convert_mibf_full``, ``convert_bert``, ``convert_resnet_classifier``):
-the input is the JAX package's ``params`` / ``batch_stats`` trees as nested
-dicts of numpy arrays, the output a ``{name: Tensor}`` dict that
-``load_state_dict`` takes. Layouts:
+(``convert_mibf_full``, ``convert_baseline_full``, ``convert_bert``,
+``convert_resnet_classifier``, ``convert_torch_mha``, ``_convert_kan_bank``):
+the input is the JAX package's ``params`` / ``batch_stats`` (/ ``kan_state``)
+trees as nested dicts of numpy arrays, the output a ``{name: Tensor}`` dict
+that ``load_state_dict`` takes. Layouts:
 
 - flax Dense kernel (in, out)  -> nn.Linear weight (out, in)
 - flax Conv kernel HWIO        -> nn.Conv2d weight OIHW
 - BatchNorm scale/bias + batch_stats mean/var -> weight/bias/running_mean/running_var
 - LayerNorm scale -> weight; Embed embedding -> weight
+- MultiHeadAttention q/k/v_proj -> in_proj_weight (3E, E), in_proj_bias
+- Mamba's depthwise conv HIO (d_conv, 1, d_inner) -> nn.Conv1d weight (d_inner, 1, d_conv)
+- a vmapped KAN bank (leaves with a leading expert axis) -> experts.{e}.layers.{i}.*
 
 Every value is copied, so the tensors never alias the caller's arrays.
 """
@@ -117,4 +121,77 @@ def mibf_state_dict_from_jax(params: Tree, batch_stats: Tree) -> dict[str, torch
     _lin(params["fc_image_out"], "fc_image.3", out)
     _lin(params["fc_text_hidden"], "fc_text.1", out)
     _lin(params["fc_text_out"], "fc_text.3", out)
+    return out
+
+
+def mha_state_dict_from_jax(params: Tree, prefix: str = "") -> dict[str, torch.Tensor]:
+    """``MultiHeadAttention`` params -> nn.MultiheadAttention names (packed q/k/v)."""
+    names = ("q_proj", "k_proj", "v_proj")
+    w = [np.transpose(np.asarray(params[n]["kernel"]), (1, 0)) for n in names]
+    out = {f"{prefix}in_proj_weight": _t(np.concatenate(w, axis=0)),
+           f"{prefix}in_proj_bias": _t(np.concatenate([np.asarray(params[n]["bias"]) for n in names]))}
+    _lin(params["out_proj"], f"{prefix}out_proj", out)
+    return out
+
+
+def mamba_state_dict_from_jax(params: Tree, prefix: str = "") -> dict[str, torch.Tensor]:
+    """``MambaBlock`` params -> ``modules/mamba.py::MambaBlock`` (mamba_ssm names)."""
+    out: dict[str, torch.Tensor] = {}
+    for name in ("in_proj", "x_proj", "dt_proj", "out_proj"):
+        out[f"{prefix}{name}.weight"] = _t(np.transpose(np.asarray(params[name]["kernel"]), (1, 0)))
+    out[f"{prefix}conv1d.weight"] = _t(np.transpose(np.asarray(params["conv1d_weight"]), (2, 1, 0)))
+    out[f"{prefix}conv1d.bias"] = _t(params["conv1d_bias"])
+    for name in ("dt_bias", "A_log", "D"):
+        out[f"{prefix}{name}"] = _t(params[name])
+    return out
+
+
+def moe_state_dict_from_jax(params: Tree, kan_state: Tree, prefix: str = "") -> dict[str, torch.Tensor]:
+    """``MoE`` params + kan_state (the experts' stacked leaves) -> per-expert
+    ``experts.{e}.layers.{i}.*``, the layout ``_convert_kan_bank`` reads."""
+    out = {f"{prefix}w_gate": _t(params["w_gate"]), f"{prefix}w_noise": _t(params["w_noise"])}
+    experts, grids = params["experts"], kan_state["experts"]
+    for i in range(sum(1 for k in experts if k.startswith("layer_"))):
+        leaves = dict(experts[f"layer_{i}"], grid=grids[f"layer_{i}"]["grid"])
+        for name, stacked in leaves.items():
+            for e, a in enumerate(np.asarray(stacked)):
+                out[f"{prefix}experts.{e}.layers.{i}.{name}"] = _t(a)
+    return out
+
+
+def baseline_state_dict_from_jax(params: Tree, batch_stats: Tree, kan_state: Tree | None = None,
+                                 fusion_type: str = "multiscale",
+                                 classifier_type: str = "mlp") -> dict[str, torch.Tensor]:
+    """``mdhs_tpu.models.baseline.MultimodalBaselineModel`` (params,
+    batch_stats, kan_state) -> state_dict of
+    ``mdhs_tpu_torch.models.baseline.MultimodalBaselineModel``: the inverse of
+    ``convert_baseline_full`` for ``multiscale`` + ``mlp``, with the
+    ``mamba`` fusion in mamba_ssm's names and the ``moe`` head in
+    ``_convert_kan_bank``'s layout (``convert_baseline_full`` maps neither)."""
+    img = params["image_encoder"]
+    out = resnet_state_dict_from_jax({"trunk": img["trunk"]}, batch_stats["image_encoder"], "image_encoder.model.")
+    for s in (2, 3, 4):
+        if f"proj_layer{s}" in img:
+            _lin(img[f"proj_layer{s}"], f"image_encoder.proj{s}", out)
+    out.update(bert_state_dict_from_jax(params["text_encoder"]["bert"], "text_encoder.model."))
+    fusion = params["fusion"]
+    if fusion_type == "multiscale":
+        for s in (2, 3, 4):
+            p, name = fusion[f"cross_layer{s}"], f"fusion.cross_l{s}"
+            _lin(p["txt_proj"], f"{name}.txt_proj", out)
+            out.update(mha_state_dict_from_jax(p["attn"], f"{name}.attn."))
+            _ln(p["norm"], f"{name}.norm", out)
+    elif fusion_type == "mamba":
+        _lin(fusion["txt_proj"], "fusion.txt_proj", out)
+        out.update(mamba_state_dict_from_jax(fusion["mamba"], "fusion.mamba."))
+    else:
+        raise ValueError(f"no converter for fusion_type={fusion_type!r}")
+    head = params["classifier"]
+    if classifier_type == "mlp":
+        _lin(head["fc1"], "classifier.0", out)
+        _lin(head["fc2"], "classifier.3", out)
+    elif classifier_type == "moe":
+        out.update(moe_state_dict_from_jax(head["moe"], kan_state["classifier"]["moe"], "classifier.moe."))
+    else:
+        raise ValueError(f"no converter for classifier_type={classifier_type!r}")
     return out

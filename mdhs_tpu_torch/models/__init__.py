@@ -1,1 +1,1 @@
-"""ResNet, BERT and MIBF-Net as ``nn.Module``s with torchvision / HF names."""
+"""ResNet, BERT, MIBF-Net and the baseline family as ``nn.Module``s with torchvision / HF / reference names."""

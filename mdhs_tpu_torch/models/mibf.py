@@ -40,6 +40,8 @@ def _mlp_head(num_labels: int, **factory) -> nn.Sequential:
 
 
 class MIBFNet(nn.Module):
+    normalize_input = False  # the MIBF pipeline has no Normalize
+
     def __init__(self, num_labels: int = 6, bert: BertConfig = BertConfig(), bn_stats_kernel: bool = False,
                  device=None, dtype=None):
         super().__init__()
@@ -51,6 +53,11 @@ class MIBFNet(nn.Module):
         self.fc = nn.Linear(768 * 2, num_labels, **f)
         self.fc_image = _mlp_head(num_labels, **f)
         self.fc_text = _mlp_head(num_labels, **f)
+
+    @property
+    def input_dtype(self) -> torch.dtype:
+        """The dtype the image tower takes (its stem convolution's)."""
+        return self.image_encoder.conv1.weight.dtype
 
     def forward(self, images: torch.Tensor, input_ids: torch.Tensor,
                 attention_mask: torch.Tensor) -> dict[str, torch.Tensor]:

@@ -1,1 +1,1 @@
-"""Attention modules shared by the model families."""
+"""Attention, the baseline family's fusions and heads, Mamba, KAN and the MoE."""

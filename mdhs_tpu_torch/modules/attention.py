@@ -1,16 +1,63 @@
-"""MIBF-Net "IBFA" attention.
+"""Attention modules, counterparts of ``mdhs_tpu/modules/attention.py``.
 
-Counterpart of ``mdhs_tpu/modules/attention.py::JointKVCrossAttention``:
-Q from stream x, K and V the concatenation of projections of x and y,
-scaled by sqrt(head_dim), softmax in float32. Linear names follow the
-reference (``toQ_x``, ``toK_x``, ``toV_x``, ``toK_y``, ``toV_y``,
-``to_out``), which ``mdhs_tpu.core.convert.convert_mibf_full`` reads.
+- ``MultiHeadAttention``: the baseline fusions' attention, with
+  ``nn.MultiheadAttention``'s parameter names (``in_proj_weight``,
+  ``in_proj_bias``, ``out_proj``), which
+  ``mdhs_tpu.core.convert.convert_torch_mha`` reads. Scores are divided by
+  sqrt(head_dim) in the module's dtype, then the -1e9 key-padding bias is
+  added and the softmax taken in float32, as the JAX module does.
+- ``JointKVCrossAttention``: MIBF-Net's "IBFA" attention: Q from stream x,
+  K and V the concatenation of projections of x and y, scaled by
+  sqrt(head_dim), softmax in float32. Linear names follow the reference
+  (``toQ_x``, ``toK_x``, ``toV_x``, ``toK_y``, ``toV_y``, ``to_out``), which
+  ``mdhs_tpu.core.convert.convert_mibf_full`` reads.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+NEG_INF = -1e9
+
+
+class MultiHeadAttention(nn.Module):
+    """Separate q/k/v projections of one width packed as (3E, E), a key
+    padding mask (B, Lk) with 1 = valid, 0 = pad; eval (no attention dropout)."""
+
+    def __init__(self, embed_dim: int, num_heads: int, device=None, dtype=None):
+        super().__init__()
+        if embed_dim % num_heads:
+            raise ValueError("embed_dim must be divisible by num_heads")
+        f = dict(device=device, dtype=dtype)
+        self.embed_dim, self.num_heads = embed_dim, num_heads
+        self.in_proj_weight = nn.Parameter(torch.empty((3 * embed_dim, embed_dim), **f))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim, **f))
+        self.out_proj = nn.Linear(embed_dim, embed_dim, **f)
+        # sqrt(head_dim) in the module's dtype, made once: a tensor made from a Python
+        # number inside forward is a synchronous host-to-device copy on the card, and
+        # dividing by a Python number runs there as a product with its reciprocal
+        self.register_buffer("head_scale", torch.tensor((embed_dim // num_heads) ** 0.5, **f), persistent=False)
+
+    def forward(self, query, key, value, key_padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        E, h = self.embed_dim, self.num_heads
+        D = E // h
+        w, b = self.in_proj_weight, self.in_proj_bias
+        q, k, v = (F.linear(t, w[i * E:(i + 1) * E], b[i * E:(i + 1) * E]) for i, t in enumerate((query, key, value)))
+
+        def split(t):
+            return t.reshape(t.shape[0], t.shape[1], h, D).transpose(1, 2)
+
+        q, k, v = split(q), split(k), split(v)
+        scores = ((q @ k.transpose(-1, -2)) / self.head_scale.to(q.dtype)).float()
+        if key_padding_mask is not None:
+            scores = scores + ((1.0 - key_padding_mask.float()) * NEG_INF)[:, None, None, :]
+        probs = torch.softmax(scores, dim=-1).to(q.dtype)
+        ctx = (probs @ v).transpose(1, 2).reshape(query.shape[0], query.shape[1], E)
+        return self.out_proj(ctx)
 
 
 class JointKVCrossAttention(nn.Module):

@@ -31,7 +31,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 SOURCES = ("gemm.cu", "attention_block.cu", "ffn_block.cu", "int8_gemm.cu", "int8_ffn_block.cu",
-           "int8_attention_block.cu", "fused_attention.cu", "shear.cu", "bn_stats.cu")
+           "int8_attention_block.cu", "fused_attention.cu", "shear.cu", "bn_stats.cu", "selective_scan.cu",
+           "kan_spline.cu")
 HEADERS = ("common.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-lineinfo", "-Xptxas=-v", "-Xcompiler", "-fPIC")
@@ -55,6 +56,10 @@ _SIGNATURES = {
     "shear_sublane_forward": [_P] * 3 + [_I] * 5 + [_P],
     # x, dtype, pmean, pm2, mean, var, R, C, rows_per_group, groups, stream
     "bn_stats_forward": [_P, _I] + [_P] * 4 + [_I] * 4 + [_P],
+    # x, dt, A, B, C, D, y, batch, L, D, N, stream
+    "selective_scan_forward": [_P] * 7 + [_I] * 4 + [_P],
+    # x, grid, base_w, spline_w, y, ws, E, B, IN, OUT, x_shared, splits, inputs_per_split, stream
+    "kan_forward": [_P] * 6 + [_I] * 7 + [_P],
 }
 
 

@@ -1,0 +1,80 @@
+"""Selective scan (the Mamba recurrence): hand-written CUDA kernel and its
+plain version.
+
+    h_t = exp(dt_t * A) * h_{t-1} + (dt_t * x_t) * B_t        (h in R^N, per (b, d))
+    y_t = <C_t, h_t> + D_skip * x_t
+
+Counterpart of ``mdhs_tpu/ops/selective_scan.py``; the kernel is
+``csrc/selective_scan.cu`` and replaces the Pallas TPU kernel
+``_selective_scan_tpu`` (``pl.pallas_call`` at :112). ``x`` and ``dt`` are
+``(batch, L, D)`` float32, ``A`` is ``(D, N)``, ``B`` and ``C`` are
+``(batch, L, N)``, ``D_skip`` is ``(D,)``; the result is ``(batch, L, D)``
+float32. The kernel is bound by bytes (one read of x and dt, one write of
+y); its chains of L sequential steps keep their state in registers.
+
+``selective_scan`` launches the kernel for a CUDA tensor and raises if it
+cannot; for a CPU tensor it returns ``selective_scan_reference``, the
+sequential loop in the kernel's order (not the JAX package's associative
+scan). Its ``launches`` attribute counts calls that launched the kernel.
+Eval only: no backward (the training path adds one).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+
+__all__ = ["selective_scan", "selective_scan_reference", "supports"]
+
+MAX_STATE = 128  # a group of 8 threads, 16 states each (csrc/selective_scan.cu)
+
+
+def supports(x_shape, n_state: int, dtype: torch.dtype) -> bool:
+    """The kernel's own gate: float32 (batch, L, D) with 1 <= N <= 128 (N 8,
+    16 and 128 are the repo's), batch at most 65535 (the grid's y). Any L and D."""
+    if len(x_shape) != 3 or dtype != torch.float32:
+        return False
+    batch, L, D = x_shape
+    return 1 <= batch <= 65535 and L >= 1 and D >= 1 and 1 <= n_state <= MAX_STATE
+
+
+def selective_scan_reference(x, dt, A, B, C, D_skip) -> torch.Tensor:
+    """Plain PyTorch version: the recurrence step by step in float32."""
+    x, dt, A, B, C, D_skip = (t.float() for t in (x, dt, A, B, C, D_skip))
+    batch, L, D = x.shape
+    h = x.new_zeros((batch, D, A.shape[1]))
+    ys = []
+    for t in range(L):
+        decay = torch.exp(dt[:, t, :, None] * A[None])
+        drive = (dt[:, t] * x[:, t])[:, :, None] * B[:, t, None, :]
+        h = decay * h + drive
+        ys.append((h * C[:, t, None, :]).sum(-1) + D_skip * x[:, t])
+    return torch.stack(ys, dim=1)
+
+
+def selective_scan(x, dt, A, B, C, D_skip) -> torch.Tensor:
+    """y (batch, L, D) of the recurrence; see the module docstring."""
+    if x.device.type == "cpu":
+        return selective_scan_reference(x, dt, A, B, C, D_skip)
+    if x.device.type != "cuda":
+        raise ValueError(f"selective_scan: unsupported device {x.device}")
+    N = A.shape[-1]
+    if not supports(tuple(x.shape), N, x.dtype):
+        raise ValueError(f"selective_scan: unsupported shape {tuple(x.shape)}, N {N}, dtype {x.dtype}")
+    batch, L, D = x.shape
+    dev = x.device
+    for t, name, shape in ((x, "x", (batch, L, D)), (dt, "dt", (batch, L, D)), (A, "A", (D, N)),
+                           (B, "B", (batch, L, N)), (C, "C", (batch, L, N)), (D_skip, "D_skip", (D,))):
+        _build.require(t, name, shape, torch.float32, dev)
+    lib = _build.load_library()
+    y = torch.empty((batch, L, D), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.selective_scan_forward(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
+                                         D_skip.data_ptr(), y.data_ptr(), batch, L, D, N, _build.stream_of(dev))
+    _build.check_launch(lib, err, "selective_scan_forward")
+    selective_scan.launches += 1
+    return y
+
+
+selective_scan.launches = 0

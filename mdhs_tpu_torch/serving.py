@@ -1,7 +1,11 @@
-"""Serving runtime for a live MIBF-Net module.
+"""Serving runtime for a live model of either family.
 
 Counterpart of ``mdhs_tpu/serving.py::ServingModel`` for an ``nn.Module``
-(the exported-artifact loader is ROADMAP item 9). A serving process:
+(the exported-artifact loader is ROADMAP item 9): MIBF-Net (served by its
+``image_text`` head, images not normalised) or the baseline family (its
+logits, ImageNet-normalised images). The model says which through its
+``normalize_input`` attribute and its ``input_dtype`` (its image tower's
+dtype: a bf16 baseline holds float32 parameters too). A serving process:
 
   - keeps the weights resident on the device;
   - runs a fixed static batch: a partial batch is zero-padded and the
@@ -18,8 +22,10 @@ A request is a dict of numpy arrays: ``image`` uint8 ``(n, H, W, 3)``,
 ``input_ids`` and ``attention_mask`` ``(n, L)``, with ``n <= batch_size``.
 
 ``MIBF_HAM_SERVING`` is the int8 serving preset of
-``configs/serving/mibf_ham_serving.yml``, resolved (the card's machine has no
-yaml reader; a test holds the two equal).
+``configs/serving/mibf_ham_serving.yml``, and ``HAM_FUSION_SSM`` and
+``HAM_HEAD_MOE`` the baseline configurations of
+``configs/ham/ham_fusion_ssm_v1.yml`` and ``ham_head_moe_v1.yml``, resolved
+(the card's machine has no yaml reader; tests hold each equal to its YAML).
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ import torch
 from torch import nn
 
 from .device import resolve_device
+from .models.baseline import BaselineConfig
 from .models.bert import BertConfig
 from .ops.preprocess import eval_pipeline
 
@@ -54,6 +61,13 @@ MIBF_HAM_SERVING = ServingPreset(
     bert=BertConfig(fast_math=True, quantize="int8"), batch_size=512, seq_len=256, num_labels=7,
 )
 
+# configs/ham/ham_fusion_ssm_v1.yml and ham_head_moe_v1.yml over configs/common/base.yml
+# (BaselineConfig.from_config + bert_config_from: BERT-base, hidden 256, dropout 0.3,
+# 7 classes); batch 64 (training.batch_size), seq 128 (tokenizer.max_length).
+HAM_FUSION_SSM = BaselineConfig(dropout=0.3, fusion_type="mamba", classifier_type="mlp")
+HAM_HEAD_MOE = BaselineConfig(dropout=0.3, fusion_type="multiscale", classifier_type="moe")
+BASELINE_BATCH, BASELINE_SEQ = 64, 128
+
 _INPUTS = {"image": torch.uint8, "input_ids": torch.int64, "attention_mask": torch.int64}
 
 
@@ -66,7 +80,8 @@ class ServingModel:
         self.batch_size = int(batch_size)
         self.image_size = int(image_size)
         self.model = model.to(device=self.device, memory_format=torch.channels_last).eval()
-        self.dtype = next(self.model.parameters()).dtype
+        self.dtype = model.input_dtype
+        self.normalize = model.normalize_input
         self._slots: list[dict] = []  # host staging buffers, one per in-flight request
 
     # ------------------------------------------------------------------
@@ -95,8 +110,10 @@ class ServingModel:
             buf[n:].zero_()
         with torch.inference_mode():
             dev = {k: buf.to(self.device, non_blocking=True) for k, buf in bufs.items()}
-            images = eval_pipeline(dev["image"], self.image_size, normalize=False, dtype=self.dtype)
-            logits = self.model(images, dev["input_ids"], dev["attention_mask"])["image_text"]
+            images = eval_pipeline(dev["image"], self.image_size, normalize=self.normalize, dtype=self.dtype)
+            logits = self.model(images, dev["input_ids"], dev["attention_mask"])
+            if isinstance(logits, dict):  # MIBF-Net's three heads
+                logits = logits["image_text"]
             if self.device.type != "cuda":
                 return logits, n
             host = torch.empty(logits.shape, dtype=logits.dtype, pin_memory=True)
@@ -114,7 +131,7 @@ class ServingModel:
 
     # ------------------------------------------------------------------
     def predict(self, batch: dict) -> np.ndarray:
-        """Synchronous call: ``image_text`` logits for the request's rows."""
+        """Synchronous call: the logits of the request's rows."""
         handle, n = self._dispatch(batch, 0)
         return self._fetch(handle, n)
 

@@ -385,3 +385,110 @@ def test_trainer_validates_before_its_first_step(dev):
         assert np.isfinite(loss)
     for _ in range(2):
         assert bool(torch.isfinite(trainer.train_step(batch)["loss"]))
+
+
+# --------------------------------------------------------------------------- the baseline family's kernels
+# selective_scan and kan_forward compute in float32: max |d| <= 1e-4 * max |plain|
+# (float32 sums in another order and FMA contraction; the recurrence carries its
+# rounding over L steps).
+from mdhs_tpu_torch.models.baseline import BaselineConfig, MultimodalBaselineModel  # noqa: E402
+from mdhs_tpu_torch.modules import mamba as mamba_mod  # noqa: E402
+from mdhs_tpu_torch.modules import moe as moe_mod  # noqa: E402
+from mdhs_tpu_torch.ops import kan_spline as ks  # noqa: E402
+from mdhs_tpu_torch.ops import selective_scan as ss  # noqa: E402
+
+
+def _close_f32(out, ref):
+    assert out.dtype == torch.float32 and out.shape == ref.shape and torch.isfinite(out).all()
+    d = (out - ref).abs().max().item()
+    assert d <= 1e-4 * ref.abs().max().item(), (d, ref.abs().max().item())
+
+
+def _scan_args(rng, B, L, D, N, dev):
+    f = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+    return (f(rng.standard_normal((B, L, D))), f(np.log1p(np.exp(rng.standard_normal((B, L, D))))),
+            f(-np.exp(rng.standard_normal((D, N)))), f(rng.standard_normal((B, L, N))),
+            f(rng.standard_normal((B, L, N))), f(rng.standard_normal(D)))
+
+
+@pytest.mark.parametrize("B, L, D, N", [(64, 49, 512, 16), (3, 100, 72, 8), (5, 33, 130, 32), (4, 20, 64, 64),
+                                        (2, 70, 512, 128), (1, 1, 1, 1)])
+def test_selective_scan_kernel_matches_plain(dev, B, L, D, N):
+    args = _scan_args(np.random.default_rng(L + N), B, L, D, N, dev)
+    n = ss.selective_scan.launches
+    out = ss.selective_scan(*args)
+    torch.cuda.synchronize()
+    assert ss.selective_scan.launches == n + 1
+    _close_f32(out, ss.selective_scan_reference(*args))
+
+
+def _kan_args(rng, E, B, IN, OUT, dev, shared):
+    from mdhs_tpu_torch.modules.kan import make_grid
+
+    f = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+    lead = () if E is None else (E,)
+    x = f(rng.standard_normal(((B, IN) if shared or E is None else (E, B, IN))) * 0.7)
+    grid = make_grid(IN, 5, 3, device=dev).expand(*lead, IN, 12).contiguous()
+    return x, grid, f(rng.standard_normal(lead + (OUT, IN)) * 0.1), f(rng.standard_normal(lead + (OUT, IN, 8)) * 0.1)
+
+
+@pytest.mark.parametrize("E, B, IN, OUT, shared", [(4, 64, 256, 1024, True), (4, 64, 1024, 7, False),
+                                                   (None, 40, 64, 200, False), (None, 3, 5, 7, False),
+                                                   (2, 33, 20, 70, False), (3, 1, 9, 1, True)])
+def test_kan_forward_kernel_matches_plain(dev, E, B, IN, OUT, shared):
+    args = _kan_args(np.random.default_rng(B + IN + OUT), E, B, IN, OUT, dev, shared)
+    n = ks.kan_forward.launches
+    out = ks.kan_forward(*args)
+    torch.cuda.synchronize()
+    assert ks.kan_forward.launches == n + 1
+    _close_f32(out, ks.kan_forward_reference(*args))
+
+
+def test_baseline_kernel_wrappers_raise_instead_of_falling_back(dev):
+    args = _scan_args(np.random.default_rng(0), 2, 8, 16, 16, dev)
+    with pytest.raises(ValueError, match="unsupported"):
+        ss.selective_scan(args[0].to(torch.bfloat16), *args[1:])
+    with pytest.raises(ValueError, match="unsupported"):
+        ss.selective_scan(*args[:2], torch.zeros((16, 129), device=dev), *args[3:])
+    with pytest.raises(ValueError, match="contiguous"):
+        ss.selective_scan(args[0].transpose(0, 1).contiguous().transpose(0, 1), *args[1:])
+    x, grid, bw, sw = _kan_args(np.random.default_rng(1), None, 4, 8, 5, dev, False)
+    with pytest.raises(ValueError, match="unsupported"):
+        ks.kan_forward(x.to(torch.bfloat16), grid, bw, sw)
+    with pytest.raises(ValueError, match="unsupported"):
+        ks.kan_forward(x, grid, bw, sw, spline_order=2)
+    with pytest.raises(ValueError, match="contiguous"):
+        ks.kan_forward(x, grid, bw.t().contiguous().t(), sw)
+
+
+def test_baseline_models_launch_the_new_kernels(dev, monkeypatch):
+    """float32 models, so the BERT sublayer kernels stay off: each forward
+    launches selective_scan once (mamba) or kan_forward twice (the MoE bank's
+    two layers), and matches the same weights with the op routed to its
+    plain version."""
+    bert = BertConfig(vocab_size=512, hidden_size=64, num_hidden_layers=1, num_attention_heads=4,
+                      intermediate_size=128, max_position_embeddings=128)
+    rng = np.random.default_rng(0)
+    img = torch.tensor(rng.standard_normal((3, 3, 64, 64)), dtype=torch.float32, device=dev)
+    ids = torch.tensor(rng.integers(0, 512, (3, 20)), device=dev)
+    mask = torch.ones((3, 20), dtype=torch.int64, device=dev)
+    mask[1, 12:] = 0
+    for fusion, head, fn, per_forward in (("mamba", "mlp", ss.selective_scan, 1), ("multiscale", "moe", ks.kan_forward, 2)):
+        cfg = BaselineConfig(hidden_dim=64, num_heads=8, text_feature_dim=64, fusion_type=fusion, classifier_type=head,
+                             bert=bert)
+        model = init_parameters(MultimodalBaselineModel(cfg, device=dev), torch.Generator(device=dev).manual_seed(0)).eval()
+        if head == "moe":
+            with torch.no_grad():
+                model.classifier.moe.w_gate.normal_()
+        before = _counts() + (ss.selective_scan.launches, ks.kan_forward.launches)
+        with torch.inference_mode():
+            out = model(img, ids, mask)
+        launched = [a - b for a, b in zip(_counts() + (ss.selective_scan.launches, ks.kan_forward.launches), before)]
+        want = [0, 0, 0, 0, 0, per_forward if fn is ss.selective_scan else 0, per_forward if fn is ks.kan_forward else 0]
+        assert launched == want, (fusion, head, launched)
+        plain = ss.selective_scan_reference if fn is ss.selective_scan else ks.kan_forward_reference
+        with monkeypatch.context() as m:
+            m.setattr(mamba_mod._ss if fn is ss.selective_scan else moe_mod._ks, fn.__name__, plain)
+            with torch.inference_mode():
+                ref = model(img, ids, mask)
+        torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)

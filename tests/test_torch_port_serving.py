@@ -1,7 +1,8 @@
 """mdhs_tpu_torch.serving.ServingModel and the package's import hygiene, on the CPU.
 
-The model is the full MIBF-Net graph cut to one narrow BERT layer and a 64^2
-crop, with weights drawn from a seeded torch.Generator.
+The models are the full MIBF-Net graph, and the baseline family's two served
+configurations (mamba + mlp, multiscale + moe), cut to one narrow BERT layer
+and a 64^2 crop, with weights drawn from a seeded torch.Generator.
 """
 
 import copy
@@ -16,6 +17,7 @@ import pytest
 import torch
 
 from mdhs_tpu_torch import resolve_device
+from mdhs_tpu_torch.models.baseline import BaselineConfig, MultimodalBaselineModel
 from mdhs_tpu_torch.models.bert import BertConfig
 from mdhs_tpu_torch.models.init import init_parameters
 from mdhs_tpu_torch.models.mibf import MIBFNet
@@ -46,11 +48,11 @@ def _request(n, seed):
     }
 
 
-def _direct(model, req):
+def _direct(model, req, normalize=False):
     with torch.no_grad():
-        img = eval_pipeline(torch.from_numpy(req["image"]), CROP, normalize=False, dtype=torch.float32)
+        img = eval_pipeline(torch.from_numpy(req["image"]), CROP, normalize=normalize, dtype=torch.float32)
         out = model(img, torch.from_numpy(req["input_ids"]), torch.from_numpy(req["attention_mask"]))
-    return out["image_text"].numpy()
+    return (out["image_text"] if isinstance(out, dict) else out).numpy()
 
 
 @pytest.mark.parametrize("n", [1, 3, BATCH])
@@ -91,6 +93,35 @@ def test_serving_rejects_bad_requests(model):
         ServingModel(model, 0, "cpu")
 
 
+def _baseline(fusion, head, dtype=None):
+    cfg = BaselineConfig(hidden_dim=32, num_heads=4, fusion_type=fusion, classifier_type=head,
+                         text_feature_dim=TINY_BERT.hidden_size, bert=TINY_BERT)
+    return init_parameters(MultimodalBaselineModel(cfg, dtype=dtype), torch.Generator().manual_seed(1)).eval()
+
+
+@pytest.mark.parametrize("fusion, head", [("mamba", "mlp"), ("multiscale", "moe")])
+def test_serving_the_baseline_normalizes_and_returns_its_logits(fusion, head):
+    model = _baseline(fusion, head)
+    server = ServingModel(model, BATCH, "cpu", image_size=CROP)
+    assert server.normalize and server.dtype == torch.float32
+    reqs = [_request(n, seed=20 + n) for n in (BATCH, 2)]
+    for req, out in zip(reqs, server.predict_stream(iter(reqs), depth=1)):
+        assert out.shape == (req["image"].shape[0], LABELS) and out.dtype == np.float32
+        np.testing.assert_allclose(out, _direct(model, req, normalize=True), atol=1e-5, rtol=1e-5)
+        assert not np.allclose(out, _direct(model, req, normalize=False), atol=1e-3)
+
+
+def test_serving_takes_the_image_towers_dtype():
+    """A bf16 baseline holds float32 parameters (KAN, MoE gate, Mamba's dt_bias,
+    A_log, D); the served images are bf16 all the same."""
+    model = _baseline("mamba", "moe", dtype=torch.bfloat16)
+    assert any(p.dtype == torch.float32 for p in model.parameters())
+    server = ServingModel(model, 2, "cpu", image_size=CROP)
+    assert server.dtype == torch.bfloat16 and server.normalize
+    mibf = ServingModel(MIBFNet(LABELS, TINY_BERT, dtype=torch.bfloat16), 2, "cpu", image_size=CROP)
+    assert mibf.dtype == torch.bfloat16 and not mibf.normalize
+
+
 def test_resolve_device():
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
@@ -109,20 +140,21 @@ def test_serving_runs_on_the_card_unless_asked_for_the_cpu(model):
 
 
 def test_package_imports_no_jax_and_runs_the_slice():
-    """A fresh interpreter: the port's modules, a CPU run of the serving slice
-    and a training step leave jax, flax and mdhs_tpu out of sys.modules (this test process has
+    """A fresh interpreter: the port's modules, a CPU run of the serving slice,
+    a training step and a forward of each served baseline configuration leave
+    jax, flax and mdhs_tpu out of sys.modules (this test process has
     them, because the suite's conftest imports jax)."""
     script = textwrap.dedent(f"""
         import dataclasses, sys
         import numpy as np, torch
         import mdhs_tpu_torch
         from mdhs_tpu_torch.core import convert
-        from mdhs_tpu_torch.models import bert, init, mibf, resnet
-        from mdhs_tpu_torch.modules import attention
+        from mdhs_tpu_torch.models import baseline, bert, encoders, init, mibf, resnet
+        from mdhs_tpu_torch.modules import attention, fusion, heads, kan, mamba, moe
         from mdhs_tpu_torch.models import norm
         from mdhs_tpu_torch.ops import (_build, attention_block, augment, bn_stats, ffn_block, fused_attention,
-                                        gelu, preprocess, quant, quant_kernel, shear)
-        from mdhs_tpu_torch.serving import MIBF_HAM_SERVING, ServingModel
+                                        gelu, kan_spline, preprocess, quant, quant_kernel, selective_scan, shear)
+        from mdhs_tpu_torch.serving import HAM_FUSION_SSM, HAM_HEAD_MOE, MIBF_HAM_SERVING, ServingModel
         from mdhs_tpu_torch.train import losses, metrics, optim, trainer
         cfg = bert.BertConfig(vocab_size=64, num_hidden_layers=1, intermediate_size=64,
                               max_position_embeddings=16)
@@ -141,6 +173,11 @@ def test_package_imports_no_jax_and_runs_the_slice():
         step = trainer.Trainer(preset, model=m, device="cpu").train_step(
             dict(req, label=np.array([0, 2]), n_valid=np.int32(1)))
         assert np.isfinite(float(step["loss"]))
+        for preset in (HAM_FUSION_SSM, HAM_HEAD_MOE):
+            b = init.init_parameters(baseline.MultimodalBaselineModel(dataclasses.replace(
+                preset, hidden_dim=32, num_heads=4, text_feature_dim=768, bert=cfg)), torch.Generator().manual_seed(0))
+            out = ServingModel(b, 2, "cpu", image_size=32).predict(req)
+            assert out.shape == (2, 7) and np.isfinite(out).all()
         bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "flax", "mdhs_tpu"))
         print("LEAKED", bad)
     """)
