@@ -24,12 +24,18 @@ Phases, each printing JSON lines:
               atol 1e-6 * E|x| (mean) or * E[x^2] (variance), and its backward
               within 1e-5 of the largest gradient; selective_scan (N 16, and
               N 8 and 128) and kan_forward (both layers of the MoE bank)
-              within max |d| <= 1e-4 * max |plain| (float32)
+              within max |d| <= 1e-4 * max |plain| (float32); BERT's flash
+              kernels (the forward at batch 32, seq 512 and 256, and seq 200;
+              dK/dV and dQ at batch 32, seq 256 and 512, against SDPA with the
+              boolean segment mask, forward + backward) on segment ids with
+              masked tiles, the forward within the bf16 bound, dQ, dK, dV
+              within max |d| <= 0.02 * max |plain| and mean |d| <= 2e-3 * max
+              |plain|
   4. slice    full-width MIBF-Net (ResNet50 + BERT-base, 7 labels), bf16,
               exact-parity, seeded random weights, through ServingModel(batch
               32): 3 requests (32, 32, 5 rows, seq 128) via predict_stream with
               attention_block and ffn_block launched 12 times a forward; the
-              plain path (attention_impl="plain") on the same weights within
+              plain path (attention_impl="xla") on the same weights within
               atol 0.15 and mean |d| < 0.01 (tests/test_fused_attention.py:
               97-105); one request at seq 256; images/s at batch 32, p50
               latency at batch 1, tower times and the device breakdown
@@ -40,7 +46,7 @@ Phases, each printing JSON lines:
               launched 12 times a forward and no bf16 sublayer kernel; one
               request of 512 rows at seq 256 (the preset's tokenizer length),
               12 launches of each; on the same weights, the int8 composite
-              (attention_impl="plain") within 0.25 / 0.03 on logits and BERT
+              (attention_impl="xla") within 0.25 / 0.03 on logits and BERT
               output (INT8_ATOL says why), and the exact bf16 path with CLS drift mean |d| < 0.062 *
               max |CLS| (twice docs/PARITY.md:21's TPU drift); images/s at batch
               512 of the preset and of the exact bf16 model in turns, p50
@@ -83,6 +89,26 @@ Phases, each printing JSON lines:
               and batch with dropout 0 (loss within 2e-2 relative, per-tower
               gradient cosine >= 0.99; reported, not checked, for the seeded
               weights undamped)
+  9. flash    the exact model's weights under attention_impl="flash" at seq
+              512, through ServingModel(batch 32): 3 requests (32, 32, 5 rows)
+              via predict_stream with flash_attention launched 12 times a
+              forward and no other kernel; the same weights on the plain flash
+              op within SLICE_ATOL / SLICE_MEAN (BERT output, pad rows
+              included, and logits), the logits against the exact model; a
+              request at seq 128 (12 launches) and one at seq 200 (none: not a
+              multiple of 128); images/s, p50 at batch 1, tower times and the
+              device breakdown
+ 10. train_flash  MIBF_HAM_TRAIN with BERT under "flash" and attention dropout
+              0: Trainer.fit over 2 steps and a validation batch; a step
+              launches shear_sublane 3 times and each flash kernel 12 times,
+              a validation forward the forward 12 times; one step against the
+              plain flash op (loss within 1e-2 relative, BERT gradient cosine
+              >= 0.99); step ms in turns against the same preset under "auto",
+              and both steps' device breakdowns
+Every served phase (slice, preset, seq512, flash, baseline) runs one warm
+forward from device-resident inputs under torch.cuda.set_sync_debug_mode(
+"error") ("sync_free"): a call that makes the host wait on the device fails
+the script.
 Then a JSON line of the kernels, the nvidia-smi line, and the result line.
 Each path sets every launch count to 0 just before it runs and reads them
 just after. Any failure raises: the exit code is not 0 and no result line is
@@ -118,6 +144,7 @@ from mdhs_tpu_torch.ops import attention_block as ab
 from mdhs_tpu_torch.ops import augment as aug
 from mdhs_tpu_torch.ops import bn_stats as bns
 from mdhs_tpu_torch.ops import ffn_block as fb
+from mdhs_tpu_torch.ops import flash_attention as fl
 from mdhs_tpu_torch.ops import fused_attention as fa
 from mdhs_tpu_torch.ops import kan_spline as ks
 from mdhs_tpu_torch.ops import quant_kernel as qk
@@ -152,6 +179,10 @@ STATS_RTOL, STATS_ATOL = 1e-5, 1e-6      # atol * E|x| on the mean, * E[x^2] on 
 MIXED_LOSS_REL, MIXED_GRAD_COS = 2e-2, 0.99
 BN_AB_LOSS_REL = 1e-2                    # bn_stats kernel vs cuDNN BatchNorm, one step's loss
 F32_FRAC = 1e-4                          # float32 kernels vs plain: max |d| <= 1e-4 * max |plain|
+# the flash backward kernels vs their plain versions: p and ds are rounded to bf16 from the
+# kernel's own float32 scores, so a rounding apart moves a gradient by a bf16 step of its largest term
+GRAD_FRAC, GRAD_MEAN = 0.02, 2e-3
+FLASH_LOSS_REL, FLASH_GRAD_COS = 1e-2, 0.99  # a flash training step vs the same step on the plain flash op
 # A baseline model with a float32 kernel vs the same weights with its plain op: the
 # two agree to ~1e-6 relative, which flips a bf16 rounding now and then downstream
 # (the scan's and each KAN layer's outputs are cast to bf16, the MLP head's logits
@@ -184,6 +215,13 @@ KERNELS = {  # name: (module, source, TPU kernel it replaces)
     "selective_scan": (ss.selective_scan, "mdhs_tpu_torch/csrc/selective_scan.cu",
                        "mdhs_tpu/ops/selective_scan.py:112"),
     "kan_forward": (ks.kan_forward, "mdhs_tpu_torch/csrc/kan_spline.cu", "mdhs_tpu/ops/kan_spline.py:114"),
+    # the library kernels mdhs_tpu/models/bert.py:207 calls under attention_impl="flash" (jax 0.9.0)
+    "flash_attention": (fl.flash_attention_forward, "mdhs_tpu_torch/csrc/flash_attention.cu",
+                        "jax/experimental/pallas/ops/tpu/flash_attention.py:758"),
+    "flash_attention_bwd_dkv": (fl.flash_attention_bwd_dkv, "mdhs_tpu_torch/csrc/flash_attention.cu",
+                                "jax/experimental/pallas/ops/tpu/flash_attention.py:1121"),
+    "flash_attention_bwd_dq": (fl.flash_attention_bwd_dq, "mdhs_tpu_torch/csrc/flash_attention.cu",
+                               "jax/experimental/pallas/ops/tpu/flash_attention.py:1456"),
 }
 
 
@@ -230,6 +268,7 @@ def diff(out: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
 # convolutions are "fprop" kernels, so they are tested before cuBLAS's GEMMs;
 # fused_attention_kernel before attention_kernel, the s8 GEMMs before both)
 _FAMILIES = {
+    "flash_attention_kernels": ("flash_forward_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel"),
     "selective_scan_kernel": ("selective_scan_kernel",),
     "kan_forward_kernel": ("kan_forward_kernel",),
     "shear_kernel": ("shear_sublane_kernel",),
@@ -328,6 +367,25 @@ def bound_fused_attention(B, L):
     return _bound(2 * (4 * B * L * HD) + 4 * B * L, 4 * B * HEADS * L * L * D / BF16_OPS)
 
 
+def _flash_bound(B, L, operands, stats, products):
+    # ``operands`` (B, L, HD) bf16 tensors read or written once, the int32 segment ids,
+    # ``stats`` (B, heads, L) float32 rows, ``products`` (B, heads, L, L, D) matrix products
+    nbytes = 2 * operands * B * L * HD + 4 * B * L + 4 * stats * B * HEADS * L
+    return _bound(nbytes, products * 2 * B * HEADS * L * L * (HD // HEADS) / BF16_OPS)
+
+
+def bound_flash_forward(B, L):
+    return _flash_bound(B, L, 4, 0, 2)  # q, k, v read, o written; S and P V (serving: no statistics)
+
+
+def bound_flash_dkv(B, L):
+    return _flash_bound(B, L, 6, 3, 4)  # q, k, v, do read, dk, dv written; m, l, di; S, dP, dV, dK
+
+
+def bound_flash_dq(B, L):
+    return _flash_bound(B, L, 5, 3, 3)  # q, k, v, do read, dq written; m, l, di; S, dP, dQ
+
+
 def bound_shear(B, C, S, L, pad):
     # output column r reads rows s_r .. s_r + W of its plane: W + 1 of the S padded rows
     W = S - 2 * pad
@@ -394,6 +452,19 @@ def _key_bias(B, L, n_pad, dev):
     return torch.tensor((1.0 - mask) * -1e9, device=dev)
 
 
+def _segment_ids(rng, B, L, dev):
+    """int32 (B, L) attention masks as requests carry them (real prefixes of L/8 to L
+    tokens), with one row mostly padding and one whose second segment's keys lie
+    only in the last tile."""
+    lengths = rng.integers(L // 8, L + 1, B)
+    seg = (np.arange(L)[None, :] < lengths[:, None]).astype(np.int32)
+    seg[0] = 1
+    seg[1, 3:] = 0
+    seg[2] = 0
+    seg[2, L - 10:] = 1
+    return torch.from_numpy(seg).to(dev)
+
+
 def judge_bf16(out, ref):
     mx, mean = diff(out, ref)
     return mx, mean, MAX_ABS, mx <= MAX_ABS and mean < MEAN_ABS
@@ -409,6 +480,19 @@ def judge_f32(out, ref):
     mx, mean = diff(out, ref)
     bound = F32_FRAC * ref.float().abs().max().item()
     return mx, mean, bound, mx <= bound
+
+
+def judge_grad(out, ref):
+    """dQ, dK, dV: max |d| <= GRAD_FRAC * max |plain|, mean |d| <= GRAD_MEAN * max |plain|."""
+    outs, refs = (out, ref) if isinstance(out, tuple) else ((out,), (ref,))
+    mx = mean = bound = 0.0
+    ok = True
+    for o, r in zip(outs, refs):
+        d_max, d_mean = diff(o, r)
+        scale = r.float().abs().max().item()
+        ok = ok and d_max <= GRAD_FRAC * scale and d_mean <= GRAD_MEAN * scale
+        mx, mean, bound = max(mx, d_max), max(mean, d_mean), max(bound, GRAD_FRAC * scale)
+    return mx, mean, bound, ok
 
 
 def judge_exact(out, ref):
@@ -499,6 +583,32 @@ def _kernel_cases(dev, rng):
         library = lambda h=heads, m=keep: F.scaled_dot_product_attention(*h, attn_mask=m, scale=0.125)  # noqa: E731
         cases.append(("fused_attention", f"B={B},L={L}", fa.attention_reference, args,
                       (B, L) == (BATCH, SEQ512), bound_fused_attention(B, L), library, judge_bf16))
+    # BERT's flash core: the forward at the flash serving shape (batch 32, seq 512), a ragged seq
+    # 200 and the training shape (32, 256), the two backward kernels at both full shapes; the
+    # library call is SDPA with the boolean segment mask (its forward, or forward + backward)
+    for B, L, kinds in ((8, 200, ("forward",)), (BATCH, SEQ512, ("forward", "dkv", "dq")),
+                        (BATCH, LONG_SEQ, ("forward", "dkv", "dq"))):
+        q, k, v, do = (_rand(rng, (B, L, HD), 1.0, dev) for _ in range(4))
+        seg = _segment_ids(rng, B, L, dev)
+        o, m, l = fl.flash_attention_reference(q, k, v, seg, HEADS, 0.125, save_stats=True)
+        grad_args = (q, k, v, seg, m, l, do, fl.attention_di(o, do, HEADS), HEADS, 0.125)
+        heads = [t.view(B, L, HEADS, HD // HEADS).transpose(1, 2) for t in (q, k, v)]
+        keep = (seg[:, :, None] == seg[:, None, :])[:, None]
+        leaves = [t.detach().requires_grad_() for t in heads]
+        do_heads = do.view(B, L, HEADS, HD // HEADS).transpose(1, 2)
+        sdpa = lambda h=heads, m=keep: F.scaled_dot_product_attention(*h, attn_mask=m, scale=0.125)  # noqa: E731
+        sdpa_grad = lambda h=leaves, m=keep, g=do_heads: torch.autograd.grad(  # noqa: E731
+            F.scaled_dot_product_attention(*h, attn_mask=m, scale=0.125), h, g)
+        for kind in kinds:
+            if kind == "forward":
+                cases.append(("flash_attention", f"B={B},L={L}", fl.flash_attention_reference,
+                              (q, k, v, seg, HEADS, 0.125), (B, L) == (BATCH, SEQ512), bound_flash_forward(B, L),
+                              sdpa, judge_bf16))
+            else:
+                plain = fl.flash_attention_bwd_dkv_reference if kind == "dkv" else fl.flash_attention_bwd_dq_reference
+                bound = bound_flash_dkv(B, L) if kind == "dkv" else bound_flash_dq(B, L)
+                cases.append((f"flash_attention_bwd_{kind}", f"B={B},L={L}", plain, grad_args,
+                              (B, L) == (BATCH, LONG_SEQ), bound, sdpa_grad, judge_grad))
     # the training step's rotation: pads 17 (W shears) and 31 (H shear) at 15 degrees, batch 32;
     # the baseline family's 45 degrees (pads 49 / 82) on a smaller batch
     for B, pad, deg, axis in ((BATCH, 17, 15.0, "w"), (BATCH, 31, 15.0, "h"), (8, 49, 45.0, "w"), (8, 82, 45.0, "h")):
@@ -601,6 +711,28 @@ def _twin(model, cfg, labels, dev):
     return twin.eval()
 
 
+def sync_free(model, request, dev) -> bool:
+    """One warm forward of a served path, from device-resident inputs through the
+    eval preprocessing, under torch.cuda.set_sync_debug_mode("error"): any call in
+    it that makes the host wait on the device raises."""
+    inputs = [torch.from_numpy(request[k]).to(dev) for k in ("image", "input_ids", "attention_mask")]
+
+    def forward():
+        images = eval_pipeline(inputs[0], 224, normalize=model.normalize_input, dtype=model.input_dtype)
+        return model(images, inputs[1], inputs[2])
+
+    with torch.inference_mode():
+        forward()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            forward()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return True
+
+
 def _stream_rate(server, requests, n_requests) -> float:
     """images/s of predict_stream (depth 2) over n_requests, host clock."""
     stream = [requests[i % len(requests)] for i in range(n_requests)]
@@ -646,7 +778,7 @@ def phase_slice(dev, rng, seed: int):
         check(bool(np.isfinite(out).all()), "non-finite logits")
 
     # --- the same weights on the plain path --------------------------------
-    plain = _twin(model, dataclasses.replace(cfg, attention_impl="plain"), LABELS, dev)
+    plain = _twin(model, dataclasses.replace(cfg, attention_impl="xla"), LABELS, dev)
     plain_server = ServingModel(plain, BATCH, dev)
     logit_d = [diff(torch.from_numpy(o), torch.from_numpy(plain_server.predict(r)))
                for o, r in zip(outs, requests)]
@@ -690,6 +822,7 @@ def phase_slice(dev, rng, seed: int):
 
     emit({"phase": "slice", "model": "MIBFNet(num_labels=7): ResNet50 + BERT-base, bf16",
           "requests": [int(q["image"].shape[0]) for q in requests], "launches": launches,
+          "sync_free": sync_free(server.model, requests[0], dev),
           "logits_vs_plain": {"max_abs": lmax, "mean_abs": lmean},
           "bert_out_vs_plain": {"max_abs": bert_d[0], "mean_abs": bert_d[1]},
           "seq256_bert_out_vs_plain": {"max_abs": long_bert_d[0], "mean_abs": long_bert_d[1]},
@@ -725,7 +858,7 @@ def phase_preset(dev, rng, seed: int) -> dict:
     check(long_out.shape == (P, preset.num_labels) and bool(np.isfinite(long_out).all()), "preset seq-256 logits")
 
     # --- the same weights: the int8 composite, and the exact bf16 path -------
-    composite = _twin(model, dataclasses.replace(cfg, attention_impl="plain"), preset.num_labels, dev)
+    composite = _twin(model, dataclasses.replace(cfg, attention_impl="xla"), preset.num_labels, dev)
     comp_server = ServingModel(composite, P, dev)
     logit_d = [diff(torch.from_numpy(o), torch.from_numpy(comp_server.predict(r))) for o, r in zip(outs, requests)]
     lmax, lmean = max(d[0] for d in logit_d), max(d[1] for d in logit_d)
@@ -770,6 +903,7 @@ def phase_preset(dev, rng, seed: int) -> dict:
     emit({"phase": "preset", "model": "MIBFNet(num_labels=7): ResNet50 + BERT-base, bf16, "
           "fast_math + quantize=int8 (configs/serving/mibf_ham_serving.yml)",
           "requests": [int(q["image"].shape[0]) for q in requests], "launches": launches,
+          "sync_free": sync_free(server.model, requests[0], dev),
           "logits_vs_int8_composite": {"max_abs": lmax, "mean_abs": lmean},
           "bert_out_vs_int8_composite": {"max_abs": bert_d[0], "mean_abs": bert_d[1]},
           "seq256_bert_out_vs_int8_composite": {"max_abs": long_bert_d[0], "mean_abs": long_bert_d[1]},
@@ -801,9 +935,83 @@ def phase_seq512(dev, rng, model, plain) -> dict:
         mask = torch.from_numpy(req["attention_mask"]).to(dev)
         towers = {"bert_tower_ms": cuda_ms(lambda: model.text_encoder(ids, mask), reps=5),
                   "bert_tower_plain_ms": cuda_ms(lambda: plain.text_encoder(ids, mask), reps=5)}
-    emit({"phase": "seq512", "requests": [BATCH], "launches": launches,
+    emit({"phase": "seq512", "requests": [BATCH], "launches": launches, "sync_free": sync_free(model, req, dev),
           "bert_out_vs_plain": {"max_abs": bert_d[0], "mean_abs": bert_d[1]},
           "logits_vs_plain": {"max_abs": logit_d[0], "mean_abs": logit_d[1]}, "towers_b32": towers})
+    return launches
+
+
+def phase_flash(dev, rng, model) -> dict:
+    """The exact model's weights under attention_impl="flash" at seq 512, through
+    ServingModel(batch 32): the forward kernel 12 times a forward and no
+    sublayer kernel; against the same weights on the plain flash op, and the
+    logits against the exact "auto" model (MIBF reads only the CLS token)."""
+    cfg = dataclasses.replace(model.text_encoder.bert.cfg, attention_impl="flash")
+    flash = _twin(model, cfg, LABELS, dev)
+    server = ServingModel(flash, BATCH, dev)
+    requests = [_request(rng, n, SEQ512) for n in (BATCH, BATCH, 5)]
+    layers = cfg.num_hidden_layers
+
+    # --- the main path: three requests through predict_stream --------------
+    zero_counts()
+    outs = list(server.predict_stream(iter(requests), depth=2))
+    launches = read_counts()
+    check(launches == {**dict.fromkeys(KERNELS, 0), "flash_attention": layers * len(requests)},
+          f"flash launches {launches}, expected {layers} of flash_attention a forward and no other kernel")
+    for req, out in zip(requests, outs):
+        n = req["image"].shape[0]
+        check(out.shape == (n, LABELS) and bool(np.isfinite(out).all()), f"flash logits {out.shape}")
+
+    # --- the same weights on the plain flash op (the same pad-row semantics) --
+    bert_k = _bert_out(flash, requests[0], dev)
+    with _plain_op(fl, "flash_attention_forward", fl.flash_attention_reference):
+        plain_outs = [server.predict(r) for r in requests]
+        bert_d = diff(bert_k, _bert_out(flash, requests[0], dev))
+    logit_d = [diff(torch.from_numpy(o), torch.from_numpy(p)) for o, p in zip(outs, plain_outs)]
+    lmax, lmean = max(d[0] for d in logit_d), max(d[1] for d in logit_d)
+    for what, (mx, mean) in (("BERT output", bert_d), ("logits", (lmax, lmean))):
+        check(mx <= SLICE_ATOL and mean < SLICE_MEAN, f"flash {what} vs plain flash op: max {mx} mean {mean}")
+    # --- against the exact model: the CLS rows and the logits -----------------
+    exact_server = ServingModel(model, BATCH, dev)
+    exact_d = [diff(torch.from_numpy(o), torch.from_numpy(exact_server.predict(r))) for o, r in zip(outs, requests)]
+    emax, emean = max(d[0] for d in exact_d), max(d[1] for d in exact_d)
+    check(emax <= SLICE_ATOL and emean < SLICE_MEAN, f"flash logits vs exact: max {emax} mean {emean}")
+    cls_d = diff(bert_k[:, 0], _bert_out(model, requests[0], dev)[:, 0])
+
+    # --- seq 128 takes the kernel, seq 200 (not a multiple of 128) the plain path
+    other = {}
+    for seq, want in ((SEQ, layers), (200, 0)):
+        req = _request(rng, 8, seq)
+        zero_counts()
+        out = ServingModel(flash, 8, dev).predict(req)
+        other[f"seq{seq}"] = read_counts()
+        check(other[f"seq{seq}"] == {**dict.fromkeys(KERNELS, 0), "flash_attention": want},
+              f"flash seq-{seq} launches {other[f'seq{seq}']}, expected {want} of flash_attention")
+        check(out.shape == (8, LABELS) and bool(np.isfinite(out).all()), f"flash seq-{seq} logits")
+
+    # --- rates, tower times and the device breakdown at batch 32 -------------
+    images_per_s = _stream_rate(server, requests[:2], 12)
+    p50 = _p50_ms(flash, requests[0], dev)
+    r = requests[0]
+    with torch.inference_mode():
+        img = eval_pipeline(torch.from_numpy(r["image"]).to(dev), 224, normalize=False, dtype=torch.bfloat16)
+        ids = torch.from_numpy(r["input_ids"]).to(dev)
+        mask = torch.from_numpy(r["attention_mask"]).to(dev)
+        fwd = lambda: flash(img, ids, mask)  # noqa: E731
+        towers = {"bert_tower_flash_ms": cuda_ms(lambda: flash.text_encoder(ids, mask), reps=5),
+                  "bert_tower_exact_ms": cuda_ms(lambda: model.text_encoder(ids, mask), reps=5),
+                  "forward_ms": cuda_ms(fwd, reps=5), "forward_exact_ms": cuda_ms(lambda: model(img, ids, mask), reps=5)}
+        towers["device"] = device_profile(fwd, towers["forward_ms"], top=8)
+    emit({"phase": "flash", "model": "MIBFNet(num_labels=7): ResNet50 + BERT-base, bf16, attention_impl=flash, seq 512",
+          "requests": [int(q["image"].shape[0]) for q in requests], "launches": launches,
+          "sync_free": sync_free(flash, requests[0], dev), "launches_seq128_seq200": other,
+          "logits_vs_plain_op": {"max_abs": lmax, "mean_abs": lmean},
+          "bert_out_vs_plain_op": {"max_abs": bert_d[0], "mean_abs": bert_d[1]},
+          "logits_vs_exact": {"max_abs": emax, "mean_abs": emean},
+          "cls_vs_exact": {"max_abs": cls_d[0], "mean_abs": cls_d[1]},
+          "images_per_s_b32_stream": images_per_s, "p50_latency_ms_b1": p50, "towers_b32": towers})
+    del flash, server, exact_server
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -898,7 +1106,7 @@ def phase_baseline(dev, rng, seed: int) -> dict:
         emit({"phase": "baseline", "config": name, "model": f"MultimodalBaselineModel: {cfg.image_backbone} + "
               f"BERT-base, fusion {cfg.fusion_type}, head {cfg.classifier_type}, hidden {cfg.hidden_dim}, bf16",
               "requests": [int(q["image"].shape[0]) for q in requests], "launches": launches,
-              "launches_batch1": one_launches, "logits_vs_plain_op": {"max_abs": lmax, "mean_abs": lmean, "max_abs_bound": bound,
+              "sync_free": sync_free(server.model, requests[0], dev), "launches_batch1": one_launches, "logits_vs_plain_op": {"max_abs": lmax, "mean_abs": lmean, "max_abs_bound": bound,
                                                         "max_abs_logit": scale},
               "expert_pair_share_b64": routes, "images_per_s_b64_stream": images_per_s, "p50_latency_ms_b1": p50,
               "forward_ms_b64": forward_ms, "forward_plain_op_ms_b64": forward_plain_op_ms, "device_b64": device})
@@ -1148,6 +1356,90 @@ def phase_train(dev, rng, seed: int) -> dict:
     return {"launches": launches, "ab_launches": ab_launches}
 
 
+def phase_train_flash(dev, rng, seed: int) -> dict:
+    """MIBF_HAM_TRAIN with BERT under attention_impl="flash" and attention
+    dropout 0: Trainer.fit over 2 steps and a validation batch, the launches
+    of a step and of a validation forward, one step against the plain flash
+    op, and step ms and the device breakdown in turns against the same preset
+    under "auto" (attention dropout 0 as well, the plain training path)."""
+    base = MIBF_HAM_TRAIN
+    B, layers = base.batch_size, base.bert.num_hidden_layers
+    presets = {impl: dataclasses.replace(base, bert=dataclasses.replace(base.bert, attention_impl=impl,
+                                                                       attention_dropout=0.0))
+               for impl in ("flash", "auto")}
+    g = torch.Generator(device=dev).manual_seed(seed + 4)
+    master = _damp_residual_branches(init_parameters(MIBFNet(base.num_labels, presets["flash"].bert, device=dev), g))
+    twin = MIBFNet(base.num_labels, presets["auto"].bert, device=dev)
+    twin.load_state_dict(master.state_dict())
+    trainers = {impl: Trainer(presets[impl], model=m, device=dev) for impl, m in (("flash", master), ("auto", twin))}
+    trainer = trainers["flash"]
+    train = [_train_batch(rng, B), _train_batch(rng, B)]
+    val = [_train_batch(rng, B)]
+
+    # --- the main path: Trainer.fit, one epoch of 2 steps and a validation batch
+    zero_counts()
+    history = trainer.fit(train, val, num_epochs=1, steps_per_epoch=2)
+    launches = read_counts()
+    want = {**dict.fromkeys(KERNELS, 0), "shear_sublane": 6, "flash_attention": 3 * layers,
+            "flash_attention_bwd_dkv": 2 * layers, "flash_attention_bwd_dq": 2 * layers}
+    check(launches == want, f"flash fit launches {launches}, expected {want}")
+    losses = history[0]["train_losses"] + [history[0]["val_loss"]]
+    check(all(np.isfinite(losses)), f"non-finite flash losses {losses}")
+    zero_counts()
+    trainer.train_step(train[0])
+    step_launches = read_counts()
+    check(step_launches == {**dict.fromkeys(KERNELS, 0), "shear_sublane": 3, "flash_attention": layers,
+                            "flash_attention_bwd_dkv": layers, "flash_attention_bwd_dq": layers},
+          f"flash train_step launches {step_launches}")
+    zero_counts()
+    trainer.validate(val)
+    val_launches = read_counts()
+    check(val_launches == {**dict.fromkeys(KERNELS, 0), "flash_attention": layers},
+          f"flash validation launches {val_launches}")
+
+    # --- one step against the plain flash op: same weights, batch, images and dropout masks
+    dev_b = trainer.to_device(train[0])
+    valid = trainer.valid_mask(train[0], B)
+    with torch.no_grad():
+        images = trainer.augment(dev_b["image"])
+    bert_params = list(trainer.model.text_encoder.parameters())
+    step = {}
+    for which in ("kernels", "plain"):
+        with contextlib.ExitStack() as stack:
+            if which == "plain":
+                for name, plain in (("flash_attention_forward", fl.flash_attention_reference),
+                                    ("flash_attention_bwd_dkv", fl.flash_attention_bwd_dkv_reference),
+                                    ("flash_attention_bwd_dq", fl.flash_attention_bwd_dq_reference)):
+                    stack.enter_context(_plain_op(fl, name, plain))
+            torch.manual_seed(seed)
+            loss, _ = trainer.forward_backward(images, dev_b, valid)
+        step[which] = (loss.item(), torch.cat([p.grad.double().flatten() for p in bert_params]))
+    (loss_k, gk), (loss_p, gp) = step["kernels"], step["plain"]
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    cos = (gk @ gp / (gk.norm() * gp.norm() + 1e-30)).item()
+    check(rel <= FLASH_LOSS_REL and cos >= FLASH_GRAD_COS,
+          f"flash step vs plain flash op: loss {loss_k} vs {loss_p}, BERT gradient cosine {cos}")
+    del step, gk, gp
+
+    # --- step ms in turns against "auto", and each step's device breakdown
+    parts = {"auto": [], "flash": []}
+    for which in ("auto", "flash", "flash", "auto"):
+        parts[which].append(_step_parts_ms(trainers[which], train[0], reps=3))
+    device = {w: device_profile(lambda t=trainers[w]: t.train_step(train[0]),
+                                statistics.median(p["step_ms"] for p in parts[w]), reps=2, top=12)
+              for w in trainers}
+    emit({"phase": "train_flash", "model": "MIBFNet(num_labels=7), MIBF_HAM_TRAIN (batch 32, seq 256) with BERT "
+          "attention_impl=flash, attention_dropout 0; bf16 module, float32 masters, residual-branch BatchNorm "
+          f"scale {RESIDUAL_BN_SCALE}", "history": history, "launches_fit": launches,
+          "launches_train_step": step_launches, "launches_validation_forward": val_launches,
+          "step_vs_plain_op": {"loss_kernels": loss_k, "loss_plain": loss_p, "loss_rel": rel,
+                               "bert_grad_cosine": cos},
+          "step_parts_ms": parts, "device": device})
+    del trainers, trainer, master, twin
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1159,16 +1451,19 @@ def main() -> int:
     summary = phase_kernels(dev, rng)
     slice_launches, model, plain = phase_slice(dev, rng, seed)
     seq512_launches = phase_seq512(dev, rng, model, plain)
+    flash_launches = phase_flash(dev, rng, model)
     del model, plain
     torch.cuda.empty_cache()
     preset_launches = phase_preset(dev, rng, seed)
     torch.cuda.empty_cache()
     baseline = phase_baseline(dev, rng, seed)
     train = phase_train(dev, rng, seed)
+    train_flash = phase_train_flash(dev, rng, seed)
     main_path = {"attention_block": slice_launches, "ffn_block": slice_launches,
                  "fused_attention": seq512_launches, "int8_ffn_block": preset_launches,
                  "int8_attention_block": preset_launches, "shear_sublane": train["launches"],
-                 "bn_stats": train["ab_launches"], **baseline}
+                 "bn_stats": train["ab_launches"], **baseline, "flash_attention": flash_launches,
+                 "flash_attention_bwd_dkv": train_flash, "flash_attention_bwd_dq": train_flash}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": main_path[name][name], "max_abs_err": summary[name]["max_abs_err"],

@@ -7,6 +7,7 @@ module names so each counterpart is easy to find:
                               GELU, int8 quantization, and the hand-written
                               CUDA kernels (``attention_block``,
                               ``ffn_block``, ``fused_attention``,
+                              ``flash_attention``'s forward, dK/dV and dQ,
                               ``quant_kernel``'s int8 sublayers, ``shear``'s
                               ``shear_sublane``, ``bn_stats``,
                               ``selective_scan``, ``kan_spline``'s

@@ -9,8 +9,17 @@ hand-written CUDA kernels where their ``supports()`` gates accept the shape:
   the sequence length (L > 320 at head_dim 64, seq 512 among them), the
   attention core as ``ops/fused_attention.py`` between cuBLAS projections;
 - the FFN sublayer as ``ops/ffn_block.py``;
-- under ``quantize="int8"`` (the int8 serving preset, eval only), the two
-  sublayers as ``ops/quant_kernel.py``'s a8w8 kernels instead.
+- under ``quantize="int8"`` (the int8 serving preset, eval only; also under
+  "flash", whose knob the JAX int8 branch does not read), the two sublayers
+  as ``ops/quant_kernel.py``'s a8w8 kernels instead.
+
+Under ``attention_impl="flash"`` the attention core is
+``ops/flash_attention.py`` (the kernels on CUDA, bf16 only, in eval and,
+with its backward kernels, in training) wherever the JAX gate
+(``mdhs_tpu/models/bert.py:180-184``) takes the layer: eval or
+``attention_dropout == 0``, and ``L % 128 == 0``. It masks by segment ids
+(the attention mask), not by the -1e9 bias, so pad queries attend to pad
+keys only (``docs/PARITY.md:19``); the FFN stays on the module path.
 
 Elsewhere the layer takes the plain module path (f32 softmax, erf-GELU, as
 the JAX "xla" path), or under int8 the ``ops/quant.py`` composite, as the JAX
@@ -27,12 +36,13 @@ from torch import nn
 
 from ..ops import attention_block as _ab
 from ..ops import ffn_block as _fb
+from ..ops import flash_attention as _fl
 from ..ops import fused_attention as _fa
 from ..ops import quant_kernel as _qk
 from ..ops.gelu import gelu
 from ..ops.quant import int8_linear, quantize_weight
 
-_IMPLS = ("auto", "fused", "plain")
+_IMPLS = ("auto", "fused", "xla", "flash")
 _QUANTIZE = ("none", "int8")
 
 
@@ -40,10 +50,12 @@ _QUANTIZE = ("none", "int8")
 class BertConfig:
     """Same fields and defaults as ``mdhs_tpu.models.bert.BertConfig``.
 
-    ``attention_impl``: "auto" (kernels where eligible), "plain" (the module
-    path, the JAX package's "xla"; with ``quantize="int8"`` the int8
-    composite), or "fused" (the kernels, and an error where a CUDA bf16 eval
-    call has a shape they do not support).
+    ``attention_impl``: "auto" (kernels where eligible), "xla" (the JAX
+    name of the module path; with ``quantize="int8"`` the int8 composite),
+    "fused" (the kernels, and an error where a CUDA bf16 eval call has a
+    shape they do not support), or "flash" (the flash-attention kernels
+    where the JAX flash gate takes the layer, and an error where a CUDA
+    call's dtype or shape is not theirs; the module path elsewhere).
     ``quantize``: "none" (exact path) or "int8" (a8w8 serving preset, eval only).
     """
 
@@ -80,11 +92,6 @@ class BertConfig:
         ROADMAP item that ports each; never ignore one silently."""
         if self.quantize not in _QUANTIZE:
             raise ValueError(f"quantize={self.quantize!r}: expected one of {_QUANTIZE}")
-        if self.attention_impl == "flash":
-            raise NotImplementedError(
-                "attention_impl='flash' (a flash-attention kernel with the JAX flash path's "
-                "pad-row semantics) is not ported yet: ROADMAP Queue 2 item 3"
-            )
         if self.attention_impl not in _IMPLS:
             raise ValueError(f"attention_impl={self.attention_impl!r}: expected one of {_IMPLS}")
         if self.sp_mesh_shape:
@@ -112,7 +119,9 @@ class BertEmbeddings(nn.Module):
 
 class BertSelfAttention(nn.Module):
     """Multi-head attention core: returns ctx (B, L, H). With ``fused`` the
-    core after the projections is ``ops/fused_attention.py``."""
+    core after the projections is ``ops/fused_attention.py``; where
+    ``use_flash`` takes the layer, ``ops/flash_attention.py`` with the
+    attention mask as segment ids."""
 
     def __init__(self, cfg: BertConfig, device=None, dtype=None):
         super().__init__()
@@ -123,14 +132,30 @@ class BertSelfAttention(nn.Module):
         self.key = nn.Linear(H, H, **f)
         self.value = nn.Linear(H, H, **f)
         self.dropout = nn.Dropout(cfg.attention_dropout)
+        # sqrt(head_dim) for fast_math, made once: a tensor made from a Python number
+        # inside forward is a synchronous host-to-device copy on the card
+        head_dim = H // cfg.num_attention_heads
+        self.register_buffer("head_scale", torch.tensor(head_dim**0.5, **f), persistent=False)
 
-    def forward(self, hidden: torch.Tensor, attn_bias: torch.Tensor, fused: bool = False) -> torch.Tensor:
+    def use_flash(self, seq_len: int) -> bool:
+        """The JAX flash gate (``mdhs_tpu/models/bert.py:180-184``)."""
+        c = self.cfg
+        return (c.attention_impl == "flash" and (not self.training or c.attention_dropout == 0.0)
+                and seq_len % 128 == 0)
+
+    def forward(self, hidden: torch.Tensor, attn_bias: torch.Tensor, fused: bool = False,
+                attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         c = self.cfg
         B, L, H = hidden.shape
         D = H // c.num_attention_heads
         if fused:
             return _fa.fused_attention(self.query(hidden), self.key(hidden), self.value(hidden),
                                        attn_bias.reshape(B, L), c.num_attention_heads, float(D) ** -0.5)
+        if self.use_flash(L):
+            if attention_mask is None:  # one segment: no mask, as JAX's segment_ids=None
+                attention_mask = torch.ones((B, L), dtype=torch.int32, device=hidden.device)
+            return _fl.flash_attention(self.query(hidden), self.key(hidden), self.value(hidden),
+                                       attention_mask, c.num_attention_heads, float(D) ** -0.5)
 
         def split(t):
             return t.reshape(B, L, c.num_attention_heads, D).transpose(1, 2)
@@ -139,7 +164,7 @@ class BertSelfAttention(nn.Module):
         scores = q @ k.transpose(-1, -2)
         if c.fast_math:
             # bf16 softmax, as the JAX fast_math path
-            scores = scores / torch.tensor(D**0.5, dtype=scores.dtype, device=scores.device)
+            scores = scores / self.head_scale.to(scores.dtype)
             probs = torch.softmax(scores + attn_bias.to(scores.dtype), dim=-1)
         else:
             scores = scores.float() / float(D) ** 0.5 + attn_bias
@@ -251,21 +276,24 @@ class BertLayer(nn.Module):
             self._int8_key = self._int8_version()
         return self._int8
 
-    def _kernels_eligible(self, hidden: torch.Tensor) -> bool:
+    def _kernels_eligible(self, hidden: torch.Tensor, int8: bool) -> bool:
+        impls = ("auto", "fused", "flash") if int8 else ("auto", "fused")
         return (
-            self.cfg.attention_impl in ("auto", "fused")
+            self.cfg.attention_impl in impls
             and not self.training
             and hidden.dtype == torch.bfloat16
             and hidden.is_cuda
         )
 
-    def attention_sublayer(self, hidden, attn_bias, kernel: bool, fused_core: bool = False) -> torch.Tensor:
+    def attention_sublayer(self, hidden, attn_bias, kernel: bool, fused_core: bool = False,
+                           attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """LN(hidden + attention(hidden)); attn_bias is (B, 1, 1, L) float32.
         ``kernel``: the whole sublayer as one kernel; else ``fused_core``: the
-        attention core as one kernel between the module's projections."""
+        attention core as one kernel between the module's projections; else
+        the module path, whose core is the flash one where its gate takes it."""
         a = self.attention
         if not kernel:
-            return a.output(a.self(hidden, attn_bias, fused_core), hidden)
+            return a.output(a.self(hidden, attn_bias, fused_core, attention_mask), hidden)
         c = self.cfg
         s = a.self
         wqkv = torch.cat([s.query.weight, s.key.weight, s.value.weight], dim=0)
@@ -329,11 +357,12 @@ class BertLayer(nn.Module):
         inter = gelu(int8_linear(hidden, w.w1, w.s1, w.b1, dt), act)
         return self.output.LayerNorm(hidden + int8_linear(inter, w.w2, w.s2, w.b2, dt))
 
-    def forward(self, hidden: torch.Tensor, attn_bias: torch.Tensor) -> torch.Tensor:
+    def forward(self, hidden: torch.Tensor, attn_bias: torch.Tensor,
+                attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         c = self.cfg
         int8 = c.quantize == "int8" and not self.training  # the knob is ignored in training
         use_attn = use_core = use_ffn = False
-        if self._kernels_eligible(hidden):
+        if self._kernels_eligible(hidden, int8):
             B, L, H = hidden.shape
             heads = c.num_attention_heads
             if int8:
@@ -353,7 +382,7 @@ class BertLayer(nn.Module):
             w = self.int8_weights()
             hidden = self.int8_attention_sublayer(hidden, attn_bias, w, use_attn)
             return self.int8_ffn_sublayer(hidden, w, use_ffn)
-        hidden = self.attention_sublayer(hidden, attn_bias, use_attn, use_core)
+        hidden = self.attention_sublayer(hidden, attn_bias, use_attn, use_core, attention_mask)
         return self.ffn_sublayer(hidden, use_ffn)
 
 
@@ -391,6 +420,6 @@ class BertModel(nn.Module):
         attn_bias = (1.0 - attention_mask[:, None, None, :].float()) * -1e9
         all_hidden = [hidden]
         for layer in self.encoder.layer:
-            hidden = layer(hidden, attn_bias)
+            hidden = layer(hidden, attn_bias, attention_mask)
             all_hidden.append(hidden)
         return hidden, tuple(all_hidden)

@@ -8,16 +8,26 @@ contiguous NHWC result (no copy).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
+@functools.cache
+def imagenet_stats(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(mean, std) float32 on ``device``, made once: a tensor made from Python
+    numbers on each call is a synchronous host-to-device copy on the card."""
+    with torch.inference_mode(False):  # usable outside inference mode too
+        return (torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=device),
+                torch.tensor(IMAGENET_STD, dtype=torch.float32, device=device))
+
+
 def normalize_imagenet(x: torch.Tensor, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """x: (..., 3) float32 in [0, 1] -> ImageNet-normalized, cast to dtype."""
-    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=x.device)
-    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=x.device)
+    mean, std = imagenet_stats(x.device)
     return ((x - mean) / std).to(dtype)
 
 

@@ -102,7 +102,7 @@ def test_bert_layers_use_the_kernels(dev):
                      intermediate_size=512, max_position_embeddings=128)
     g = torch.Generator(device=dev).manual_seed(0)
     fused = init_parameters(BertModel(cfg, device=dev, dtype=torch.bfloat16), g).eval()
-    plain = BertModel(dataclasses.replace(cfg, attention_impl="plain"), device=dev, dtype=torch.bfloat16).eval()
+    plain = BertModel(dataclasses.replace(cfg, attention_impl="xla"), device=dev, dtype=torch.bfloat16).eval()
     plain.load_state_dict(fused.state_dict())
     ids = torch.randint(0, 512, (3, 40), generator=g, device=dev)
     mask = torch.ones((3, 40), dtype=torch.int64, device=dev)
@@ -195,7 +195,7 @@ def _bert_pair(dev, **cfg):
     cfg = dataclasses.replace(base, **cfg)
     g = torch.Generator(device=dev).manual_seed(0)
     fused = init_parameters(BertModel(cfg, device=dev, dtype=torch.bfloat16), g).eval()
-    plain = BertModel(dataclasses.replace(cfg, attention_impl="plain"), device=dev, dtype=torch.bfloat16).eval()
+    plain = BertModel(dataclasses.replace(cfg, attention_impl="xla"), device=dev, dtype=torch.bfloat16).eval()
     plain.load_state_dict(fused.state_dict())
     return fused, plain, g
 
@@ -492,3 +492,177 @@ def test_baseline_models_launch_the_new_kernels(dev, monkeypatch):
             with torch.inference_mode():
                 ref = model(img, ids, mask)
         torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+
+
+# --------------------------------------------------------------------------- BERT's flash-attention kernels
+# The forward within the bf16 bound above; dQ, dK and dV within max |d| <=
+# 0.02 * max |plain| and mean |d| <= 2e-3 * max |plain| (bf16 p and ds are
+# rounded relative to the kernel's own float32 scores, so a rounding apart
+# moves a gradient by a bf16 step of its largest term).
+from mdhs_tpu_torch.ops import flash_attention as fl  # noqa: E402
+
+_FLASH_SHAPES = [(2, 128, 768, 12), (4, 512, 768, 12), (32, 256, 768, 12), (3, 200, 256, 8), (2, 384, 512, 4),
+                 (1, 1, 64, 2)]
+
+
+def _flash_args(B, L, HD, heads, dev):
+    """q, k, v, seg with the rows the masking must get right: pads at the end,
+    no pads, mostly pads, keys of the second segment only in the last tile."""
+    rng = np.random.default_rng(B * L + HD)
+    q, k, v = (_randn(rng, (B, L, HD), 1.0, dev) for _ in range(3))
+    seg = np.ones((B, L), np.int32)
+    seg[0, max(1, L - 5):] = 0
+    if B > 2:
+        seg[2, 3:] = 0
+    if B > 3:
+        seg[3, : max(0, L - 10)] = 0
+    return q, k, v, torch.from_numpy(seg).to(dev), heads, float(HD // heads) ** -0.5
+
+
+def _close_grad(out, ref):
+    d = (out.float() - ref.float()).abs()
+    scale = ref.float().abs().max().item()
+    assert torch.isfinite(out.float()).all() and out.dtype == ref.dtype
+    assert d.max().item() <= 0.02 * scale and d.mean().item() <= 2e-3 * scale, (d.max().item(), d.mean().item(), scale)
+
+
+@pytest.mark.parametrize("B, L, HD, heads", _FLASH_SHAPES)
+def test_flash_forward_kernel_matches_plain(dev, B, L, HD, heads):
+    args = _flash_args(B, L, HD, heads, dev)
+    n = fl.flash_attention_forward.launches
+    out, m, l = fl.flash_attention_forward(*args, save_stats=True)
+    torch.cuda.synchronize()
+    assert fl.flash_attention_forward.launches == n + 1
+    ref, mr, lr = fl.flash_attention_reference(*args, save_stats=True)
+    _close(out, ref)
+    torch.testing.assert_close(m, mr, atol=1e-3, rtol=1e-4)
+    torch.testing.assert_close(l, lr, atol=1e-3, rtol=1e-4)
+    assert torch.equal(fl.flash_attention_forward(*args), out)  # without the statistics, the same o
+
+
+@pytest.mark.parametrize("B, L, HD, heads", _FLASH_SHAPES)
+def test_flash_backward_kernels_match_plain(dev, B, L, HD, heads):
+    q, k, v, seg, heads, scale = _flash_args(B, L, HD, heads, dev)
+    o, m, l = fl.flash_attention_reference(q, k, v, seg, heads, scale, save_stats=True)
+    do = _randn(np.random.default_rng(L), (B, L, HD), 1.0, dev)
+    di = fl.attention_di(o, do, heads)
+    n = (fl.flash_attention_bwd_dkv.launches, fl.flash_attention_bwd_dq.launches)
+    dk, dv = fl.flash_attention_bwd_dkv(q, k, v, seg, m, l, do, di, heads, scale)
+    dq = fl.flash_attention_bwd_dq(q, k, v, seg, m, l, do, di, heads, scale)
+    torch.cuda.synchronize()
+    assert (fl.flash_attention_bwd_dkv.launches, fl.flash_attention_bwd_dq.launches) == (n[0] + 1, n[1] + 1)
+    dqr, dkr, dvr = fl.flash_attention_backward_reference(q, k, v, seg, o, m, l, do, heads, scale)
+    for out, ref in ((dq, dqr), (dk, dkr), (dv, dvr)):
+        _close_grad(out, ref)
+    # no atomics: a second launch gives the same bits
+    assert torch.equal(fl.flash_attention_bwd_dq(q, k, v, seg, m, l, do, di, heads, scale), dq)
+    assert all(torch.equal(a, b) for a, b in zip(fl.flash_attention_bwd_dkv(q, k, v, seg, m, l, do, di, heads, scale),
+                                                 (dk, dv)))
+
+
+def test_flash_autograd_function_matches_plain_autograd(dev):
+    q, k, v, seg, heads, scale = _flash_args(4, 256, 768, 12, dev)
+    do = _randn(np.random.default_rng(1), q.shape, 1.0, dev)
+    grads = []
+    n = [f.launches for f in (fl.flash_attention_forward, fl.flash_attention_bwd_dkv, fl.flash_attention_bwd_dq)]
+    for fn in (fl.flash_attention, fl.flash_attention_reference):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        fn(*leaves, seg, heads, scale).backward(do)
+        grads.append([t.grad for t in leaves])
+    assert [f.launches for f in (fl.flash_attention_forward, fl.flash_attention_bwd_dkv,
+                                 fl.flash_attention_bwd_dq)] == [x + 1 for x in n]
+    for a, b in zip(*grads):
+        _close_grad(a, b)
+
+
+def test_flash_wrappers_raise_instead_of_falling_back(dev):
+    q, k, v, seg, heads, scale = _flash_args(2, 128, 256, 4, dev)
+    with pytest.raises(ValueError, match="unsupported"):
+        fl.flash_attention_forward(q.float(), k.float(), v.float(), seg, heads, scale)
+    with pytest.raises(ValueError, match="int32"):
+        fl.flash_attention_forward(q, k, v, seg.long(), heads, scale)
+    with pytest.raises(ValueError, match="contiguous"):
+        fl.flash_attention_forward(q.transpose(0, 1).contiguous().transpose(0, 1), k, v, seg, heads, scale)
+    # float32 through the op BERT calls, with and without a gradient: an error, not the plain version
+    n = _flash_counts()
+    with pytest.raises(ValueError, match="unsupported dtype"):
+        fl.flash_attention(q.float(), k.float(), v.float(), seg, heads, scale)
+    with pytest.raises(ValueError, match="unsupported dtype"):
+        fl.flash_attention(q.float().requires_grad_(), k.float(), v.float(), seg, heads, scale)
+    assert _flash_counts() == n
+
+
+def _flash_counts():
+    return (fl.flash_attention_forward.launches, fl.flash_attention_bwd_dkv.launches, fl.flash_attention_bwd_dq.launches)
+
+
+def test_bert_flash_uses_the_forward_kernel_and_no_sublayer_kernel(dev):
+    fused, plain, g = _bert_pair(dev, attention_impl="flash")
+    ids = torch.randint(0, 512, (2, 256), generator=g, device=dev)
+    mask = torch.ones((2, 256), dtype=torch.int64, device=dev)
+    mask[1, 100:] = 0
+    before, fb_before = _counts(), _flash_counts()
+    with torch.inference_mode():
+        out = fused(ids, mask)[0]
+        ref = plain(ids, mask)[0]
+    assert [a - b for a, b in zip(_counts(), before)] == [0, 0, 0, 0, 0]
+    assert [a - b for a, b in zip(_flash_counts(), fb_before)] == [2, 0, 0]
+    d = (out.float() - ref.float())[mask.bool()].abs()  # pad positions differ by design
+    assert d.max().item() < 0.15 and d.mean().item() < 0.01
+    with torch.inference_mode():  # L % 128 != 0: the plain path, no launch
+        fused(ids[:, :200], mask[:, :200])
+    assert [a - b for a, b in zip(_flash_counts(), fb_before)] == [2, 0, 0]
+
+
+def test_trainer_flash_preset_launches_the_three_kernels(dev):
+    import dataclasses as dc
+
+    from mdhs_tpu_torch.train.trainer import MIBF_HAM_TRAIN, Trainer
+
+    bert = BertConfig(vocab_size=512, num_hidden_layers=2, intermediate_size=512, max_position_embeddings=128,
+                      attention_impl="flash", attention_dropout=0.0)
+    trainer = Trainer(dc.replace(MIBF_HAM_TRAIN, bert=bert, batch_size=4, seq_len=128, canvas=72, image_size=64),
+                      device=dev)
+    rng = np.random.default_rng(2)
+    mask = np.ones((4, 128), np.int64)
+    mask[1, 60:] = 0
+    batch = {"image": rng.integers(0, 256, (4, 72, 72, 3), dtype=np.uint8),
+             "input_ids": rng.integers(0, 512, (4, 128)), "attention_mask": mask, "label": rng.integers(0, 7, 4)}
+    before = _flash_counts()
+    assert bool(torch.isfinite(trainer.train_step(batch)["loss"]))
+    assert [a - b for a, b in zip(_flash_counts(), before)] == [2, 2, 2]
+    before, sub = _flash_counts(), _counts()
+    loss, _ = trainer.validate([batch])
+    assert np.isfinite(loss)
+    assert [a - b for a, b in zip(_flash_counts(), before)] == [2, 0, 0] and _counts() == sub
+
+
+# --------------------------------------------------------------------------- no host sync inside a forward
+def test_imagenet_normalization_makes_no_host_copy(dev):
+    from mdhs_tpu_torch.ops.preprocess import eval_pipeline
+
+    x = torch.randint(0, 256, (2, 40, 40, 3), dtype=torch.uint8, device=dev)
+    eval_pipeline(x, 32)  # the statistics are made once per device, here
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eval_pipeline(x, 32)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.parametrize("impl", ["xla", "auto"])
+def test_bert_fast_math_makes_no_host_copy(dev, impl):
+    cfg = BertConfig(vocab_size=64, hidden_size=128, num_hidden_layers=1, num_attention_heads=2,
+                     intermediate_size=256, max_position_embeddings=64, fast_math=True, attention_impl=impl)
+    model = BertModel(cfg, device=dev, dtype=torch.bfloat16).eval()
+    ids = torch.zeros((2, 16), dtype=torch.int64, device=dev)
+    mask = torch.ones((2, 16), dtype=torch.int64, device=dev)
+    with torch.inference_mode():
+        model(ids, mask)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            model(ids, mask)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")

@@ -244,7 +244,7 @@ def test_bert_plain_and_auto_agree_on_cpu(bert_pair, fast_math):
     _, params, _ = bert_pair
     ids, mask = _bert_inputs()
     outs = []
-    for impl in ("plain", "auto"):
+    for impl in ("xla", "auto"):
         cfg = dataclasses.replace(bert_pair[2].cfg, attention_impl=impl, fast_math=fast_math)
         m = tbert.BertModel(cfg).eval()
         m.load_state_dict(bert_state_dict_from_jax(params), strict=True)
@@ -255,10 +255,10 @@ def test_bert_plain_and_auto_agree_on_cpu(bert_pair, fast_math):
 
 @pytest.mark.parametrize("field, value, exc", [
     ("quantize", "int4", ValueError),
-    ("attention_impl", "flash", NotImplementedError),
     ("sp_mesh_shape", (("data", 1), ("model", 2)), NotImplementedError),
     ("remat", "full", NotImplementedError),
-    ("attention_impl", "xla", ValueError),
+    ("attention_impl", "sdpa", ValueError),
+    ("attention_impl", "plain", ValueError),  # the module path goes by its JAX name, "xla"
 ])
 def test_bert_unported_options_raise(field, value, exc):
     with pytest.raises(exc):
