@@ -16,21 +16,26 @@ Phases, each printing JSON lines:
               wrapper's host launch included), the kernel's device time
               (torch.profiler), the bound (the larger of
               bytes / 3.35 TB/s and operations / peak rate, from this run's
-              shapes), and as the library call (timing only) on the same
-              inputs scaled_dot_product_attention for fused_attention,
-              grid_sample for shear_sublane and var_mean for bn_stats (none
-              for selective_scan and kan_forward: no one PyTorch call computes
-              either); shear_sublane bit-exact; bn_stats within rtol 1e-5 and
+              shapes, each product counted once), and as the library call
+              (timing only, CUDA events and the profiler's device time like
+              the kernel's) on the same inputs scaled_dot_product_attention
+              for fused_attention, grid_sample for shear_sublane and var_mean
+              for bn_stats (none for selective_scan and kan_forward: no one
+              PyTorch call computes either); shear_sublane bit-exact;
+              bn_stats within rtol 1e-5 and
               atol 1e-6 * E|x| (mean) or * E[x^2] (variance), and its backward
               within 1e-5 of the largest gradient; selective_scan (N 16, and
               N 8 and 128) and kan_forward (both layers of the MoE bank)
               within max |d| <= 1e-4 * max |plain| (float32); BERT's flash
-              kernels (the forward at batch 32, seq 512 and 256, and seq 200;
-              dK/dV and dQ at batch 32, seq 256 and 512, against SDPA with the
-              boolean segment mask, forward + backward) on segment ids with
-              masked tiles, the forward within the bf16 bound, dQ, dK, dV
-              within max |d| <= 0.02 * max |plain| and mean |d| <= 2e-3 * max
-              |plain|
+              kernels (the forward at batch 32, seq 512, at seq 256 with the
+              statistics m, l the backward reads, and seq 200, against SDPA's
+              forward with the boolean segment mask; dK/dV and dQ at batch
+              32, seq 256 and 512, against SDPA's backward alone, which makes
+              dQ, dK and dV together, so one more line times the port's whole
+              backward, di + dK/dV + dQ, against it) on segment ids with
+              masked tiles, the forward within the bf16 bound (m, l within
+              atol 1e-3, rtol 1e-4), dQ, dK, dV within max |d| <= 0.02 * max
+              |plain| and mean |d| <= 2e-3 * max |plain|
   4. slice    full-width MIBF-Net (ResNet50 + BERT-base, 7 labels), bf16,
               exact-parity, seeded random weights, through ServingModel(batch
               32): 3 requests (32, 32, 5 rows, seq 128) via predict_stream with
@@ -45,9 +50,10 @@ Phases, each printing JSON lines:
               via predict_stream with int8_attention_block and int8_ffn_block
               launched 12 times a forward and no bf16 sublayer kernel; one
               request of 512 rows at seq 256 (the preset's tokenizer length),
-              12 launches of each; on the same weights, the int8 composite
-              (attention_impl="xla") within 0.25 / 0.03 on logits and BERT
-              output (INT8_ATOL says why), and the exact bf16 path with CLS drift mean |d| < 0.062 *
+              12 launches of each; the same model on the int8 composite
+              (models/bert.py::int8_composite()) within 0.25 / 0.03 on logits
+              and BERT output (INT8_ATOL says why), and the exact bf16 path
+              with CLS drift mean |d| < 0.062 *
               max |CLS| (twice docs/PARITY.md:21's TPU drift); images/s at batch
               512 of the preset and of the exact bf16 model in turns, p50
               latency at batch 1, tower times and the device breakdown
@@ -133,7 +139,7 @@ from torch import nn
 
 from mdhs_tpu_torch import resolve_device
 from mdhs_tpu_torch.models.baseline import MultimodalBaselineModel
-from mdhs_tpu_torch.models.bert import BertConfig
+from mdhs_tpu_torch.models.bert import BertConfig, int8_composite
 from mdhs_tpu_torch.models.init import init_parameters
 from mdhs_tpu_torch.models.mibf import MIBFNet
 from mdhs_tpu_torch.models.norm import BatchNorm2d
@@ -374,8 +380,9 @@ def _flash_bound(B, L, operands, stats, products):
     return _bound(nbytes, products * 2 * B * HEADS * L * L * (HD // HEADS) / BF16_OPS)
 
 
-def bound_flash_forward(B, L):
-    return _flash_bound(B, L, 4, 0, 2)  # q, k, v read, o written; S and P V (serving: no statistics)
+def bound_flash_forward(B, L, stats=False):
+    # q, k, v read, o written (and m, l when the backward needs them); S and P V
+    return _flash_bound(B, L, 4, 2 if stats else 0, 2)
 
 
 def bound_flash_dkv(B, L):
@@ -470,6 +477,15 @@ def judge_bf16(out, ref):
     return mx, mean, MAX_ABS, mx <= MAX_ABS and mean < MEAN_ABS
 
 
+def judge_flash(out, ref):
+    """The flash forward with its statistics: o within the bf16 bound, m and l
+    within atol 1e-3 and rtol 1e-4 (tests/test_torch_port_cuda.py)."""
+    (o, m, l), (o_ref, m_ref, l_ref) = out, ref
+    mx, mean, bound, ok = judge_bf16(o, o_ref)
+    stats_ok = all(torch.allclose(a, b, atol=1e-3, rtol=1e-4) for a, b in ((m, m_ref), (l, l_ref)))
+    return mx, mean, bound, ok and stats_ok
+
+
 def judge_int8(out, ref):
     mx, mean = diff(out, ref)
     bound = INT8_FRAC * ref.float().abs().max().item()
@@ -538,6 +554,20 @@ def _shear_case(rng, B, pad, max_degrees, axis, dev):
     return (x, d, pad), library
 
 
+def _sdpa_calls(q, k, v, seg, do):
+    """SDPA's forward with the boolean segment mask, and its backward alone:
+    autograd.grad through one saved forward graph (timing only)."""
+    B, L, _ = q.shape
+    heads = [t.view(B, L, HEADS, HD // HEADS).transpose(1, 2) for t in (q, k, v)]
+    keep = (seg[:, :, None] == seg[:, None, :])[:, None]
+    leaves = [t.detach().requires_grad_() for t in heads]
+    out = F.scaled_dot_product_attention(*leaves, attn_mask=keep, scale=0.125)
+    do_heads = do.view(B, L, HEADS, HD // HEADS).transpose(1, 2)
+    forward = lambda: F.scaled_dot_product_attention(*heads, attn_mask=keep, scale=0.125)  # noqa: E731
+    backward = lambda: torch.autograd.grad(out, leaves, do_heads, retain_graph=True)  # noqa: E731
+    return forward, backward
+
+
 def _kernel_cases(dev, rng):
     """(name, shape, plain, args, main path?, (bound_ms, bound_by), library call or None, judge)."""
     cases = []
@@ -584,31 +614,29 @@ def _kernel_cases(dev, rng):
         cases.append(("fused_attention", f"B={B},L={L}", fa.attention_reference, args,
                       (B, L) == (BATCH, SEQ512), bound_fused_attention(B, L), library, judge_bf16))
     # BERT's flash core: the forward at the flash serving shape (batch 32, seq 512), a ragged seq
-    # 200 and the training shape (32, 256), the two backward kernels at both full shapes; the
-    # library call is SDPA with the boolean segment mask (its forward, or forward + backward)
+    # 200 and the training shape (32, 256) with the statistics the backward reads, the two backward
+    # kernels at both full shapes. The library call is SDPA with the boolean segment mask: its
+    # forward for the forward, and for each backward kernel SDPA's backward alone (autograd.grad on
+    # a saved forward graph), which makes dQ, dK and dV together: one yardstick for the pair
     for B, L, kinds in ((8, 200, ("forward",)), (BATCH, SEQ512, ("forward", "dkv", "dq")),
                         (BATCH, LONG_SEQ, ("forward", "dkv", "dq"))):
         q, k, v, do = (_rand(rng, (B, L, HD), 1.0, dev) for _ in range(4))
         seg = _segment_ids(rng, B, L, dev)
         o, m, l = fl.flash_attention_reference(q, k, v, seg, HEADS, 0.125, save_stats=True)
         grad_args = (q, k, v, seg, m, l, do, fl.attention_di(o, do, HEADS), HEADS, 0.125)
-        heads = [t.view(B, L, HEADS, HD // HEADS).transpose(1, 2) for t in (q, k, v)]
-        keep = (seg[:, :, None] == seg[:, None, :])[:, None]
-        leaves = [t.detach().requires_grad_() for t in heads]
-        do_heads = do.view(B, L, HEADS, HD // HEADS).transpose(1, 2)
-        sdpa = lambda h=heads, m=keep: F.scaled_dot_product_attention(*h, attn_mask=m, scale=0.125)  # noqa: E731
-        sdpa_grad = lambda h=leaves, m=keep, g=do_heads: torch.autograd.grad(  # noqa: E731
-            F.scaled_dot_product_attention(*h, attn_mask=m, scale=0.125), h, g)
+        sdpa, sdpa_backward = _sdpa_calls(q, k, v, seg, do)
+        stats = (B, L) == (BATCH, LONG_SEQ)  # the training step's forward saves m and l
         for kind in kinds:
             if kind == "forward":
-                cases.append(("flash_attention", f"B={B},L={L}", fl.flash_attention_reference,
-                              (q, k, v, seg, HEADS, 0.125), (B, L) == (BATCH, SEQ512), bound_flash_forward(B, L),
-                              sdpa, judge_bf16))
+                cases.append(("flash_attention", f"B={B},L={L}" + (",stats" if stats else ""),
+                              fl.flash_attention_reference, (q, k, v, seg, HEADS, 0.125, stats),
+                              (B, L) == (BATCH, SEQ512), bound_flash_forward(B, L, stats), sdpa,
+                              judge_flash if stats else judge_bf16))
             else:
                 plain = fl.flash_attention_bwd_dkv_reference if kind == "dkv" else fl.flash_attention_bwd_dq_reference
                 bound = bound_flash_dkv(B, L) if kind == "dkv" else bound_flash_dq(B, L)
                 cases.append((f"flash_attention_bwd_{kind}", f"B={B},L={L}", plain, grad_args,
-                              (B, L) == (BATCH, LONG_SEQ), bound, sdpa_grad, judge_grad))
+                              (B, L) == (BATCH, LONG_SEQ), bound, sdpa_backward, judge_grad))
     # the training step's rotation: pads 17 (W shears) and 31 (H shear) at 15 degrees, batch 32;
     # the baseline family's 45 degrees (pads 49 / 82) on a smaller batch
     for B, pad, deg, axis in ((BATCH, 17, 15.0, "w"), (BATCH, 31, 15.0, "h"), (8, 49, 45.0, "w"), (8, 82, 45.0, "h")):
@@ -644,6 +672,27 @@ def _kernel_cases(dev, rng):
     return cases
 
 
+def _flash_backward_pair(dev, rng) -> None:
+    """The port's whole flash backward (di, dK/dV, dQ: FlashAttention.backward)
+    against SDPA's backward alone at the training shape (32, 256), device time
+    of each by the profiler (timing only)."""
+    B, L = BATCH, LONG_SEQ
+    q, k, v, do = (_rand(rng, (B, L, HD), 1.0, dev) for _ in range(4))
+    seg = _segment_ids(rng, B, L, dev)
+    o, m, l = fl.flash_attention_forward(q, k, v, seg, HEADS, 0.125, save_stats=True)
+
+    def port():
+        di = fl.attention_di(o, do, HEADS)
+        fl.flash_attention_bwd_dkv(q, k, v, seg, m, l, do, di, HEADS, 0.125)
+        fl.flash_attention_bwd_dq(q, k, v, seg, m, l, do, di, HEADS, 0.125)
+
+    _, sdpa_backward = _sdpa_calls(q, k, v, seg, do)
+    emit({"phase": "kernels", "kernel": "flash_attention backward (di + dK/dV + dQ)", "shape": f"B={B},L={L}",
+          "ms": cuda_ms(port), "device_ms": kernel_device_ms(port), "bound_ms": bound_flash_dkv(B, L)[0]
+          + bound_flash_dq(B, L)[0], "library_ms": cuda_ms(sdpa_backward),
+          "library_device_ms": kernel_device_ms(sdpa_backward), "library": "SDPA backward alone"})
+
+
 def phase_kernels(dev, rng) -> dict:
     """Each kernel against its plain version; returns per-kernel summaries."""
     summary = {}
@@ -659,15 +708,18 @@ def phase_kernels(dev, rng) -> dict:
         ms, plain_ms = cuda_ms(lambda: kernel(*args)), cuda_ms(lambda: plain(*args))
         library_ms = cuda_ms(library) if library is not None else None
         device_ms = kernel_device_ms(lambda: kernel(*args))
+        library_device_ms = kernel_device_ms(library) if library is not None else None
         emit({"phase": "kernels", "kernel": name, "shape": shape, "max_abs_err": mx, "mean_abs_err": mean,
               "max_abs_bound": max_bound, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
-              "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms})
+              "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+              "library_device_ms": library_device_ms})
         s = summary.setdefault(name, {"max_abs_err": 0.0})
         s["max_abs_err"] = max(s["max_abs_err"], mx)
         if main_path:
             s.update(shape=shape, ms=ms, device_ms=device_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                     bound_by=bound_by, library_ms=library_ms)
+                     bound_by=bound_by, library_ms=library_ms, library_device_ms=library_device_ms)
         del out, ref
+    _flash_backward_pair(dev, rng)
     # bn_stats' backward (the analytic VJP) against autograd through the plain version,
     # float32 at layer1's bn3 input
     x0 = torch.randn((BATCH * 56 * 56, 256), device=dev, generator=torch.Generator(device=dev).manual_seed(3))
@@ -830,6 +882,11 @@ def phase_slice(dev, rng, seed: int):
     return launches, model, plain
 
 
+def _composite_ms(fn) -> float:
+    with int8_composite():
+        return cuda_ms(fn, reps=5)
+
+
 def phase_preset(dev, rng, seed: int) -> dict:
     preset = MIBF_HAM_SERVING  # fast_math + int8 BERT-base, batch 512, seq 256, 7 labels
     cfg, P = preset.bert, preset.batch_size
@@ -857,14 +914,14 @@ def phase_preset(dev, rng, seed: int) -> dict:
           f"preset seq-256 launches {read_counts()}, expected 12 of each int8 kernel")
     check(long_out.shape == (P, preset.num_labels) and bool(np.isfinite(long_out).all()), "preset seq-256 logits")
 
-    # --- the same weights: the int8 composite, and the exact bf16 path -------
-    composite = _twin(model, dataclasses.replace(cfg, attention_impl="xla"), preset.num_labels, dev)
-    comp_server = ServingModel(composite, P, dev)
-    logit_d = [diff(torch.from_numpy(o), torch.from_numpy(comp_server.predict(r))) for o, r in zip(outs, requests)]
-    lmax, lmean = max(d[0] for d in logit_d), max(d[1] for d in logit_d)
+    # --- the same model on the int8 composite (int8_composite()), and the exact bf16 path
     bert_q = _bert_out(server.model, requests[0], dev)
-    bert_d = diff(bert_q, _bert_out(composite, requests[0], dev))
-    long_bert_d = diff(_bert_out(server.model, long_req, dev), _bert_out(composite, long_req, dev))
+    long_bert_q = _bert_out(server.model, long_req, dev)
+    with int8_composite():
+        logit_d = [diff(torch.from_numpy(o), torch.from_numpy(server.predict(r))) for o, r in zip(outs, requests)]
+        bert_d = diff(bert_q, _bert_out(server.model, requests[0], dev))
+        long_bert_d = diff(long_bert_q, _bert_out(server.model, long_req, dev))
+    lmax, lmean = max(d[0] for d in logit_d), max(d[1] for d in logit_d)
     for what, (mx, mean) in (("logits", (lmax, lmean)), ("BERT output", bert_d), ("seq-256 BERT output", long_bert_d)):
         check(mx <= INT8_ATOL and mean < INT8_MEAN, f"preset {what} vs int8 composite: max {mx} mean {mean}")
     exact = _twin(model, BertConfig(), preset.num_labels, dev)  # exact-parity bf16, same weights
@@ -893,7 +950,7 @@ def phase_preset(dev, rng, seed: int) -> dict:
         towers = {
             "resnet_tower_ms": cuda_ms(lambda: server.model.image_encoder(img), reps=5),
             "bert_tower_int8_kernels_ms": cuda_ms(lambda: server.model.text_encoder(ids, mask), reps=5),
-            "bert_tower_int8_composite_ms": cuda_ms(lambda: composite.text_encoder(ids, mask), reps=5),
+            "bert_tower_int8_composite_ms": _composite_ms(lambda: server.model.text_encoder(ids, mask)),
             "bert_tower_exact_bf16_ms": cuda_ms(lambda: exact.text_encoder(ids, mask), reps=5),
             "forward_ms": cuda_ms(fwd, reps=5),
             "forward_exact_bf16_ms": cuda_ms(lambda: exact(img, ids, mask), reps=5),
@@ -934,6 +991,7 @@ def phase_seq512(dev, rng, model, plain) -> dict:
         ids = torch.from_numpy(req["input_ids"]).to(dev)
         mask = torch.from_numpy(req["attention_mask"]).to(dev)
         towers = {"bert_tower_ms": cuda_ms(lambda: model.text_encoder(ids, mask), reps=5),
+                  "bert_tower_device_ms": kernel_device_ms(lambda: model.text_encoder(ids, mask), reps=3),
                   "bert_tower_plain_ms": cuda_ms(lambda: plain.text_encoder(ids, mask), reps=5)}
     emit({"phase": "seq512", "requests": [BATCH], "launches": launches, "sync_free": sync_free(model, req, dev),
           "bert_out_vs_plain": {"max_abs": bert_d[0], "mean_abs": bert_d[1]},
@@ -999,6 +1057,7 @@ def phase_flash(dev, rng, model) -> dict:
         mask = torch.from_numpy(r["attention_mask"]).to(dev)
         fwd = lambda: flash(img, ids, mask)  # noqa: E731
         towers = {"bert_tower_flash_ms": cuda_ms(lambda: flash.text_encoder(ids, mask), reps=5),
+                  "bert_tower_flash_device_ms": kernel_device_ms(lambda: flash.text_encoder(ids, mask), reps=3),
                   "bert_tower_exact_ms": cuda_ms(lambda: model.text_encoder(ids, mask), reps=5),
                   "forward_ms": cuda_ms(fwd, reps=5), "forward_exact_ms": cuda_ms(lambda: model(img, ids, mask), reps=5)}
         towers["device"] = device_profile(fwd, towers["forward_ms"], top=8)
@@ -1469,7 +1528,7 @@ def main() -> int:
          "launches": main_path[name][name], "max_abs_err": summary[name]["max_abs_err"],
          "ms": summary[name]["ms"], "device_ms": summary[name]["device_ms"], "plain_ms": summary[name]["plain_ms"],
          "bound_ms": summary[name]["bound_ms"], "bound_by": summary[name]["bound_by"],
-         "library_ms": summary[name]["library_ms"]}
+         "library_ms": summary[name]["library_ms"], "library_device_ms": summary[name]["library_device_ms"]}
         for name, (_, src, rep) in KERNELS.items()]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,21 +13,21 @@
 // (:1121, body :796-940) and _flash_attention_bwd_dq (:1456, body
 // :1146-1286). The plain versions are mdhs_tpu_torch/ops/flash_attention.py.
 //
-// Design. The TPU kernels walk the keys (or, for dK/dV, the queries) in a
-// sequential grid dimension with accumulators in VMEM scratch. Here one block
-// of 4 warps owns one (64-row tile, head, batch row) and loops over the other
-// side in tiles of 64 through shared memory; each warp owns 16 rows of its
-// tile end to end, so after a tile is loaded only __syncwarp is needed.
-// Products are WMMA bf16 -> float32 16x16x16 (mma.sync underneath), as
-// fused_attention.cu; wgmma and TMA come later.
-//   forward: Q resident; per key tile S = Q K^T, the online row max and sum
-//            in registers, p = exp(s - m_running) rounded to bf16, O_tile =
-//            P V, and o = o * exp(m_prev - m_next) + O_tile in registers (a
-//            lane holds columns lane + 32 t of its warp's 16 rows); o / l at
-//            the end, and m, l written when the backward needs them. One pass
-//            over the keys: p is rounded relative to the running max, where
-//            the plain version rounds it relative to the final one (the same
-//            bf16 step either way).
+// The forward is the Hopper mainloop of attention_sm90.cuh (128 queries a
+// block, a TMA producer warp feeding a ring of 128-key K/V tiles and their
+// segment ids, two consumer warpgroups on wgmma, P from registers) in one
+// pass over the keys: per tile the online row max and sum in registers,
+// p = exp(s - m_running) rounded to bf16, o = o * exp(m_prev - m_next) + P V
+// in the wgmma accumulators; o / l at the end, and m, l written when the
+// backward needs them. p is rounded relative to the running max, where the
+// plain version rounds it relative to the final one (the same bf16 step
+// either way).
+//
+// The backward kernels walk the other side in tiles of 64 through shared
+// memory, one block of 4 warps per (64-row tile, head, batch row), each warp
+// owning 16 rows of its tile end to end, so after a tile is loaded only
+// __syncwarp is needed. Their products are WMMA bf16 -> float32 16x16x16
+// (mma.sync underneath):
 //   dK/dV:   K, V resident; per query tile S^T = K Q^T and dP^T = V dO^T,
 //            p = exp(s - m) / l, ds = (dp - di) * p * sm_scale, both rounded
 //            to bf16, dV += P^T dO and dK += dS^T Q in WMMA accumulators.
@@ -45,12 +45,14 @@
 // What bounds it on the H100: the forward does 4*B*heads*L*L*D bf16
 // operations against 8*B*L*heads*D bytes (q, k, v, o): at B = 32, L = 512, 12
 // heads of 64 that is 26 us of tensor-core time and 30 us of memory time, so
-// the bytes bound it. The backward's five products (S, dP, dV, dK, dQ; S
-// and dP are made in both backward kernels, seven in all) are 10*B*heads*L*L*D
-// operations against about 14*B*L*heads*D bytes.
+// the bytes bound it; the exponential and the row arithmetic of each score
+// on the CUDA cores are what its design leaves above that. The backward's
+// five products (S, dP, dV, dK, dQ; S and dP are made in both backward
+// kernels, seven in all) are 10*B*heads*L*L*D operations against about
+// 14*B*L*heads*D bytes.
 #include <climits>
 
-#include "common.cuh"
+#include "attention_sm90.cuh"
 
 namespace mdhs {
 namespace {
@@ -60,15 +62,13 @@ constexpr int QT = 64;        // rows of a block's own tile, 16 per warp
 constexpr int KT = 64;        // rows of each streamed tile
 constexpr int THREADS = 128;  // 4 warps
 constexpr int MAX_D = 128;    // head_dim bound: ND = Dp / 16 accumulator fragments a warp
-// the library's DEFAULT_MASK_VALUE, -0.7 * float32 max taken in double, then rounded
-constexpr float kMask = static_cast<float>(-0.7 * static_cast<double>(FLT_MAX));
 }  // namespace fl
 
-enum FlKind : int { kFwd = 0, kDkv = 1, kDq = 2 };
+enum FlKind : int { kDkv = 0, kDq = 1 };
 
 __host__ __device__ inline size_t fl_align(size_t x) { return (x + 127) & ~size_t(127); }
 
-// Shared-memory plan of one block; fl_prepare refuses a plan past kMaxSmemPerBlock.
+// Shared-memory plan of a backward block; fl_prepare refuses a plan past kMaxSmemPerBlock.
 struct FlPlan {
   int Dp;              // D rounded up to the 16 of a fragment
   int ldk, lds, ldp;   // pitches: (64, Dp) bf16 tiles, (64, 64|Dp) float32 scratch, (64, 64) bf16 scratch
@@ -81,15 +81,15 @@ __host__ __device__ inline FlPlan fl_plan(int D, int kind) {
   p.ldk = p.Dp + 8;
   p.lds = (fl::KT > p.Dp ? fl::KT : p.Dp) + 4;
   p.ldp = fl::KT + 8;
-  const int nt = kind == kFwd ? 3 : 4, ns = kind == kFwd ? 1 : 2, nb = kind == kDkv ? 2 : 1;
+  const int nb = kind == kDkv ? 2 : 1;
   size_t off = 0;
   for (int i = 0; i < 4; ++i) {
     p.tile[i] = off;
-    if (i < nt) off = fl_align(off + size_t(fl::QT) * p.ldk * sizeof(bf16));
+    off = fl_align(off + size_t(fl::QT) * p.ldk * sizeof(bf16));
   }
   for (int i = 0; i < 2; ++i) {
     p.f32[i] = off;
-    if (i < ns) off = fl_align(off + size_t(fl::QT) * p.lds * sizeof(float));
+    off = fl_align(off + size_t(fl::QT) * p.lds * sizeof(float));
   }
   for (int i = 0; i < 2; ++i) {
     p.pb[i] = off;
@@ -178,123 +178,15 @@ __device__ __forceinline__ void fl_store_acc(bf16* head, const wmma::fragment<wm
   }
 }
 
-// grid = (ceil(L / 64), heads, B): one block per 64 queries of one head of one batch row.
-// Three blocks an SM: left alone the compiler takes 224 registers at head_dim 64
-// (two blocks an SM, too few warps to hide the tile loads); capped at 168 it
-// spills nothing. The backward kernels are held to two blocks by shared memory.
-template <int ND>
-__global__ void __launch_bounds__(fl::THREADS, 3)
-    flash_forward_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-                         const int* __restrict__ seg, bf16* __restrict__ out, float* __restrict__ m_out,
-                         float* __restrict__ l_out, int L, int HD, int D, float sm_scale) {
-  using namespace fl;
-  constexpr int NC = (ND + 1) / 2;  // groups of 32 columns a lane holds in each row
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const FlPlan sp = fl_plan(D, kFwd);
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw + sp.tile[0]);
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw + sp.tile[1]);
-  bf16* Vs = reinterpret_cast<bf16*>(smem_raw + sp.tile[2]);
-  float* S = reinterpret_cast<float*>(smem_raw + sp.f32[0]);
-  bf16* P = reinterpret_cast<bf16*>(smem_raw + sp.pb[0]);
-  int* segq = reinterpret_cast<int*>(smem_raw + sp.words);
-  int* segk = segq + QT;
-
-  const int q0 = blockIdx.x * QT, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const size_t head = size_t(b) * L * HD + size_t(h) * D;
-  const int* seg_row = seg + size_t(b) * L;
-  fl_load_tile(Qs, q + head, q0, L, HD, D, sp);
-  fl_load_seg(segq, seg_row, q0, L);
-
-  const int r0 = warp * 16;
-  float mrow[16], lrow[16], o[16][NC];
-#pragma unroll
-  for (int r = 0; r < 16; ++r) {
-    mrow[r] = -INFINITY;
-    lrow[r] = 0.0f;
-#pragma unroll
-    for (int t = 0; t < NC; ++t) o[r][t] = 0.0f;
-  }
-  for (int k0 = 0; k0 < L; k0 += KT) {
-    __syncthreads();  // the previous tiles are no longer read
-    fl_load_tile(Ks, k + head, k0, L, HD, D, sp);
-    fl_load_tile(Vs, v + head, k0, L, HD, D, sp);
-    fl_load_seg(segk, seg_row, k0, L);
-    __syncthreads();
-    fl_abt<ND>(S, Qs, Ks, r0, sp);
-    __syncwarp();
-    bool in[KT / 32];
-    int sk[KT / 32];
-#pragma unroll
-    for (int t = 0; t < KT / 32; ++t) {
-      in[t] = k0 + lane + 32 * t < L;
-      sk[t] = segk[lane + 32 * t];
-    }
-    float alpha[16];
-#pragma unroll
-    for (int r = 0; r < 16; ++r) {
-      const float* srow = S + (r0 + r) * sp.lds;
-      const int sq = segq[r0 + r];
-      float s[KT / 32], mx = -INFINITY;
-#pragma unroll
-      for (int t = 0; t < KT / 32; ++t) {
-        s[t] = in[t] ? srow[lane + 32 * t] * sm_scale + (sq == sk[t] ? 0.0f : kMask) : -INFINITY;
-        mx = fmaxf(mx, s[t]);
-      }
-      const float m_next = fmaxf(mrow[r], warp_max(mx));
-      alpha[r] = expf(mrow[r] - m_next);  // 0 on the first tile (m = -inf)
-      float psum = 0.0f;
-#pragma unroll
-      for (int t = 0; t < KT / 32; ++t) {
-        const float p = in[t] ? expf(s[t] - m_next) : 0.0f;
-        psum += p;
-        P[(r0 + r) * sp.ldp + lane + 32 * t] = __float2bfloat16_rn(p);
-      }
-      lrow[r] = alpha[r] * lrow[r] + warp_sum(psum);
-      mrow[r] = m_next;
-    }
-    __syncwarp();
-    // O_tile = P V through this warp's rows of S (its scores are consumed)
-#pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.0f);
-#pragma unroll
-      for (int kk = 0; kk < KT / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vb;
-        wmma::load_matrix_sync(a, P + r0 * sp.ldp + 16 * kk, sp.ldp);
-        wmma::load_matrix_sync(vb, Vs + (16 * kk) * sp.ldk + 16 * n, sp.ldk);
-        wmma::mma_sync(acc, a, vb, acc);
-      }
-      wmma::store_matrix_sync(S + r0 * sp.lds + 16 * n, acc, sp.lds, wmma::mem_row_major);
-    }
-    __syncwarp();
-#pragma unroll
-    for (int r = 0; r < 16; ++r) {
-#pragma unroll
-      for (int t = 0; t < NC; ++t) {
-        const int c = lane + 32 * t;
-        if (c < sp.Dp) o[r][t] = o[r][t] * alpha[r] + S[(r0 + r) * sp.lds + c];
-      }
-    }
-  }
-
-  const size_t stat = (size_t(b) * gridDim.y + h) * L;
-#pragma unroll
-  for (int r = 0; r < 16; ++r) {
-    const int qi = q0 + r0 + r;
-    if (qi >= L) continue;
-#pragma unroll
-    for (int t = 0; t < NC; ++t) {
-      const int c = lane + 32 * t;
-      if (c < D) out[head + size_t(qi) * HD + c] = __float2bfloat16_rn(o[r][t] / lrow[r]);
-    }
-    if (m_out != nullptr && lane == 0) {
-      m_out[stat + qi] = mrow[r];
-      l_out[stat + qi] = lrow[r];
-    }
-  }
+// The forward: the persistent mainloop of attention_sm90.cuh in its one-pass
+// form. seg is (B, L) int32; m_out and l_out are (B, heads, L) float32, or
+// null when the backward does not need them.
+template <int NC>
+__global__ void __launch_bounds__(sm90::THREADS, 1)
+    flash_forward_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv, const uint32_t* __restrict__ seg,
+                         bf16* __restrict__ out, float* m_out, float* l_out, int B, int L, int HD, int D, float sm_scale) {
+  sm90::attention_sm90<NC, sm90::kFlash>(sm90::Args{&tq, &tk, &tv, seg, out, m_out, l_out, B, L, HD, D, sm_scale});
 }
 
 // Per-row statistics of rows row0 .. row0 + 64 (m, l, di from (B, heads, L));
@@ -315,7 +207,7 @@ __device__ __forceinline__ void fl_p_ds(float s, float dp, bool same, bool in, f
                                         float sm_scale, bf16* p_out, bf16* ds_out) {
   float p = 0.0f, ds = 0.0f;
   if (in) {
-    p = expf(s * sm_scale + (same ? 0.0f : fl::kMask) - m) / l;
+    p = expf(s * sm_scale + (same ? 0.0f : sm90::kMask) - m) / l;
     ds = (dp - di) * p * sm_scale;
   }
   if (p_out != nullptr) *p_out = __float2bfloat16_rn(p);
@@ -466,7 +358,6 @@ struct FlArgs {
   const bf16 *q, *k, *v, *dout;
   const int* seg;
   const float *m_in, *l_in, *di;
-  float *m_out, *l_out;
   bf16 *out, *dk, *dv;
   int B, L, HD, D;
   float sm_scale;
@@ -478,11 +369,7 @@ cudaError_t fl_launch(int kind, const FlArgs& a) {
   const FlPlan sp = fl_plan(a.D, kind);
   const dim3 grid((a.L + fl::QT - 1) / fl::QT, a.HD / a.D, a.B);
   cudaError_t err;
-  if (kind == kFwd) {
-    if ((err = fl_prepare(flash_forward_kernel<ND>, sp)) != cudaSuccess) return err;
-    flash_forward_kernel<ND><<<grid, fl::THREADS, sp.bytes, a.stream>>>(a.q, a.k, a.v, a.seg, a.out, a.m_out,
-                                                                       a.l_out, a.L, a.HD, a.D, a.sm_scale);
-  } else if (kind == kDkv) {
+  if (kind == kDkv) {
     if ((err = fl_prepare(flash_bwd_dkv_kernel<ND>, sp)) != cudaSuccess) return err;
     flash_bwd_dkv_kernel<ND><<<grid, fl::THREADS, sp.bytes, a.stream>>>(
         a.q, a.k, a.v, a.seg, a.m_in, a.l_in, a.dout, a.di, a.dk, a.dv, a.L, a.HD, a.D, a.sm_scale);
@@ -521,19 +408,9 @@ cudaError_t fl_dispatch(int kind, FlArgs a, int num_heads) {
 extern "C" int flash_attention_forward(const void* q, const void* k, const void* v, const void* seg, void* out,
                                        void* m, void* l, int B, int L, int HD, int num_heads, float sm_scale,
                                        void* stream) {
-  using mdhs::bf16;
-  mdhs::FlArgs a{};
-  a.q = static_cast<const bf16*>(q);
-  a.k = static_cast<const bf16*>(k);
-  a.v = static_cast<const bf16*>(v);
-  a.seg = static_cast<const int*>(seg);
-  a.out = static_cast<bf16*>(out);
-  a.m_out = static_cast<float*>(m);
-  a.l_out = static_cast<float*>(l);
-  a.B = B, a.L = L, a.HD = HD, a.sm_scale = sm_scale;
-  a.stream = static_cast<cudaStream_t>(stream);
   if ((m == nullptr) != (l == nullptr)) return cudaErrorInvalidValue;
-  return mdhs::fl_dispatch(mdhs::kFwd, a, num_heads);
+  return mdhs::sm90::launch(mdhs::flash_forward_kernel<1>, mdhs::flash_forward_kernel<2>, q, k, v, seg, out,
+                            static_cast<float*>(m), static_cast<float*>(l), B, L, HD, num_heads, sm_scale, stream);
 }
 
 // dout, dk, dv: (B, L, HD) bf16; m, l, di: (B, num_heads, L) float32 (the

@@ -1,17 +1,19 @@
 """BERT text encoder with HF state_dict names.
 
 Counterpart of ``mdhs_tpu/models/bert.py``. Returns the last hidden state
-and all hidden states. When the model is in eval mode, the activations are
-bf16 on CUDA and ``attention_impl`` is "auto" or "fused", each layer runs
-hand-written CUDA kernels where their ``supports()`` gates accept the shape:
+and all hidden states. When the model is in eval mode and the activations are
+bf16 on CUDA, each layer runs hand-written CUDA kernels where their
+``supports()`` gates accept the shape (``_kernel_plan`` decides):
 
-- the attention sublayer as ``ops/attention_block.py``; where that rejects
-  the sequence length (L > 320 at head_dim 64, seq 512 among them), the
-  attention core as ``ops/fused_attention.py`` between cuBLAS projections;
-- the FFN sublayer as ``ops/ffn_block.py``;
-- under ``quantize="int8"`` (the int8 serving preset, eval only; also under
-  "flash", whose knob the JAX int8 branch does not read), the two sublayers
-  as ``ops/quant_kernel.py``'s a8w8 kernels instead.
+- under ``quantize="int8"`` (the int8 serving preset, eval only), the two
+  sublayers as ``ops/quant_kernel.py``'s a8w8 kernels, whatever
+  ``attention_impl`` is: the JAX int8 branch (``mdhs_tpu/models/bert.py:
+  242-301``) reads no impl; where they reject the shape, the composite;
+- otherwise under "auto" or "fused": the attention sublayer as
+  ``ops/attention_block.py``; where that rejects the sequence length (L > 320
+  at head_dim 64, seq 512 among them), the attention core as
+  ``ops/fused_attention.py`` between cuBLAS projections; the FFN sublayer as
+  ``ops/ffn_block.py``.
 
 Under ``attention_impl="flash"`` the attention core is
 ``ops/flash_attention.py`` (the kernels on CUDA, bf16 only, in eval and,
@@ -28,6 +30,7 @@ package does off the TPU.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import NamedTuple, Optional
 
@@ -51,12 +54,12 @@ class BertConfig:
     """Same fields and defaults as ``mdhs_tpu.models.bert.BertConfig``.
 
     ``attention_impl``: "auto" (kernels where eligible), "xla" (the JAX
-    name of the module path; with ``quantize="int8"`` the int8 composite),
-    "fused" (the kernels, and an error where a CUDA bf16 eval call has a
-    shape they do not support), or "flash" (the flash-attention kernels
-    where the JAX flash gate takes the layer, and an error where a CUDA
-    call's dtype or shape is not theirs; the module path elsewhere).
-    ``quantize``: "none" (exact path) or "int8" (a8w8 serving preset, eval only).
+    name of the module path), "fused" (the kernels, and an error where a
+    CUDA bf16 eval call has a shape they do not support), or "flash" (the
+    flash-attention kernels where the JAX flash gate takes the layer, and an
+    error where a CUDA call's dtype or shape is not theirs; the module path
+    elsewhere). ``quantize``: "none" (exact path) or "int8" (a8w8 serving
+    preset, eval only; it reads no ``attention_impl``, as in JAX).
     """
 
     vocab_size: int = 30522
@@ -98,6 +101,52 @@ class BertConfig:
             raise NotImplementedError("sp_mesh_shape (sequence parallelism) is ROADMAP Queue 1 item 12")
         if self.remat != "none":
             raise NotImplementedError(f"remat={self.remat!r} is a training knob: ROADMAP Queue 1 item 8")
+
+
+_INT8_COMPOSITE = False
+
+
+@contextlib.contextmanager
+def int8_composite():
+    """Inside this block int8 layers run the ``int8_dense`` composite, not the
+    int8 kernels, on any device: how the port's card-side comparisons ask for
+    the composite on the same model. An explicit request, not a fallback, and
+    not a ``BertConfig`` value (the JAX config has no such knob)."""
+    global _INT8_COMPOSITE
+    before, _INT8_COMPOSITE = _INT8_COMPOSITE, True
+    try:
+        yield
+    finally:
+        _INT8_COMPOSITE = before
+
+
+def _kernel_plan(cfg: BertConfig, training: bool, dtype: torch.dtype, is_cuda: bool, B: int,
+                 L: int) -> tuple[bool, bool, bool]:
+    """Which kernels a BertLayer forward takes: (the attention sublayer, the
+    attention core alone, the FFN sublayer). Kernels run in eval only, on
+    bf16 CUDA activations. Under ``quantize="int8"`` the int8 kernels, under
+    every ``attention_impl``, wherever ``_qk.attn_supports`` / ``_qk.supports``
+    take the shape (the composite elsewhere, and inside ``int8_composite()``);
+    otherwise the bf16 kernels under "auto" and "fused", where "fused" raises
+    if they do not take the shape."""
+    if training or not is_cuda or dtype != torch.bfloat16:
+        return False, False, False
+    H, heads = cfg.hidden_size, cfg.num_attention_heads
+    if cfg.quantize == "int8":
+        if _INT8_COMPOSITE:
+            return False, False, False
+        return _qk.attn_supports(dtype, L, H, heads), False, _qk.supports(dtype, B * L, H, cfg.intermediate_size)
+    if cfg.attention_impl not in ("auto", "fused"):
+        return False, False, False
+    use_attn = _ab.supports(dtype, L, H, heads)
+    use_core = not use_attn and _fa.supports(dtype, L, H, heads)
+    use_ffn = _fb.supports(dtype, B * L, H, cfg.intermediate_size)
+    if cfg.attention_impl == "fused" and not ((use_attn or use_core) and use_ffn):
+        raise ValueError(
+            f"attention_impl='fused' but the kernels do not support dtype={dtype}, L={L}, hidden={H}, "
+            f"heads={heads}, intermediate={cfg.intermediate_size}"
+        )
+    return use_attn, use_core, use_ffn
 
 
 class BertEmbeddings(nn.Module):
@@ -276,15 +325,6 @@ class BertLayer(nn.Module):
             self._int8_key = self._int8_version()
         return self._int8
 
-    def _kernels_eligible(self, hidden: torch.Tensor, int8: bool) -> bool:
-        impls = ("auto", "fused", "flash") if int8 else ("auto", "fused")
-        return (
-            self.cfg.attention_impl in impls
-            and not self.training
-            and hidden.dtype == torch.bfloat16
-            and hidden.is_cuda
-        )
-
     def attention_sublayer(self, hidden, attn_bias, kernel: bool, fused_core: bool = False,
                            attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """LN(hidden + attention(hidden)); attn_bias is (B, 1, 1, L) float32.
@@ -361,23 +401,8 @@ class BertLayer(nn.Module):
                 attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         c = self.cfg
         int8 = c.quantize == "int8" and not self.training  # the knob is ignored in training
-        use_attn = use_core = use_ffn = False
-        if self._kernels_eligible(hidden, int8):
-            B, L, H = hidden.shape
-            heads = c.num_attention_heads
-            if int8:
-                use_attn = _qk.attn_supports(hidden.dtype, L, H, heads)
-                use_ffn = _qk.supports(hidden.dtype, B * L, H, c.intermediate_size)
-            else:
-                use_attn = _ab.supports(hidden.dtype, L, H, heads)
-                use_core = not use_attn and _fa.supports(hidden.dtype, L, H, heads)
-                use_ffn = _fb.supports(hidden.dtype, B * L, H, c.intermediate_size)
-            if c.attention_impl == "fused" and not ((use_attn or use_core) and use_ffn):
-                raise ValueError(
-                    f"attention_impl='fused' but the {'int8 ' if int8 else ''}kernels do not support "
-                    f"dtype={hidden.dtype}, L={L}, hidden={H}, heads={heads}, "
-                    f"intermediate={c.intermediate_size}"
-                )
+        B, L, _ = hidden.shape
+        use_attn, use_core, use_ffn = _kernel_plan(c, self.training, hidden.dtype, hidden.is_cuda, B, L)
         if int8:
             w = self.int8_weights()
             hidden = self.int8_attention_sublayer(hidden, attn_bias, w, use_attn)

@@ -20,31 +20,38 @@ from . import _build
 
 __all__ = ["fused_attention", "attention_reference", "supports"]
 
-_QT = _KT = 64  # query rows per block, keys per tile (csrc/fused_attention.cu: fa::QT, fa::KT)
-_MAX_SEQ = 512  # BertConfig.max_position_embeddings
+# the Hopper mainloop's plan (csrc/attention_sm90.cuh: sm90::QT, KT, CHUNK, stages(), plan())
+_QT = _KT = 128  # query rows of a block, keys of a streamed tile
+_CHUNK = 64      # bf16 columns of one 128-byte swizzled chunk
+_MAX_SEQ = 512   # BertConfig.max_position_embeddings
 
 
-def _align128(n: int) -> int:
-    return (n + 127) // 128 * 128
+def _chunks(head_dim: int) -> int:
+    return (head_dim + _CHUNK - 1) // _CHUNK
+
+
+def _stages(head_dim: int) -> int:
+    """Stages of the K/V ring: 3 at head_dim <= 64, 2 above."""
+    return 3 if _chunks(head_dim) == 1 else 2
 
 
 def _smem_bytes(head_dim: int) -> int:
-    """Shared memory of one block: csrc/fused_attention.cu::fa_plan."""
-    Dp = (head_dim + 15) // 16 * 16
-    ldk, lds, ldp = Dp + 8, max(_KT, Dp) + 4, _KT + 8
-    off = _align128(_QT * ldk * 2)        # Q
-    off = _align128(off + _KT * ldk * 2)  # K tile
-    off = _align128(off + _KT * ldk * 2)  # V tile
-    off = _align128(off + _QT * lds * 4)  # scores, float32
-    return _align128(off + _QT * ldp * 2)  # probabilities, bf16
+    """Shared memory of one block: csrc/attention_sm90.cuh::plan. 1024 bytes
+    of alignment slack, two Q tiles (the current work item's and the next
+    one's), the ring's K and V tiles (128 bytes a row of each 64-column
+    chunk), each stage's 128 key words, the mbarriers."""
+    nc, st = _chunks(head_dim), _stages(head_dim)
+    tiles = 2 * nc * _QT * 128 + st * 2 * nc * _KT * 128
+    return 1024 + tiles + st * _KT * 4 + (4 + 2 * st) * 8
 
 
 def supports(dtype: torch.dtype, seq_len: int, hidden: int, num_heads: int) -> bool:
     """The kernel's own gate, from the card's limits rather than TPU VMEM:
     bf16; ``hidden == num_heads * head_dim`` with ``head_dim % 8 == 0`` and
-    ``head_dim <= 128`` (the accumulators a warp holds); any ``1 <= L <= 512``
-    (K and V stream through shared memory in tiles, the last one masked; the
-    TPU's ``L % 128 == 0`` condition goes)."""
+    ``head_dim <= 128`` (two 64-column chunks of wgmma accumulators); any
+    ``1 <= L <= 512`` (K and V stream through shared memory in tiles, the
+    last one masked; the TPU's ``L % 128 == 0`` condition goes); the block's
+    shared memory within the card's 232,448 bytes."""
     if num_heads <= 0 or hidden % num_heads:
         return False
     head_dim = hidden // num_heads

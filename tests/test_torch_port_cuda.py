@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from mdhs_tpu_torch.models.bert import BertConfig, BertModel
+from mdhs_tpu_torch.models.bert import BertConfig, BertModel, int8_composite
 from mdhs_tpu_torch.models.init import init_parameters
 from mdhs_tpu_torch.ops import attention_block as ab
 from mdhs_tpu_torch.ops import ffn_block as fb
@@ -176,17 +176,24 @@ def test_int8_attention_block_kernel_matches_plain(dev, B, L, HD, heads):
     _close_int8(out, qk.int8_attention_block_reference(*args))
 
 
+# L past, inside and at the 128-key tile (1, 100, 333, 500, 512); head_dim 16, 32, 64, 128, and 40 and 72,
+# which are not multiples of the 64-column chunk (the box also reads the next head's columns)
 @pytest.mark.parametrize("B, L, HD, heads", [(2, 1, 64, 2), (3, 100, 128, 4), (2, 333, 768, 12),
-                                             (2, 512, 768, 12), (1, 512, 512, 4)])
+                                             (2, 512, 768, 12), (1, 512, 512, 4), (2, 500, 768, 12),
+                                             (3, 100, 320, 8), (2, 333, 120, 3), (2, 1, 256, 2),
+                                             (2, 257, 384, 3), (2, 200, 288, 4)])
 def test_fused_attention_kernel_matches_plain(dev, B, L, HD, heads):
     rng = np.random.default_rng(L)
     q, k, v = (_randn(rng, (B, L, HD), 1.0, dev) for _ in range(3))
-    args = (q, k, v, _bias(rng, B, L, dev), heads, float(HD // heads) ** -0.5)
+    bias = _bias(rng, B, L, dev)
+    bias[-1] = -1e9  # a row whose keys are all masked: a uniform softmax, as the plain version's
+    args = (q, k, v, bias, heads, float(HD // heads) ** -0.5)
     n = fa.fused_attention.launches
     out = fa.fused_attention(*args)
     torch.cuda.synchronize()
     assert fa.fused_attention.launches == n + 1
     _close(out, fa.attention_reference(*args))
+    assert torch.equal(fa.fused_attention(*args), out)  # a second launch gives the same bits
 
 
 def _bert_pair(dev, **cfg):
@@ -214,10 +221,30 @@ def test_bert_int8_layers_use_the_int8_kernels(dev, L):
     before = _counts()
     with torch.inference_mode():
         out = fused(ids, mask)[0]
-        ref = plain(ids, mask)[0]  # the int8_dense composite
+        with int8_composite():
+            ref = plain(ids, mask)[0]  # the int8_dense composite
     assert [a - b for a, b in zip(_counts(), before)] == [0, 0, 0, 2, 2]
     # chip_smoke.py's bound for the int8 kernels against the int8 composite,
     # which rounds to bf16 before each re-quantization (INT8_ATOL there says why)
+    d = (out.float() - ref.float()).abs()
+    assert d.max().item() <= 0.25 and d.mean().item() < 0.03
+
+
+def test_bert_int8_takes_its_kernels_under_xla_and_the_composite_on_request(dev):
+    """The JAX int8 branch reads no attention_impl: "xla" + int8 takes both int8
+    kernels, 2 x layers launches; int8_composite() runs the composite, none."""
+    model, _, g = _bert_pair(dev, quantize="int8", attention_impl="xla")
+    ids = torch.randint(0, 512, (3, 64), generator=g, device=dev)
+    mask = torch.ones((3, 64), dtype=torch.int64, device=dev)
+    mask[2, 40:] = 0
+    before = _counts()
+    with torch.inference_mode():
+        out = model(ids, mask)[0]
+    assert [a - b for a, b in zip(_counts(), before)] == [0, 0, 0, 2, 2]
+    before = _counts()
+    with torch.inference_mode(), int8_composite():
+        ref = model(ids, mask)[0]
+    assert _counts() == before
     d = (out.float() - ref.float()).abs()
     assert d.max().item() <= 0.25 and d.mean().item() < 0.03
 
@@ -526,7 +553,12 @@ def _close_grad(out, ref):
     assert d.max().item() <= 0.02 * scale and d.mean().item() <= 2e-3 * scale, (d.max().item(), d.mean().item(), scale)
 
 
-@pytest.mark.parametrize("B, L, HD, heads", _FLASH_SHAPES)
+# beside the shapes of the backward: L 100, 333 and 500 (not multiples of the 128-key
+# tile), head_dim 40 and 72 (not multiples of the 64-column chunk) and 128, four rows
+# each, so that one row's second segment has keys only in the first tile and one only
+# in the last
+@pytest.mark.parametrize("B, L, HD, heads", _FLASH_SHAPES + [(4, 100, 320, 8), (4, 333, 768, 12), (4, 500, 256, 2),
+                                                             (4, 200, 288, 4), (4, 130, 512, 4)])
 def test_flash_forward_kernel_matches_plain(dev, B, L, HD, heads):
     args = _flash_args(B, L, HD, heads, dev)
     n = fl.flash_attention_forward.launches

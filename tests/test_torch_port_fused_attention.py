@@ -100,3 +100,16 @@ def test_fused_attention_raises_on_other_devices():
     q = torch.empty((1, 16, 128), dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         tfa.fused_attention(q, q, q, torch.empty((1, 16), device="meta"), 2, 0.125)
+
+
+@pytest.mark.parametrize("head_dim", range(8, 129, 8))
+def test_fused_attention_shared_memory_plan(head_dim):
+    """The Python mirror of csrc/attention_sm90.cuh::plan: 128 queries a work
+    item, 128-key tiles, 64-column chunks, a ring of 3 stages up to head_dim
+    64 and 2 above (the header comment's figures), within the card's 232,448
+    bytes."""
+    assert (tfa._QT, tfa._KT, tfa._CHUNK) == (128, 128, 64)
+    nc = 1 if head_dim <= 64 else 2
+    assert (tfa._chunks(head_dim), tfa._stages(head_dim)) == (nc, 3 if nc == 1 else 2)
+    assert tfa._smem_bytes(head_dim) == (133_712 if nc == 1 else 198_720) <= 232_448
+    assert tfa.supports(torch.bfloat16, 512, 4 * head_dim, 4)

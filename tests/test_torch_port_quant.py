@@ -406,3 +406,47 @@ def test_serving_preset_is_the_yaml_resolution():
     assert MIBF_HAM_SERVING.batch_size == cfg.get("inference.batch_size") == 512
     assert MIBF_HAM_SERVING.seq_len == cfg.get("tokenizer.max_length") == 256
     assert MIBF_HAM_SERVING.num_labels == cfg.get("model.num_classes") == 7
+
+
+# ---------------------------------------------------------------------------
+# Which kernels a BertLayer takes (models/bert.py::_kernel_plan). The JAX int8
+# branch (mdhs_tpu/models/bert.py:242-301) reads no attention_impl: it takes
+# the int8 kernels wherever attn_supports / supports pass and the composite
+# elsewhere, and never raises. The plan is pure Python, so the card's
+# decisions are checked here with is_cuda=True.
+# ---------------------------------------------------------------------------
+
+# (B, L, hidden, heads, intermediate): a shape both int8 kernels take, and one whose
+# head_dim 12 the int8 attention kernel and every bf16 attention kernel reject
+PLAN_SHAPES = {"taken": (2, 128, 768, 12, 3072), "rejected": (2, 16, 384, 32, 512)}
+
+
+@pytest.mark.parametrize("shape", sorted(PLAN_SHAPES))
+@pytest.mark.parametrize("quantize", ["none", "int8"])
+@pytest.mark.parametrize("impl", ["auto", "fused", "xla", "flash"])
+def test_kernel_plan_takes_int8_kernels_under_every_impl(impl, quantize, shape):
+    B, L, H, heads, inter = PLAN_SHAPES[shape]
+    cfg = tbert.BertConfig(hidden_size=H, num_attention_heads=heads, intermediate_size=inter,
+                           attention_impl=impl, quantize=quantize)
+
+    def plan(**kw):
+        args = dict(training=False, dtype=torch.bfloat16, is_cuda=True, B=B, L=L) | kw
+        return tbert._kernel_plan(cfg, **args)
+
+    int8_attn = tqk.attn_supports(torch.bfloat16, L, H, heads)
+    int8_ffn = tqk.supports(torch.bfloat16, B * L, H, inter)
+    assert (int8_attn, int8_ffn) == ((True, True) if shape == "taken" else (False, True))
+    if quantize == "int8":
+        assert plan() == (int8_attn, False, int8_ffn)  # the same under every impl; "fused" never raises
+        with tbert.int8_composite():  # the explicit request for the composite
+            assert plan() == (False, False, False)
+        assert plan() == (int8_attn, False, int8_ffn)
+    elif impl == "fused" and shape == "rejected":
+        with pytest.raises(ValueError, match="attention_impl='fused'"):
+            plan()
+    elif impl in ("auto", "fused"):
+        assert plan() == ((True, False, True) if shape == "taken" else (False, False, True))
+    else:
+        assert plan() == (False, False, False)
+    # no kernel in training, off the card or outside bf16, whatever the config
+    assert plan(training=True) == plan(is_cuda=False) == plan(dtype=torch.float32) == (False, False, False)
