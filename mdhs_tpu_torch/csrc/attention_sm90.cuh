@@ -250,23 +250,49 @@ __device__ __forceinline__ void issue_qk(float (&s)[64], uint32_t q_wg, uint32_t
   wgmma_commit();
 }
 
-// O += P V of one tile, issued and committed: P from registers, V (MN-major) from shared memory
-template <int NC>
-__device__ __forceinline__ void issue_pv(float (&o)[NC][32], const uint32_t (&pa)[8][4], uint32_t v_base) {
+// acc[c] += A B over KS steps of 16 rows, fenced, issued and committed as a group of its own:
+// A from registers, B (KS * 16 rows, NC chunks of 64 columns b_chunk bytes apart) MN-major
+// from shared memory
+template <int NC, int KS>
+__device__ __forceinline__ void issue_rs(float (&acc)[NC][32], const uint32_t (&pa)[KS][4], uint32_t b,
+                                         uint32_t b_chunk) {
+  fence_acc<NC>(acc);
+  wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk)
+  for (int kk = 0; kk < KS; ++kk)
 #pragma unroll
-    for (int c = 0; c < NC; ++c) wgmma_rs_m64n64k16(o[c], pa[kk], desc_sw128(v_base + c * TILE_BYTES + kk * 16 * 128, 1024));
+    for (int c = 0; c < NC; ++c) wgmma_rs_m64n64k16(acc[c], pa[kk], desc_sw128(b + c * b_chunk + kk * 16 * 128, 1024));
   wgmma_commit();
+  fence_acc<NC>(acc);
 }
 
-// P as the register A operand: k-step kk holds keys 16 kk .. 16 kk + 16, s[8 kk .. 8 kk + 8)
-// in the order of the A fragment
-__device__ __forceinline__ void pack_p(uint32_t (&pa)[8][4], const float (&s)[64]) {
+// an m64nN accumulator, rounded to bf16, as the register A operand of KS = N / 16 k-steps
+template <int KS>
+__device__ __forceinline__ void pack_a(uint32_t (&pa)[KS][4], const float (&s)[8 * KS]) {
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk)
+  for (int kk = 0; kk < KS; ++kk)
 #pragma unroll
     for (int x = 0; x < 4; ++x) pa[kk][x] = pack_bf16(s[8 * kk + 2 * x], s[8 * kk + 2 * x + 1]);
+}
+
+// The box reads 64 columns: zero columns D .. 64 NC of the warpgroup's rows row0 .. row0 + 64
+// of a resident tensor whose chunk 0 is at t (t128: the thread's index in its warpgroup)
+template <int NC>
+__device__ __forceinline__ void zero_past_d(unsigned char* t, int row0, int D, int t128) {
+  for (int i = t128; i < 64 * NC * 8; i += 128) {
+    const int row = row0 + i / (NC * 8), j = i % (NC * 8);  // j: logical 16-byte column group
+    if (8 * j >= D)
+      *reinterpret_cast<uint4*>(t + (j / 8) * QCHUNK_BYTES + row * 128 + (((j % 8) ^ (row & 7)) << 4)) =
+          make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+template <int NC>
+__device__ __forceinline__ void zero_acc(float (&acc)[NC][32]) {
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[c][i] = 0.0f;
 }
 
 // s[4 j + 2 i + e] is row r + 8 i, key k0 + 8 j + 2 qd + e of the tile: scores in units of
@@ -498,16 +524,7 @@ __device__ __forceinline__ void attention_sm90(const Args& a) {
     const uint32_t q_wg = q_buf(qb) + cw * 64 * 128;
     mbar_wait(bar_q_full(qb), (it >> 1) & 1);
     if (D % CHUNK != 0) {
-      // the box read CHUNK columns: zero Q's columns past D (the next head's) in this warpgroup's rows
-      for (int i = t128; i < 64 * NC * 8; i += 128) {
-        const int row = i / (NC * 8), j = i % (NC * 8);  // j: logical 16-byte column group
-        if (8 * j >= D) {
-          const int c = j / 8, g = j % 8;
-          uint4* p = reinterpret_cast<uint4*>(base + sp.q + (qb * NC + c) * QCHUNK_BYTES + (cw * 64 + row) * 128 +
-                                              ((g ^ (row & 7)) << 4));
-          *p = make_uint4(0u, 0u, 0u, 0u);
-        }
-      }
+      zero_past_d<NC>(base + sp.q + qb * NC * QCHUNK_BYTES, 64 * cw, D, t128);  // Q's columns past D
       fence_proxy_async();
       named_barrier_sync(1 + cw, 128);
     }
@@ -525,10 +542,7 @@ __device__ __forceinline__ void attention_sm90(const Args& a) {
       m[i] = -INFINITY;
       l[i] = 0.0f;
     }
-#pragma unroll
-    for (int c = 0; c < NC; ++c)
-#pragma unroll
-      for (int i = 0; i < 32; ++i) o[c][i] = 0.0f;
+    zero_acc<NC>(o);
 
     for (int step = 0; step < PASSES * T; ++step) {  // (pass, tile) in order
       const int pass = step / T, t = step % T;
@@ -551,9 +565,8 @@ __device__ __forceinline__ void attention_sm90(const Args& a) {
         normalised_p(s, m, l);
       }
       if (KIND == kFlash || pass == 1) {
-        pack_p(pa, s);
-        wgmma_fence();
-        issue_pv<NC>(o, pa, v_base(stage));
+        pack_a(pa, s);
+        issue_rs<NC, 8>(o, pa, v_base(stage), TILE_BYTES);  // O += P V
         wgmma_wait0();
         fence_acc<NC>(o);
       }
@@ -623,14 +636,22 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// 3-D map over a (B, L, HD) bf16 tensor, innermost first, box (64 columns, 128 rows, 1),
+// The current device, with its primary context bound to this thread. The tensor maps are
+// encoded by the driver, which needs a current context; a host thread that has made no
+// runtime call yet (autograd's backward thread, say) may hold none.
+inline cudaError_t bind_device(int* device) {
+  const cudaError_t err = cudaGetDevice(device);
+  return err != cudaSuccess ? err : cudaSetDevice(*device);
+}
+
+// 3-D map over a (B, L, HD) bf16 tensor, innermost first, box (64 columns, ``rows`` rows, 1),
 // 128-byte swizzle; rows past L and columns past HD read as zero.
-inline cudaError_t head_map(CUtensorMap* map, const void* ptr, int B, int L, int HD) {
+inline cudaError_t head_map(CUtensorMap* map, const void* ptr, int B, int L, int HD, int rows = KT) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(HD), static_cast<cuuint64_t>(L), static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(HD) * 2, static_cast<cuuint64_t>(L) * HD * 2};
-  const cuuint32_t box[3] = {CHUNK, KT, 1};
+  const cuuint32_t box[3] = {CHUNK, static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box, elem,
                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
@@ -654,16 +675,16 @@ cudaError_t launch(Kernel kernel1, Kernel kernel2, const void* q, const void* k,
   const Kernel kernel = nc == 1 ? kernel1 : kernel2;
   const Plan sp = plan(nc);
   if (sp.bytes > kMaxSmemPerBlock) return cudaErrorInvalidValue;
-  CUtensorMap tq, tk, tv;
+  int device = 0, sms = 0;
   cudaError_t err;
+  if ((err = bind_device(&device)) != cudaSuccess) return err;
+  CUtensorMap tq, tk, tv;
   if ((err = head_map(&tq, q, B, L, HD)) != cudaSuccess) return err;
   if ((err = head_map(&tk, k, B, L, HD)) != cudaSuccess) return err;
   if ((err = head_map(&tv, v, B, L, HD)) != cudaSuccess) return err;
   if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(sp.bytes))) !=
       cudaSuccess)
     return err;
-  int device = 0, sms = 0;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess) return err;
   const long long items = static_cast<long long>((L + QT - 1) / QT) * num_heads * B;
   const int grid = static_cast<int>(items < sms ? items : sms);

@@ -33,7 +33,7 @@ BUILD_DIR = _PKG / "build"
 SOURCES = ("gemm.cu", "attention_block.cu", "ffn_block.cu", "int8_gemm.cu", "int8_ffn_block.cu",
            "int8_attention_block.cu", "fused_attention.cu", "shear.cu", "bn_stats.cu", "selective_scan.cu",
            "kan_spline.cu", "flash_attention.cu")
-HEADERS = ("common.cuh", "attention_sm90.cuh")
+HEADERS = ("common.cuh", "attention_sm90.cuh", "attention_bwd_sm90.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-lineinfo", "-Xptxas=-v", "-Xcompiler", "-fPIC")
 
@@ -64,8 +64,8 @@ _SIGNATURES = {
     "flash_attention_forward": [_P] * 7 + [_I] * 4 + [_F, _P],
     # q, k, v, seg, m, l, dout, di, dk, dv, B, L, HD, heads, scale, stream
     "flash_attention_bwd_dkv": [_P] * 10 + [_I] * 4 + [_F, _P],
-    # q, k, v, seg, m, l, dout, di, dq, B, L, HD, heads, scale, stream
-    "flash_attention_bwd_dq": [_P] * 9 + [_I] * 4 + [_F, _P],
+    # q, k, v, seg, o, m, l, dout, dq, di, B, L, HD, heads, scale, stream
+    "flash_attention_bwd_dq": [_P] * 10 + [_I] * 4 + [_F, _P],
 }
 
 

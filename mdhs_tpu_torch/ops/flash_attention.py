@@ -16,10 +16,12 @@ calls under ``attention_impl="flash"``, in
 ``_flash_attention_impl`` (``pl.pallas_call`` at :758, body
 ``_flash_attention_kernel_single_batch`` :342-482) and the backward
 ``_flash_attention_bwd_dkv`` (:1121, body :796-940) and
-``_flash_attention_bwd_dq`` (:1456, body :1146-1286); ``di = rowsum(o * do)``
-is taken outside the kernels, as ``_flash_attention_bwd`` (:254-305) does.
-The kernels are ``csrc/flash_attention.cu`` (its header comment has the
-design).
+``_flash_attention_bwd_dq`` (:1456, body :1146-1286). The library takes
+``di = rowsum(o * do)`` outside its kernels (``_flash_attention_bwd``
+:254-305); here the dQ kernel takes it from the O and dO tiles it already
+holds and writes it for the dK/dV kernel. The kernels are
+``csrc/flash_attention.cu`` and ``csrc/attention_bwd_sm90.cuh`` (their header
+comments have the design).
 
 Numerics, fixed by the plain versions and followed by the kernels: float32
 scores ``(q . k) * sm_scale``; the row max ``m`` and the row sum ``l`` of
@@ -34,7 +36,8 @@ before their products, as the library kernels do.
 ``flash_attention_bwd_dq`` launch their kernel for a CUDA tensor and raise if
 they cannot; for a CPU tensor they return their plain version. Each has its
 own ``launches`` counter. ``FlashAttention`` is the autograd function over
-the three; ``flash_attention`` is the op BERT calls.
+the three (its backward: dQ, which returns di, then dK/dV); ``flash_attention``
+is the op BERT calls.
 """
 
 from __future__ import annotations
@@ -53,10 +56,11 @@ MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)  # the library's DEFAU
 def supports(dtype: torch.dtype, seq_len: int, hidden: int, num_heads: int) -> bool:
     """The kernels' own gate, from the card's limits: bf16; ``hidden ==
     num_heads * head_dim`` with ``head_dim % 8 == 0`` and ``head_dim <= 128``
-    (the accumulators a warp holds); any ``L >= 1`` (queries and keys stream
-    in tiles of 64, the ragged last one masked: ``L % 128 == 0`` is BERT's
-    gate, not the kernels'). Each kernel's shared-memory plan is the
-    launcher's (``csrc/flash_attention.cu::fl_plan``), which refuses a plan
+    (the accumulators a thread holds, two 64-column chunks); any ``L >= 1``
+    (queries and keys stream in tiles of 128 or 64, the ragged last one
+    zero-filled: ``L % 128 == 0`` is BERT's gate, not the kernels'). Each
+    kernel's shared-memory plan is the launcher's (``csrc/attention_sm90.cuh::
+    plan``, ``csrc/attention_bwd_sm90.cuh::bwd_plan``), which refuses a plan
     past the block's limit; every head_dim admitted here fits."""
     if num_heads <= 0 or hidden % num_heads:
         return False
@@ -116,17 +120,17 @@ def flash_attention_bwd_dkv_reference(q, k, v, seg, m, l, do, di, num_heads: int
     return _unheads(dk, dt), _unheads(dv, dt)
 
 
-def flash_attention_bwd_dq_reference(q, k, v, seg, m, l, do, di, num_heads: int, sm_scale: float):
-    """dq in q's dtype: dq = bf16(ds) k."""
+def flash_attention_bwd_dq_reference(q, k, v, seg, o, m, l, do, num_heads: int, sm_scale: float):
+    """(dq, di): dq = bf16(ds) k in q's dtype, and di = attention_di(o, do)."""
+    di = attention_di(o, do, num_heads)
     _, ds = _probs_and_ds(q, k, v, seg, m, l, do, di, num_heads, sm_scale)
-    return _unheads(ds.to(q.dtype).float() @ _heads(k, num_heads), q.dtype)
+    return _unheads(ds.to(q.dtype).float() @ _heads(k, num_heads), q.dtype), di
 
 
 def flash_attention_backward_reference(q, k, v, seg, o, m, l, do, num_heads: int, sm_scale: float):
     """The plain backward from the forward's residuals o, m, l: (dq, dk, dv)."""
-    di = attention_di(o, do, num_heads)
-    dk, dv = flash_attention_bwd_dkv_reference(q, k, v, seg, m, l, do, di, num_heads, sm_scale)
-    return flash_attention_bwd_dq_reference(q, k, v, seg, m, l, do, di, num_heads, sm_scale), dk, dv
+    dq, di = flash_attention_bwd_dq_reference(q, k, v, seg, o, m, l, do, num_heads, sm_scale)
+    return (dq, *flash_attention_bwd_dkv_reference(q, k, v, seg, m, l, do, di, num_heads, sm_scale))
 
 
 # --------------------------------------------------------------------------- the kernels' wrappers
@@ -143,9 +147,9 @@ def _require(what: str, q, k, v, seg, num_heads: int) -> tuple[int, int, int]:
     return B, L, HD
 
 
-def _require_stats(q, num_heads: int, *stats) -> None:
+def _require_stats(q, num_heads: int, **stats) -> None:
     B, L, _ = q.shape
-    for t, name in zip(stats, ("m", "l", "di")):
+    for name, t in stats.items():
         _build.require(t, name, (B, num_heads, L), torch.float32, q.device)
 
 
@@ -178,7 +182,7 @@ def flash_attention_bwd_dkv(q, k, v, seg, m, l, do, di, num_heads: int, sm_scale
         return flash_attention_bwd_dkv_reference(q, k, v, seg, m, l, do, di, num_heads, sm_scale)
     B, L, HD = _require("flash_attention_bwd_dkv", q, k, v, seg, num_heads)
     _build.require(do, "do", (B, L, HD), q.dtype, q.device)
-    _require_stats(q, num_heads, m, l, di)
+    _require_stats(q, num_heads, m=m, l=l, di=di)
     dk, dv = torch.empty_like(q), torch.empty_like(q)
     lib = _build.load_library()
     with torch.cuda.device(q.device):
@@ -192,24 +196,27 @@ def flash_attention_bwd_dkv(q, k, v, seg, m, l, do, di, num_heads: int, sm_scale
     return dk, dv
 
 
-def flash_attention_bwd_dq(q, k, v, seg, m, l, do, di, num_heads: int, sm_scale: float):
-    """dq (B, L, HD) in q's dtype."""
+def flash_attention_bwd_dq(q, k, v, seg, o, m, l, do, num_heads: int, sm_scale: float):
+    """(dq, di): dq (B, L, HD) in q's dtype and di = rowsum(o * do) per head,
+    (B, heads, L) float32, which the dK/dV kernel reads."""
     if q.device.type == "cpu":
-        return flash_attention_bwd_dq_reference(q, k, v, seg, m, l, do, di, num_heads, sm_scale)
+        return flash_attention_bwd_dq_reference(q, k, v, seg, o, m, l, do, num_heads, sm_scale)
     B, L, HD = _require("flash_attention_bwd_dq", q, k, v, seg, num_heads)
+    _build.require(o, "o", (B, L, HD), q.dtype, q.device)
     _build.require(do, "do", (B, L, HD), q.dtype, q.device)
-    _require_stats(q, num_heads, m, l, di)
+    _require_stats(q, num_heads, m=m, l=l)
     dq = torch.empty_like(q)
+    di = torch.empty((B, num_heads, L), dtype=torch.float32, device=q.device)
     lib = _build.load_library()
     with torch.cuda.device(q.device):
         err = lib.flash_attention_bwd_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(), m.data_ptr(), l.data_ptr(),
-            do.data_ptr(), di.data_ptr(), dq.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(), o.data_ptr(), m.data_ptr(), l.data_ptr(),
+            do.data_ptr(), dq.data_ptr(), di.data_ptr(),
             B, L, HD, num_heads, float(sm_scale), _build.stream_of(q.device),
         )
     _build.check_launch(lib, err, "flash_attention_bwd_dq")
     flash_attention_bwd_dq.launches += 1
-    return dq
+    return dq, di
 
 
 flash_attention_forward.launches = 0
@@ -218,9 +225,9 @@ flash_attention_bwd_dq.launches = 0
 
 
 class FlashAttention(torch.autograd.Function):
-    """The forward kernel, saving o, m and l; the backward takes di with a
-    torch reduction and launches the dK/dV and dQ kernels (no atomics: the
-    gradients do not depend on the order the blocks run in)."""
+    """The forward kernel, saving o, m and l; the backward launches the dQ
+    kernel, which also returns di, then the dK/dV kernel on that di (no
+    atomics: the gradients do not depend on the order the blocks run in)."""
 
     @staticmethod
     def forward(ctx, q, k, v, seg, num_heads: int, sm_scale: float):
@@ -234,9 +241,8 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, seg, o, m, l = ctx.saved_tensors
         h, scale = ctx.num_heads, ctx.sm_scale
         do = do.contiguous()
-        di = attention_di(o, do, h)
+        dq, di = flash_attention_bwd_dq(q, k, v, seg, o, m, l, do, h, scale)
         dk, dv = flash_attention_bwd_dkv(q, k, v, seg, m, l, do, di, h, scale)
-        dq = flash_attention_bwd_dq(q, k, v, seg, m, l, do, di, h, scale)
         return dq, dk, dv, None, None, None
 
 

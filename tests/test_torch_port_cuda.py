@@ -553,12 +553,13 @@ def _close_grad(out, ref):
     assert d.max().item() <= 0.02 * scale and d.mean().item() <= 2e-3 * scale, (d.max().item(), d.mean().item(), scale)
 
 
-# beside the shapes of the backward: L 100, 333 and 500 (not multiples of the 128-key
-# tile), head_dim 40 and 72 (not multiples of the 64-column chunk) and 128, four rows
-# each, so that one row's second segment has keys only in the first tile and one only
-# in the last
-@pytest.mark.parametrize("B, L, HD, heads", _FLASH_SHAPES + [(4, 100, 320, 8), (4, 333, 768, 12), (4, 500, 256, 2),
-                                                             (4, 200, 288, 4), (4, 130, 512, 4)])
+# beside _FLASH_SHAPES: L 100, 333, 500, 200 and 130 (not multiples of the 128-row tile),
+# head_dim 40 and 72 (not multiples of the 64-column chunk) and 128, four rows each, so
+# that one row's second segment has keys only in the first tile and one only in the last
+_FLASH_RAGGED = [(4, 100, 320, 8), (4, 333, 768, 12), (4, 500, 256, 2), (4, 200, 288, 4), (4, 130, 512, 4)]
+
+
+@pytest.mark.parametrize("B, L, HD, heads", _FLASH_SHAPES + _FLASH_RAGGED)
 def test_flash_forward_kernel_matches_plain(dev, B, L, HD, heads):
     args = _flash_args(B, L, HD, heads, dev)
     n = fl.flash_attention_forward.launches
@@ -572,24 +573,42 @@ def test_flash_forward_kernel_matches_plain(dev, B, L, HD, heads):
     assert torch.equal(fl.flash_attention_forward(*args), out)  # without the statistics, the same o
 
 
-@pytest.mark.parametrize("B, L, HD, heads", _FLASH_SHAPES)
-def test_flash_backward_kernels_match_plain(dev, B, L, HD, heads):
+def _flash_backward_args(B, L, HD, heads, dev):
     q, k, v, seg, heads, scale = _flash_args(B, L, HD, heads, dev)
     o, m, l = fl.flash_attention_reference(q, k, v, seg, heads, scale, save_stats=True)
     do = _randn(np.random.default_rng(L), (B, L, HD), 1.0, dev)
-    di = fl.attention_di(o, do, heads)
+    return q, k, v, seg, o, m, l, do, heads, scale
+
+
+@pytest.mark.parametrize("B, L, HD, heads", _FLASH_SHAPES + _FLASH_RAGGED)
+def test_flash_backward_kernels_match_plain(dev, B, L, HD, heads):
+    q, k, v, seg, o, m, l, do, heads, scale = _flash_backward_args(B, L, HD, heads, dev)
     n = (fl.flash_attention_bwd_dkv.launches, fl.flash_attention_bwd_dq.launches)
+    dq, di = fl.flash_attention_bwd_dq(q, k, v, seg, o, m, l, do, heads, scale)
     dk, dv = fl.flash_attention_bwd_dkv(q, k, v, seg, m, l, do, di, heads, scale)
-    dq = fl.flash_attention_bwd_dq(q, k, v, seg, m, l, do, di, heads, scale)
     torch.cuda.synchronize()
     assert (fl.flash_attention_bwd_dkv.launches, fl.flash_attention_bwd_dq.launches) == (n[0] + 1, n[1] + 1)
     dqr, dkr, dvr = fl.flash_attention_backward_reference(q, k, v, seg, o, m, l, do, heads, scale)
     for out, ref in ((dq, dqr), (dk, dkr), (dv, dvr)):
         _close_grad(out, ref)
     # no atomics: a second launch gives the same bits
-    assert torch.equal(fl.flash_attention_bwd_dq(q, k, v, seg, m, l, do, di, heads, scale), dq)
+    assert all(torch.equal(a, b) for a, b in zip(fl.flash_attention_bwd_dq(q, k, v, seg, o, m, l, do, heads, scale),
+                                                 (dq, di)))
     assert all(torch.equal(a, b) for a, b in zip(fl.flash_attention_bwd_dkv(q, k, v, seg, m, l, do, di, heads, scale),
                                                  (dk, dv)))
+
+
+# The dQ kernel's di against attention_di. Each product of two bf16 values is exact in
+# float32, so the two differ only in the order of D float32 additions: at most
+# 2 D 2^-24 * sum |o * do| of the row (twice the recursive-summation bound), row by row.
+@pytest.mark.parametrize("B, L, HD, heads", _FLASH_SHAPES + _FLASH_RAGGED)
+def test_flash_dq_kernel_di_matches_attention_di(dev, B, L, HD, heads):
+    q, k, v, seg, o, m, l, do, heads, scale = _flash_backward_args(B, L, HD, heads, dev)
+    _, di = fl.flash_attention_bwd_dq(q, k, v, seg, o, m, l, do, heads, scale)
+    ref = fl.attention_di(o, do, heads)
+    bound = 2 * (HD // heads) * 2.0 ** -24 * fl.attention_di(o.abs(), do.abs(), heads)
+    assert di.dtype == torch.float32 and di.shape == ref.shape == (B, heads, L)
+    assert bool(((di - ref).abs() <= bound).all()), ((di - ref).abs().max().item(), bound.max().item())
 
 
 def test_flash_autograd_function_matches_plain_autograd(dev):

@@ -148,7 +148,28 @@ def test_flash_wrappers_raise_on_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         tfl.flash_attention_bwd_dkv(q, q, q, seg, stats, stats, q, stats, 4, 0.25)
     with pytest.raises(ValueError, match="unsupported device"):
-        tfl.flash_attention_bwd_dq(q, q, q, seg, stats, stats, q, stats, 4, 0.25)
+        tfl.flash_attention_bwd_dq(q, q, q, seg, q, stats, stats, q, 4, 0.25)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_dq_returns_attention_di(dtype):
+    """The dQ entry returns (dq, di); its plain version's di is attention_di's,
+    bit for bit, and the dK/dV entry on that di gives the plain backward."""
+    B, L, HD, heads = 4, 128, 64, 4
+    rng = np.random.default_rng(3)
+    t = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in (*_qkv(rng, B, L, HD), rng.standard_normal((B, L, HD)))]
+    q, k, v, do = t
+    seg = torch.from_numpy(_segments(B, L))
+    scale = float(HD // heads) ** -0.5
+    o, m, l = tfl.flash_attention_reference(q, k, v, seg, heads, scale, save_stats=True)
+    n = tfl.flash_attention_bwd_dq.launches
+    dq, di = tfl.flash_attention_bwd_dq(q, k, v, seg, o, m, l, do, heads, scale)
+    assert tfl.flash_attention_bwd_dq.launches == n  # a CPU tensor takes the plain version
+    assert di.dtype == torch.float32 and di.shape == (B, heads, L)
+    assert torch.equal(di, tfl.attention_di(o, do, heads))
+    dk, dv = tfl.flash_attention_bwd_dkv(q, k, v, seg, m, l, do, di, heads, scale)
+    for a, b in zip((dq, dk, dv), tfl.flash_attention_backward_reference(q, k, v, seg, o, m, l, do, heads, scale)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("args, ok", [
