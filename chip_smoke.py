@@ -37,9 +37,26 @@ Phases, each printing JSON lines:
               bound (m, l within atol 1e-3, rtol 1e-4), dQ, dK, dV within
               max |d| <= 0.02 * max |plain| and mean |d| <= 2e-3 * max
               |plain|, the dQ kernel's di within 2 D 2^-24 * sum |o * do| of
-              its row; the flash kernels' ptxas registers and spills print
-              on a build line
-  4. slice    full-width MIBF-Net (ResNet50 + BERT-base, 7 labels), bf16,
+              its row; the attention kernels' ptxas registers and spills
+              (the flash kernels, fused_attention's and the five
+              ablations') print on a build line
+  4. ablate   the attention ablation (ops/attention_ablate.py: the fused
+              core with one stage removed, five compile-time variants of
+              its mainloop) at the TPU script's shape, B 256, L 128, 12
+              heads of 64: each mode against its plain version with zero
+              bias and with a bias padding the even rows' keys and N(0, 1)
+              in the odd rows, within the bf16 bound over each row's
+              max(1, max |plain|) (nosmax reaches 1e10 in a padded row),
+              nopv's probabilities within one bf16 ulp each (aligned on
+              its head_dim columns); full bit-identical to
+              fused_attention and aligned's columns to full's; each mode's
+              ms, device ms, plain ms and its own bound (the bytes and
+              products that mode does), SDPA with the key mask as full's
+              library call; then the diagnostic's own chain
+              (diagnostics/attention_ablate.py: 20 calls in a CUDA graph):
+              ms per call, the chain's device time split into the kernel
+              and the elementwise passes, the kernel's share
+  5. slice    full-width MIBF-Net (ResNet50 + BERT-base, 7 labels), bf16,
               exact-parity, seeded random weights, through ServingModel(batch
               32): 3 requests (32, 32, 5 rows, seq 128) via predict_stream with
               attention_block and ffn_block launched 12 times a forward; the
@@ -47,7 +64,7 @@ Phases, each printing JSON lines:
               atol 0.15 and mean |d| < 0.01 (tests/test_fused_attention.py:
               97-105); one request at seq 256; images/s at batch 32, p50
               latency at batch 1, tower times and the device breakdown
-  5. preset   the int8 serving preset (configs/serving/mibf_ham_serving.yml:
+  6. preset   the int8 serving preset (configs/serving/mibf_ham_serving.yml:
               fast_math, quantize int8, batch 512) at full width, through
               ServingModel(batch 512): 3 requests (512, 512, 77 rows, seq 128)
               via predict_stream with int8_attention_block and int8_ffn_block
@@ -60,10 +77,10 @@ Phases, each printing JSON lines:
               max |CLS| (twice docs/PARITY.md:21's TPU drift); images/s at batch
               512 of the preset and of the exact bf16 model in turns, p50
               latency at batch 1, tower times and the device breakdown
-  6. seq512   the exact bf16 MIBF-Net, one request of 32 rows at seq 512:
+  7. seq512   the exact bf16 MIBF-Net, one request of 32 rows at seq 512:
               fused_attention and ffn_block launched 12 times, attention_block
               none; BERT output and logits within 0.15 / 0.01 of the plain path
-  7. baseline the baseline family's two served configurations at full width
+  8. baseline the baseline family's two served configurations at full width
               (configs/ham/ham_fusion_ssm_v1.yml: ResNet18 layer4 tokens, BERT-
               base, the Mamba fusion, an MLP head; ham_head_moe_v1.yml: layer2/3/4
               tokens, the multiscale fusion, the KAN-expert MoE head), bf16,
@@ -77,7 +94,7 @@ Phases, each printing JSON lines:
               why) and mean |d| <= 2^-10 * max |logit|; images/s at batch 64,
               the share of rows routed to each pair of experts; p50 latency
               at batch 1, forward time and the device breakdown
-  8. train    MIBF-Net training at full width (MIBF_HAM_TRAIN: batch 32, seq
+  9. train    MIBF-Net training at full width (MIBF_HAM_TRAIN: batch 32, seq
               256, canvas 256 -> 224, Adam, cosine, MP-Loss), a bf16 module
               with float32 masters, seeded random weights with each
               bottleneck's last BatchNorm scale at 0.1: Trainer.fit over 2
@@ -98,7 +115,7 @@ Phases, each printing JSON lines:
               and batch with dropout 0 (loss within 2e-2 relative, per-tower
               gradient cosine >= 0.99; reported, not checked, for the seeded
               weights undamped)
-  9. flash    the exact model's weights under attention_impl="flash" at seq
+ 10. flash    the exact model's weights under attention_impl="flash" at seq
               512, through ServingModel(batch 32): 3 requests (32, 32, 5 rows)
               via predict_stream with flash_attention launched 12 times a
               forward and no other kernel; the same weights on the plain flash
@@ -107,7 +124,7 @@ Phases, each printing JSON lines:
               request at seq 128 (12 launches) and one at seq 200 (none: not a
               multiple of 128); images/s, p50 at batch 1, tower times and the
               device breakdown
- 10. train_flash  MIBF_HAM_TRAIN with BERT under "flash" and attention dropout
+ 11. train_flash  MIBF_HAM_TRAIN with BERT under "flash" and attention dropout
               0: Trainer.fit over 2 steps and a validation batch; a step
               launches shear_sublane 3 times and each flash kernel 12 times,
               a validation forward the forward 12 times; one step against the
@@ -143,6 +160,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mdhs_tpu_torch import resolve_device
+from mdhs_tpu_torch.diagnostics import attention_ablate as diag
 from mdhs_tpu_torch.models.baseline import MultimodalBaselineModel
 from mdhs_tpu_torch.models.bert import BertConfig, int8_composite
 from mdhs_tpu_torch.models.init import init_parameters
@@ -151,6 +169,7 @@ from mdhs_tpu_torch.models.norm import BatchNorm2d
 from mdhs_tpu_torch.modules.kan import make_grid
 from mdhs_tpu_torch.modules.moe import noisy_top_k_gating
 from mdhs_tpu_torch.ops import _build
+from mdhs_tpu_torch.ops import attention_ablate as aa
 from mdhs_tpu_torch.ops import attention_block as ab
 from mdhs_tpu_torch.ops import augment as aug
 from mdhs_tpu_torch.ops import bn_stats as bns
@@ -233,6 +252,9 @@ KERNELS = {  # name: (module, source, TPU kernel it replaces)
                                 "jax/experimental/pallas/ops/tpu/flash_attention.py:1121"),
     "flash_attention_bwd_dq": (fl.flash_attention_bwd_dq, "mdhs_tpu_torch/csrc/flash_attention.cu",
                                "jax/experimental/pallas/ops/tpu/flash_attention.py:1456"),
+    # the ablation diagnostic's kernel, make_kernel (:27) reached through build(mode).op
+    "attention_ablate": (aa.attention_ablate, "mdhs_tpu_torch/csrc/attention_ablate.cu",
+                         "benchmarks/attention_ablate.py:67"),
 }
 
 
@@ -378,6 +400,15 @@ def bound_fused_attention(B, L):
     return _bound(2 * (4 * B * L * HD) + 4 * B * L, 4 * B * HEADS * L * L * D / BF16_OPS)
 
 
+def bound_attention_ablate(mode, B, L):
+    # what each mode does: full, nomax, nosmax read q, k, v and the bias and write ctx, with
+    # Q K^T and P V; nopv reads no V and does no P V; aligned reads one head of q, k, v and
+    # writes its D columns, but computes every head's products
+    tensor = 2 * B * L * HD  # one (B, L, HD) bf16 tensor
+    tensors, products = {"nopv": (3, 1), "aligned": (4 / HEADS, 2)}.get(mode, (4, 2))
+    return _bound(tensors * tensor + 4 * B * L, products * 2 * B * HEADS * L * L * (HD // HEADS) / BF16_OPS)
+
+
 def _flash_bound(B, L, operands, stats, products):
     # ``operands`` (B, L, HD) bf16 tensors read or written once, the int32 segment ids,
     # ``stats`` (B, heads, L) float32 rows, ``products`` (B, heads, L, L, D) matrix products
@@ -444,18 +475,26 @@ def phase_device() -> tuple[torch.device, str]:
     return dev, smi
 
 
-def _ptxas(log: str, fragment: str) -> dict:
-    """Registers, stack and spills of each kernel whose mangled name holds
-    ``fragment``, from the build's ``-Xptxas=-v`` log, and whether ptxas
-    serialized its wgmma pipeline (C7515, "Potential Performance Loss")."""
+def _ptxas(log: str, fragments: tuple) -> dict:
+    """Registers, stack and spills of each kernel whose mangled name holds one
+    of ``fragments``, from the build's ``-Xptxas=-v`` log, and whether ptxas
+    serialized its wgmma pipeline (C7515, "Potential Performance Loss").
+    A kernel is named with its template arguments: attention_ablate_kernel<1,3>
+    is one 64-column chunk, mode 3 of ops/attention_ablate.py::MODES (nopv)."""
     def short(mangled):
-        k = re.search(r"\d+([a-z_]+_kernel)ILi(\d+)E", mangled)
-        return f"{k.group(1)}<{k.group(2)}>" if k else mangled
+        k = re.search(r"\d+([a-z_]+_kernel)I((?:Li\d+E)+)E", mangled)
+        if not k:
+            return mangled
+        args = ",".join(re.findall(r"Li(\d+)E", k.group(2)))
+        return f"{k.group(1)}<{args}>"
+
+    def wanted(mangled):
+        return any(f in mangled for f in fragments)
 
     out, name = {}, None
     for line in log.splitlines():
         if m := re.search(r"Compiling entry function '(\w+)'", line):
-            name = short(m.group(1)) if fragment in m.group(1) else None
+            name = short(m.group(1)) if wanted(m.group(1)) else None
             if name:
                 out.setdefault(name, {})
         elif name and (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -464,7 +503,7 @@ def _ptxas(log: str, fragment: str) -> dict:
         elif name and (m := re.search(r"Used (\d+) registers", line)):
             out[name]["registers"] = int(m.group(1))
     for line in log.splitlines():
-        if "C7515" in line and (m := re.search(r"function '(\w+)'", line)) and fragment in m.group(1):
+        if "C7515" in line and (m := re.search(r"function '(\w+)'", line)) and wanted(m.group(1)):
             out.setdefault(short(m.group(1)), {})["wgmma_serialized"] = True
     return out
 
@@ -474,8 +513,9 @@ def phase_build() -> None:
     _build.load_library()
     emit({"phase": "build", "library": str(path.relative_to(_build.BUILD_DIR.parent.parent)),
           "seconds": seconds})
-    # the flash kernels' ptxas report: the consumers run at setmaxnreg 240, the producer at 24
-    emit({"phase": "build", "ptxas_flash": _ptxas(Path(str(path) + ".log").read_text(), "flash_")})
+    # the attention kernels' ptxas report: the consumers run at setmaxnreg 240, the producer at 24
+    emit({"phase": "build", "ptxas_attention": _ptxas(Path(str(path) + ".log").read_text(),
+                                                      ("flash_", "fused_attention_kernel", "attention_ablate_kernel"))})
 
 
 def _rand(rng, shape, scale, dev):
@@ -793,6 +833,88 @@ def phase_kernels(dev, rng) -> dict:
     del x0, grads, d
     torch.cuda.empty_cache()
     return summary
+
+
+def judge_rel(out, ref, mode):
+    """An ablated mode against its plain version. nopv writes bf16 probabilities
+    rounded as the plain version rounds them: each within one bf16 ulp of its own,
+    |d| <= 2^-7 |p| + 2^-24. The others: the bf16 bound on |d| over each (batch,
+    query) row's own max(1, max |plain|), since nosmax's outputs reach 1e10 in a
+    row with padded keys and about 10 in a row without. Returns max |d|, and the
+    worst share of its bound and the mean of |d| over the row scale beside the
+    bf16 mean bound."""
+    o, r = out.float(), ref.float()
+    d = (o - r).abs()
+    if mode == "nopv":
+        used = (d / (2.0 ** -7 * r.abs() + 2.0 ** -24)).max().item()
+        return {"max_abs": d.max().item(), "bound_used": used}, used <= 1.0
+    rel = d / r.abs().amax(-1, keepdim=True).clamp_min(1.0)
+    used, mean = rel.max().item() / MAX_ABS, rel.mean().item()
+    return {"max_abs": d.max().item(), "bound_used": used, "mean_row_rel": mean}, used <= 1.0 and mean < MEAN_ABS
+
+
+def phase_ablate(dev, rng) -> tuple[dict, int]:
+    """The attention ablation at the TPU script's shape (B 256, L 128, 12 heads
+    of 64): each mode's kernel against its plain version, with zero bias (the
+    diagnostic's) and with a bias that pads keys in the even rows and is finite
+    noise in the odd ones (judge_rel); full against fused_attention and aligned
+    against full, bit for bit; each mode's times and bound on the zero bias. Then the main path, the diagnostic's own chains (diagnostics/
+    attention_ablate.py::run), between zero_counts and read_counts: the count is
+    the wrapper's calls, each chain's warm-up and capture and its profiled eager
+    run (a graph replay launches the captured kernels without the wrapper).
+    Returns full's summary for the kernels line and the main path's launches."""
+    B, L, D, scale = diag.B, diag.L, HD // HEADS, diag.SCALE
+    q, k, v = (_rand(rng, (B, L, HD), 1.0, dev) for _ in range(3))
+    zero = torch.zeros((B, L), dtype=torch.float32, device=dev)
+    mixed = _key_bias(B, L, 28, dev)  # even rows: the last 28 keys padded; odd rows: a finite N(0, 1) bias
+    mixed[1::2] = torch.tensor(np.random.default_rng(1).standard_normal((B // 2, L)), device=dev)
+    biases = {"zero": zero, "padding_and_noise": mixed}
+    full = {name: fa.fused_attention(q, k, v, bias, HEADS, scale) for name, bias in biases.items()}
+    summary = None
+    for mode in aa.MODES:
+        cols = slice(0, D) if mode == "aligned" else slice(None)  # aligned writes head 0's D columns only
+        errs = {}
+        for name, bias in biases.items():
+            args = (q, k, v, bias, HEADS, scale, mode)
+            out = aa.attention_ablate(*args)
+            torch.cuda.synchronize()
+            errs[name], ok = judge_rel(out[..., cols], aa.attention_ablate_reference(*args)[..., cols], mode)
+            check(ok and bool(torch.isfinite(out[..., cols].float()).all()),
+                  f"attention_ablate {mode} {name}: {errs[name]} beyond its bound")
+            if mode == "full":
+                check(torch.equal(out, full[name]), f"attention_ablate full {name}: not fused_attention's bits")
+            if mode == "aligned":
+                check(torch.equal(out[..., :D], full[name][..., :D]), f"aligned {name}: not full's first head")
+        args = (q, k, v, zero, HEADS, scale, mode)
+        kernel = lambda a=args: aa.attention_ablate(*a)  # noqa: E731
+        library = None
+        if mode == "full":  # SDPA with the key mask, as fused_attention's row times it
+            heads = [t.view(B, L, HEADS, D).transpose(1, 2) for t in (q, k, v)]
+            keep = (zero == 0)[:, None, None, :]
+            library = lambda: F.scaled_dot_product_attention(*heads, attn_mask=keep, scale=scale)  # noqa: E731
+        bound_ms, bound_by = bound_attention_ablate(mode, B, L)
+        row = {"ms": cuda_ms(kernel), "device_ms": kernel_device_ms(kernel),
+               "plain_ms": cuda_ms(lambda a=args: aa.attention_ablate_reference(*a), reps=5),
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": cuda_ms(library) if library else None,
+               "library_device_ms": kernel_device_ms(library) if library else None}
+        emit({"phase": "ablate", "mode": mode, "shape": f"B={B},L={L},{HEADS}x{D}", "vs_plain": errs, **row})
+        if mode == "full":
+            summary = {"max_abs_err": errs["zero"]["max_abs"], **row}
+    del full
+    # --- the main path: the diagnostic's chains of K_STEPS calls, one CUDA graph a mode
+    zero_counts()
+    chains = diag.run(q, k, v, zero, HEADS)
+    launches = read_counts()
+    check(launches["attention_ablate"] > 0 and launches == {**dict.fromkeys(KERNELS, 0),
+                                                            "attention_ablate": launches["attention_ablate"]},
+          f"ablation chain launches {launches}")
+    for row in chains:
+        check(row["mode"] == "aligned" or bool(np.isfinite(row["chain_value"])), f"ablation chain {row}")
+    emit({"phase": "ablate", "chain": chains, "k_steps": diag.K_STEPS, "launches": launches["attention_ablate"]})
+    del q, k, v
+    torch.cuda.empty_cache()
+    return summary, launches["attention_ablate"]
 
 
 def _request(rng, n, seq):
@@ -1563,6 +1685,7 @@ def main() -> int:
     dev, smi = phase_device()
     phase_build()
     summary = phase_kernels(dev, rng)
+    summary["attention_ablate"], ablate_launches = phase_ablate(dev, rng)
     slice_launches, model, plain = phase_slice(dev, rng, seed)
     seq512_launches = phase_seq512(dev, rng, model, plain)
     flash_launches = phase_flash(dev, rng, model)
@@ -1577,7 +1700,8 @@ def main() -> int:
                  "fused_attention": seq512_launches, "int8_ffn_block": preset_launches,
                  "int8_attention_block": preset_launches, "shear_sublane": train["launches"],
                  "bn_stats": train["ab_launches"], **baseline, "flash_attention": flash_launches,
-                 "flash_attention_bwd_dkv": train_flash, "flash_attention_bwd_dq": train_flash}
+                 "flash_attention_bwd_dkv": train_flash, "flash_attention_bwd_dq": train_flash,
+                 "attention_ablate": {"attention_ablate": ablate_launches}}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": main_path[name][name], "max_abs_err": summary[name]["max_abs_err"],

@@ -6,7 +6,8 @@ module names so each counterpart is easy to find:
 - ``mdhs_tpu_torch.ops``      eval preprocessing, the training augmentation,
                               GELU, int8 quantization, and the hand-written
                               CUDA kernels (``attention_block``,
-                              ``ffn_block``, ``fused_attention``,
+                              ``ffn_block``, ``fused_attention`` and
+                              its ablations ``attention_ablate``,
                               ``flash_attention``'s forward, dK/dV and dQ,
                               ``quant_kernel``'s int8 sublayers, ``shear``'s
                               ``shear_sublane``, ``bn_stats``,
@@ -23,6 +24,8 @@ module names so each counterpart is easy to find:
                               ``MultiHeadAttention``), the baseline's fusions
                               and heads, Mamba, KAN and the KAN-expert MoE
 - ``mdhs_tpu_torch.core``     weights carried across from the JAX trees
+- ``mdhs_tpu_torch.diagnostics``  ``attention_ablate``: the attention core's
+                              time split by stage on the card
 - ``mdhs_tpu_torch.serving``  ``ServingModel``: resident weights, static
                               batch, pipelined request loop, for either
                               family; the int8 serving preset

@@ -45,6 +45,23 @@
 // grid moved device time; an intra-warpgroup software pipeline with ping-pong
 // between the consumer warpgroups did not, and tree reductions put their
 // arrays on the stack and cost more than they saved, so neither is kept.
+//
+// Ablations (attention_ablate.cu, the stage-by-stage timing of the fused kind):
+// a third template parameter removes one stage at compile time, each branch an
+// ``if constexpr`` on it, so the default kFull is the code above unchanged.
+//   kNoMax    pass 0 keeps no running max: m = 0, l = sum 2^s', no rescale;
+//   kNoSmax   one pass, p = bf16(s * scale + bias) in natural units (nothing
+//             folds log2(e)); the key words are 0 past L, where the zero-filled
+//             K rows give S = 0 too, so p = 0 there (-inf times a zero V row
+//             would be NaN);
+//   kNoPV     the softmax as kFull, no P V product and no V tiles; the epilogue
+//             stores the first D keys of tile 0's bf16 P, from the register A
+//             fragments, as ctx's D columns of the head (D <= 128 = KT);
+//   kAligned  every item reads and writes head 0's columns (column origin 0 in
+//             the Q/K/V boxes and the store). TMA lands every box in the same
+//             swizzled tile whatever its column origin, so on this card the
+//             variant measures the HBM/L2 traffic of twelve distinct heads
+//             against one head read twelve times, not a layout cost.
 #pragma once
 
 #include <climits>
@@ -66,6 +83,8 @@ constexpr uint32_t TILE_BYTES = KT * 128;     // one chunk of a K or V tile
 constexpr uint32_t QCHUNK_BYTES = QT * 128;   // one chunk of the Q tile
 
 enum Kind : int { kFused = 0, kFlash = 1 };
+// the stage a fused-kind build removes (kFull: none); ops/attention_ablate.py::MODES in this order
+enum Ablate : int { kFull = 0, kNoMax = 1, kNoSmax = 2, kNoPV = 3, kAligned = 4 };
 
 __host__ __device__ constexpr int chunks(int D) { return (D + CHUNK - 1) / CHUNK; }
 __host__ __device__ constexpr int stages(int nc) { return nc == 1 ? 3 : 2; }
@@ -346,6 +365,17 @@ __device__ __forceinline__ void row_stats(const float (&s)[64], float (&m)[2], f
   }
 }
 
+// nomax, pass 0: the thread's part of the row sum of exp(s), with no max taken
+__device__ __forceinline__ void row_sums(const float (&s)[64], float (&l)[2]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float e = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) e += ex2(s[4 * j + 2 * i]) + ex2(s[4 * j + 2 * i + 1]);
+    l[i] += e;
+  }
+}
+
 // fused, pass 1: p = exp(s - m) / l, normalised before its rounding to bf16 (rl = 1 / l)
 __device__ __forceinline__ void normalised_p(float (&s)[64], const float (&m)[2], const float (&rl)[2]) {
 #pragma unroll
@@ -418,10 +448,12 @@ __device__ __forceinline__ Item item_of(int item, int L, int heads) {
 // start and end overlap its neighbours' work. Fused: two passes over the keys,
 // pass 0 streaming K alone for the row max and sum, pass 1 K and V for the
 // normalised bf16 p and ctx += P V. Flash: one pass, the online rescale of o.
-template <int NC, int KIND>
+// ABL removes one stage of the fused kind (the header comment).
+template <int NC, int KIND, int ABL = kFull>
 __device__ __forceinline__ void attention_sm90(const Args& a) {
+  static_assert(ABL == kFull || KIND == kFused, "the ablations are of the fused kind");
   constexpr int ST = stages(NC);
-  constexpr int PASSES = KIND == kFused ? 2 : 1;
+  constexpr int PASSES = KIND == kFused ? (ABL == kNoSmax ? 1 : 2) : 1;
   extern __shared__ __align__(1024) unsigned char sm90_smem[];
   unsigned char* base = reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(sm90_smem) + 1023) & ~uintptr_t(1023));
   const Plan sp = plan(NC);
@@ -461,7 +493,7 @@ __device__ __forceinline__ void attention_sm90(const Args& a) {
     uint32_t phase = 0;
     for (int item = blockIdx.x, it = 0; item < items; item += gridDim.x, ++it) {
       const Item w = item_of(item, L, heads);
-      const int col0 = w.h * D, qb = it & 1;
+      const int col0 = ABL == kAligned ? 0 : w.h * D, qb = it & 1;
       const uint32_t* words = a.key_words + static_cast<size_t>(w.b) * L;
       mbar_wait(bar_q_empty(qb), ((it >> 1) & 1) ^ 1);
       if (lane == 0) {
@@ -470,7 +502,7 @@ __device__ __forceinline__ void attention_sm90(const Args& a) {
           tma_load_3d(q_buf(qb) + c * QCHUNK_BYTES, a.tq, bar_q_full(qb), col0 + CHUNK * c, w.q0, w.b);
       }
       for (int pass = 0; pass < PASSES; ++pass) {
-        const bool with_v = pass == PASSES - 1;
+        const bool with_v = ABL != kNoPV && pass == PASSES - 1;
         for (int t = 0; t < T; ++t) {
           const int k0 = t * KT;
           mbar_wait(bar_empty(stage), phase ^ 1);
@@ -483,12 +515,14 @@ __device__ __forceinline__ void attention_sm90(const Args& a) {
             }
           }
           // the tile's key words beside it: the bias in units of log2(e) (-inf past L),
-          // or the segment ids (INT_MIN past L)
+          // or the segment ids (INT_MIN past L); nosmax: the bias as it is (0 past L)
           uint32_t* dst = aux + stage * KT;
 #pragma unroll
           for (int i = 0; i < KT / 32; ++i) {
             const int k = lane + 32 * i;
-            if (KIND == kFused)
+            if constexpr (ABL == kNoSmax)
+              dst[k] = k0 + k < L ? words[k0 + k] : 0u;
+            else if (KIND == kFused)
               dst[k] = __float_as_uint(k0 + k < L ? __uint_as_float(words[k0 + k]) * kLog2e : -INFINITY);
             else
               dst[k] = k0 + k < L ? words[k0 + k] : 0x80000000u;
@@ -512,7 +546,7 @@ __device__ __forceinline__ void attention_sm90(const Args& a) {
   const int r = 16 * warp + (lane >> 2);  // this thread's rows r and r + 8 of the warpgroup's 64
   const int qd = lane & 3;                // its quad position: columns 2 qd, 2 qd + 1 of each 8
   const int ksteps = (D + 15) / 16;       // Q K^T depth in steps of 16; Q is zero past D
-  const float scale = a.sm_scale * kLog2e;
+  const float scale = ABL == kNoSmax ? a.sm_scale : a.sm_scale * kLog2e;
   float s[64], m[2], l[2], alpha[2];
   float o[NC][32];
   uint32_t pa[8][4];
@@ -539,7 +573,7 @@ __device__ __forceinline__ void attention_sm90(const Args& a) {
     }
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      m[i] = -INFINITY;
+      m[i] = ABL == kNoMax ? 0.0f : -INFINITY;
       l[i] = 0.0f;
     }
     zero_acc<NC>(o);
@@ -555,16 +589,25 @@ __device__ __forceinline__ void attention_sm90(const Args& a) {
       if (KIND == kFlash) {
         online_p(s, m, l, alpha);
         rescale<NC>(o, alpha);
+      } else if constexpr (ABL == kNoSmax) {
+        // p is the score itself, rounded to bf16 by pack_a
       } else if (pass == 0) {
-        row_stats(s, m, l);
+        if constexpr (ABL == kNoMax)
+          row_sums(s, l);
+        else
+          row_stats(s, m, l);
       } else {
         if (t == 0) {
 #pragma unroll
           for (int i = 0; i < 2; ++i) l[i] = 1.0f / quad_sum(l[i]);  // l holds 1 / l from here
         }
         normalised_p(s, m, l);
+        if constexpr (ABL == kNoPV) {
+          fence_regs(s);  // every p stays computed, as with the product, though only D keys are stored
+          if (t == 0) pack_a(pa, s);
+        }
       }
-      if (KIND == kFlash || pass == 1) {
+      if (ABL != kNoPV && (KIND == kFlash || pass == PASSES - 1)) {
         pack_a(pa, s);
         issue_rs<NC, 8>(o, pa, v_base(stage), TILE_BYTES);  // O += P V
         wgmma_wait0();
@@ -586,28 +629,35 @@ __device__ __forceinline__ void attention_sm90(const Args& a) {
 #pragma unroll
       for (int i = 0; i < 2; ++i) l[i] = quad_sum(l[i]);
     }
-    const size_t head = static_cast<size_t>(w.b) * L * a.HD + w.h * D;
+    const size_t head = static_cast<size_t>(w.b) * L * a.HD + (ABL == kAligned ? 0 : w.h * D);
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int qi = w.q0 + 64 * cw + r + 8 * i;
       if (qi >= L) continue;
       bf16* row = a.out + head + static_cast<size_t>(qi) * a.HD;
+      if constexpr (ABL == kNoPV) {
+        // keys 8 j + 2 qd, + 1 of row i are pa[j / 2][2 (j % 2) + i] (pack_a of s[4 j + 2 i + e])
 #pragma unroll
-      for (int c = 0; c < NC; ++c)
+        for (int j = 0; j < 16; ++j)
+          if (8 * j + 2 * qd < D) *reinterpret_cast<uint32_t*>(row + 8 * j + 2 * qd) = pa[j / 2][2 * (j % 2) + i];
+      } else {
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int col = CHUNK * c + 8 * j + 2 * qd;
-          if (col < D) {
-            // flash: o / l, as the plain version divides; fused: ctx as accumulated
-            const float v0 = KIND == kFlash ? o[c][4 * j + 2 * i] / l[i] : o[c][4 * j + 2 * i];
-            const float v1 = KIND == kFlash ? o[c][4 * j + 2 * i + 1] / l[i] : o[c][4 * j + 2 * i + 1];
-            *reinterpret_cast<__nv_bfloat162*>(row + col) = __floats2bfloat162_rn(v0, v1);
+        for (int c = 0; c < NC; ++c)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int col = CHUNK * c + 8 * j + 2 * qd;
+            if (col < D) {
+              // flash: o / l, as the plain version divides; fused: ctx as accumulated
+              const float v0 = KIND == kFlash ? o[c][4 * j + 2 * i] / l[i] : o[c][4 * j + 2 * i];
+              const float v1 = KIND == kFlash ? o[c][4 * j + 2 * i + 1] / l[i] : o[c][4 * j + 2 * i + 1];
+              *reinterpret_cast<__nv_bfloat162*>(row + col) = __floats2bfloat162_rn(v0, v1);
+            }
           }
+        if (KIND == kFlash && a.m_out != nullptr && qd == 0) {
+          const size_t stat = (static_cast<size_t>(w.b) * heads + w.h) * L + qi;
+          a.m_out[stat] = m[i] * kLn2;  // back to natural units
+          a.l_out[stat] = l[i];
         }
-      if (KIND == kFlash && a.m_out != nullptr && qd == 0) {
-        const size_t stat = (static_cast<size_t>(w.b) * heads + w.h) * L + qi;
-        a.m_out[stat] = m[i] * kLn2;  // back to natural units
-        a.l_out[stat] = l[i];
       }
     }
   }

@@ -32,7 +32,7 @@ CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 SOURCES = ("gemm.cu", "attention_block.cu", "ffn_block.cu", "int8_gemm.cu", "int8_ffn_block.cu",
            "int8_attention_block.cu", "fused_attention.cu", "shear.cu", "bn_stats.cu", "selective_scan.cu",
-           "kan_spline.cu", "flash_attention.cu")
+           "kan_spline.cu", "flash_attention.cu", "attention_ablate.cu")
 HEADERS = ("common.cuh", "attention_sm90.cuh", "attention_bwd_sm90.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-lineinfo", "-Xptxas=-v", "-Xcompiler", "-fPIC")
@@ -60,6 +60,8 @@ _SIGNATURES = {
     "selective_scan_forward": [_P] * 7 + [_I] * 4 + [_P],
     # x, grid, base_w, spline_w, y, ws, E, B, IN, OUT, x_shared, splits, inputs_per_split, stream
     "kan_forward": [_P] * 6 + [_I] * 7 + [_P],
+    # q, k, v, bias, ctx, B, L, HD, heads, scale, mode, stream
+    "attention_ablate_forward": [_P] * 5 + [_I] * 4 + [_F, _I, _P],
     # q, k, v, seg, out, m, l, B, L, HD, heads, scale, stream
     "flash_attention_forward": [_P] * 7 + [_I] * 4 + [_F, _P],
     # q, k, v, seg, m, l, dout, di, dk, dv, B, L, HD, heads, scale, stream

@@ -717,3 +717,115 @@ def test_bert_fast_math_makes_no_host_copy(dev, impl):
             model(ids, mask)
         finally:
             torch.cuda.set_sync_debug_mode("default")
+
+
+# --------------------------------------------------------------------------- the attention ablation
+# Each mode of attention_ablate against its plain version. The bias pads the last
+# fifth of batch row 0's keys with -1e9 and gives the other rows a finite N(0, 1)
+# bias, which nosmax adds in natural units. Each (batch, query) row is judged against
+# its own max(1, max |plain|): the bf16 bound (max |d| <= 6e-2, mean < 5e-3) on
+# |d| / that scale, since nosmax's outputs reach 1e10 in row 0 and about 10 elsewhere.
+# nopv's outputs are probabilities rounded to bf16 as the plain version rounds them,
+# so each is held to one bf16 ulp of its own: |d| <= 2^-7 |p| + 2^-24. aligned writes
+# head_dim columns.
+from mdhs_tpu_torch.diagnostics import attention_ablate as diag  # noqa: E402
+from mdhs_tpu_torch.ops import attention_ablate as aa  # noqa: E402
+
+# the TPU script's widths at batch 4; ragged L 100 and 200 (two key tiles: nopv keeps tile 0's
+# P), head_dim 40 (not a multiple of the 64-column chunk) and 128 (two chunks); nopv needs L >= head_dim
+_ABLATE_SHAPES = [(4, 128, 768, 12), (4, 100, 768, 12), (4, 128, 320, 8), (3, 200, 320, 8), (4, 128, 512, 4),
+                  (2, 200, 512, 4)]
+
+
+def _ablate_args(B, L, HD, heads, dev):
+    rng = np.random.default_rng(L + HD)
+    q, k, v = (_randn(rng, (B, L, HD), 1.0, dev) for _ in range(3))
+    bias = rng.standard_normal((B, L)).astype(np.float32)
+    bias[0] = 0.0
+    bias[0, L - L // 5:] = -1e9
+    return q, k, v, torch.tensor(bias, device=dev), heads, float(HD // heads) ** -0.5
+
+
+def _close_rel(out, ref, mode):
+    assert torch.isfinite(out.float()).all()
+    o, r = out.float(), ref.float()
+    if mode == "nopv":
+        excess = (o - r).abs() - (2.0 ** -7 * r.abs() + 2.0 ** -24)
+        assert excess.max().item() <= 0, excess.max().item()
+        return
+    d = (o - r).abs() / r.abs().amax(-1, keepdim=True).clamp_min(1.0)
+    assert d.max().item() <= 6e-2 and d.mean().item() < 5e-3, (d.max().item(), d.mean().item())
+
+
+@pytest.mark.parametrize("B, L, HD, heads", _ABLATE_SHAPES)
+@pytest.mark.parametrize("mode", aa.MODES)
+def test_attention_ablate_kernel_matches_plain(dev, mode, B, L, HD, heads):
+    args = _ablate_args(B, L, HD, heads, dev)
+    D = HD // heads
+    n = aa.attention_ablate.launches
+    out = aa.attention_ablate(*args, mode)
+    torch.cuda.synchronize()
+    assert aa.attention_ablate.launches == n + 1
+    ref = aa.attention_ablate_reference(*args, mode)
+    cols = slice(0, D) if mode == "aligned" else slice(None)
+    _close_rel(out[..., cols], ref[..., cols], mode)
+    assert torch.equal(aa.attention_ablate(*args, mode)[..., cols], out[..., cols])  # a second launch: the same bits
+
+
+@pytest.mark.parametrize("B, L, HD, heads", _ABLATE_SHAPES)
+def test_attention_ablate_full_is_fused_attention_and_aligned_is_head_0(dev, B, L, HD, heads):
+    args = _ablate_args(B, L, HD, heads, dev)
+    D = HD // heads
+    full = aa.attention_ablate(*args, "full")
+    assert torch.equal(full, fa.fused_attention(*args))
+    assert torch.equal(aa.attention_ablate(*args, "aligned")[..., :D], full[..., :D])
+
+
+def test_attention_ablate_raises_instead_of_falling_back(dev):
+    q, k, v, bias, heads, scale = _ablate_args(2, 128, 768, 12, dev)
+    n = aa.attention_ablate.launches
+    with pytest.raises(ValueError, match="unsupported"):
+        aa.attention_ablate(q.float(), k.float(), v.float(), bias, heads, scale, "full")
+    with pytest.raises(ValueError, match="unsupported mode=nopv"):
+        aa.attention_ablate(q[:, :32].contiguous(), k[:, :32].contiguous(), v[:, :32].contiguous(), bias[:, :32],
+                            heads, scale, "nopv")
+    with pytest.raises(ValueError, match="unknown mode"):
+        aa.attention_ablate(q, k, v, bias, heads, scale, "nosoftmax")
+    with pytest.raises(ValueError, match="float32"):
+        aa.attention_ablate(q, k, v, bias.to(torch.bfloat16), heads, scale, "nomax")
+    assert aa.attention_ablate.launches == n
+
+
+@pytest.mark.parametrize("mode", aa.MODES)
+def test_attention_ablate_launch_replays_in_a_cuda_graph(dev, mode):
+    args = _ablate_args(4, 128, 768, 12, dev)
+    eager = aa.attention_ablate(*args, mode)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        aa.attention_ablate(*args, mode)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = aa.attention_ablate(*args, mode)
+    graph.replay()
+    torch.cuda.synchronize()
+    cols = slice(0, 64) if mode == "aligned" else slice(None)
+    assert torch.equal(out[..., cols], eager[..., cols])
+
+
+def test_ablation_chain_replays_its_graph(dev):
+    """The diagnostic's chain (a CUDA graph of K_STEPS launches and sums) gives
+    the eager chain's value, launches once a step at capture and none at replay,
+    and refuses tensors other than those it was captured on."""
+    q, k, v, bias, heads, _ = _ablate_args(8, 128, 768, 12, dev)
+    bias = torch.zeros_like(bias)
+    chain = diag.build("full", dev, 8, 128, 12, 64)
+    n = aa.attention_ablate.launches
+    first = chain(q, k, v, bias)
+    assert aa.attention_ablate.launches == n + 2 * chain.steps  # the warm-up and the capture
+    again = chain(q, k, v, bias)
+    assert aa.attention_ablate.launches == n + 2 * chain.steps
+    assert torch.equal(first, again) and torch.equal(first, chain.eager(q, k, v, bias))
+    with pytest.raises(ValueError, match="captured on other tensors"):
+        chain(q.clone(), k, v, bias)
