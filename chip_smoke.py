@@ -39,7 +39,9 @@ Phases, each printing JSON lines:
               |plain|, the dQ kernel's di within 2 D 2^-24 * sum |o * do| of
               its row; the attention kernels' ptxas registers and spills
               (the flash kernels, fused_attention's and the five
-              ablations') print on a build line
+              ablations') print on a build line, and beside them those of
+              int8_ffn_block's s8 wgmma kernels (ffn_s8_*_kernel<act, tile
+              width>, csrc/int8_gemm_sm90.cuh) and of shear_sublane_kernel
   4. ablate   the attention ablation (ops/attention_ablate.py: the fused
               core with one stage removed, five compile-time variants of
               its mainloop) at the TPU script's shape, B 256, L 128, 12
@@ -76,7 +78,9 @@ Phases, each printing JSON lines:
               with CLS drift mean |d| < 0.062 *
               max |CLS| (twice docs/PARITY.md:21's TPU drift); images/s at batch
               512 of the preset and of the exact bf16 model in turns, p50
-              latency at batch 1, tower times and the device breakdown
+              latency at batch 1, tower times and the device breakdown, with
+              int8_ffn_block's own kernels' device ms a forward
+              (int8_ffn_device_ms_per_forward, the int8_ffn_kernels family)
   7. seq512   the exact bf16 MIBF-Net, one request of 32 rows at seq 512:
               fused_attention and ffn_block launched 12 times, attention_block
               none; BERT output and logits within 0.15 / 0.01 of the plain path
@@ -301,6 +305,9 @@ def diff(out: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
 # convolutions are "fprop" kernels, so they are tested before cuBLAS's GEMMs;
 # fused_attention_kernel before attention_kernel, the s8 GEMMs before both)
 _FAMILIES = {
+    # int8_ffn_block's own kernels (csrc/int8_ffn_block.cu): GEMM1's two passes, the row
+    # scale, GEMM2 + LayerNorm; its row quantize of x is in row_quantize_kernel
+    "int8_ffn_kernels": ("ffn_s8_", "ffn_row_scale_kernel"),
     "flash_attention_kernels": ("flash_forward_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel"),
     "selective_scan_kernel": ("selective_scan_kernel",),
     "kan_forward_kernel": ("kan_forward_kernel",),
@@ -482,11 +489,19 @@ def _ptxas(log: str, fragments: tuple) -> dict:
     A kernel is named with its template arguments: attention_ablate_kernel<1,3>
     is one 64-column chunk, mode 3 of ops/attention_ablate.py::MODES (nopv)."""
     def short(mangled):
-        k = re.search(r"\d+([a-z_]+_kernel)I((?:Li\d+E)+)E", mangled)
-        if not k:
+        # the kernel's name: the last length-prefixed identifier ending in "_kernel", then
+        # its integer template arguments, if any
+        found = None
+        for m in re.finditer(r"(?=(\d{1,2})([a-z]))", mangled):
+            start = m.start() + len(m.group(1))
+            name = mangled[start:start + int(m.group(1))]
+            if name.endswith("_kernel") and re.fullmatch(r"[a-z][a-z_0-9]*", name):
+                found = (start, name)
+        if found is None:
             return mangled
-        args = ",".join(re.findall(r"Li(\d+)E", k.group(2)))
-        return f"{k.group(1)}<{args}>"
+        start, name = found
+        k = re.match(r"I((?:Li\d+E)+)E", mangled[start + len(name):])
+        return f"{name}<{','.join(re.findall(r'Li(\d+)E', k.group(1)))}>" if k else name
 
     def wanted(mangled):
         return any(f in mangled for f in fragments)
@@ -513,9 +528,12 @@ def phase_build() -> None:
     _build.load_library()
     emit({"phase": "build", "library": str(path.relative_to(_build.BUILD_DIR.parent.parent)),
           "seconds": seconds})
-    # the attention kernels' ptxas report: the consumers run at setmaxnreg 240, the producer at 24
-    emit({"phase": "build", "ptxas_attention": _ptxas(Path(str(path) + ".log").read_text(),
-                                                      ("flash_", "fused_attention_kernel", "attention_ablate_kernel"))})
+    # the attention kernels' ptxas report (the consumers run at setmaxnreg 240, the producer
+    # at 24); the int8 FFN's s8 wgmma kernels (ffn_s8_*_kernel<act, tile width>) and the shear
+    log = Path(str(path) + ".log").read_text()
+    emit({"phase": "build",
+          "ptxas_attention": _ptxas(log, ("flash_", "fused_attention_kernel", "attention_ablate_kernel")),
+          "ptxas_int8_ffn_and_shear": _ptxas(log, ("ffn_s8_", "ffn_row_scale_kernel", "shear_sublane_kernel"))})
 
 
 def _rand(rng, shape, scale, dev):
@@ -1133,6 +1151,8 @@ def phase_preset(dev, rng, seed: int) -> dict:
             "forward_exact_bf16_ms": cuda_ms(lambda: exact(img, ids, mask), reps=5),
         }
         towers["device"] = device_profile(fwd, towers["forward_ms"], reps=2)
+        # int8_ffn_block's share of the forward: its own kernels, twelve calls
+        towers["int8_ffn_device_ms_per_forward"] = towers["device"]["by_family_ms"]["int8_ffn_kernels"]
 
     emit({"phase": "preset", "model": "MIBFNet(num_labels=7): ResNet50 + BERT-base, bf16, "
           "fast_math + quantize=int8 (configs/serving/mibf_ham_serving.yml)",

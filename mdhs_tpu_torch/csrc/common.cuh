@@ -101,20 +101,14 @@ cudaError_t launch_attention(const bf16* qkv, const float* bias, bf16* ctx, int 
 //   scale = max(absmax, 1e-8) * float32(1/127);  q = clip(rint(x / scale), -127, 127)
 // ---------------------------------------------------------------------------
 
-// q[M, K] int8 and scale[M] float32 from the rows of x[M, K] (bf16 or float32).
-// Needs K % 8 == 0.
+// q[M, K] int8 and scale[M] float32 from the rows of x[M, K]. Needs K % 8 == 0.
 cudaError_t launch_row_quantize(const bf16* x, int8_t* q, float* scale, int M, int K,
                                 cudaStream_t stream);
-cudaError_t launch_row_quantize(const float* x, int8_t* q, float* scale, int M, int K,
-                                cudaStream_t stream);
 
-// C[M, N] = epi(float(A_i8[M, K] @ W_i8[N, K]^T) * sa[m] * sw[n] + bias[n]), the integer
-// product accumulated in int32. C is bf16 or float32. Needs N % 128 == 0, K % 64 == 0.
+// C[M, N] = bf16(float(A_i8[M, K] @ W_i8[N, K]^T) * sa[m] * sw[n] + bias[n]), the integer
+// product accumulated in int32; epilogue kBias only. Needs N % 128 == 0, K % 64 == 0.
 cudaError_t launch_gemm_s8(int epilogue, const int8_t* A, const int8_t* W, const float* sa,
                            const float* sw, const float* bias, bf16* C, int M, int N, int K,
-                           cudaStream_t stream);
-cudaError_t launch_gemm_s8(int epilogue, const int8_t* A, const int8_t* W, const float* sa,
-                           const float* sw, const float* bias, float* C, int M, int N, int K,
                            cudaStream_t stream);
 
 // out[M, N] = LayerNorm((resid + float(A_i8 @ W_i8^T) * sa[m] * sw[n]) + bias[n]) * gamma + beta,

@@ -1,6 +1,7 @@
-// int8 (a8w8) building blocks shared by int8_ffn_block.cu and
-// int8_attention_block.cu: a row-quantize pass, and s8 x s8 -> s32 GEMMs with
-// the dequantize fused into their epilogues. These are the pieces the TPU
+// int8 (a8w8) building blocks: the row-quantize pass of int8_ffn_block.cu and
+// int8_attention_block.cu, and the s8 x s8 -> s32 GEMMs of
+// int8_attention_block.cu with the dequantize fused into their epilogues (the
+// FFN's products run on int8_gemm_sm90.cuh). These are the pieces the TPU
 // kernels ran inside one grid step (mdhs_tpu/ops/quant_kernel.py::_kernel and
 // ::_attn_kernel: _rowquant_f32 on the VPU, the int8 MXU dots, the f32
 // rescale); here they are separate launches over device memory.
@@ -60,16 +61,6 @@ __device__ __forceinline__ void load_b(unsigned (&b)[2], const int8_t* tile, int
   b[1] = lds32(p + 16);
 }
 
-template <int EPI>
-__device__ __forceinline__ float activation(float v) {
-  if (EPI == kBiasGeluErf) return 0.5f * v * (1.0f + erff(v * 0.70710678118654752f));
-  if (EPI == kBiasGeluTanh) {
-    const float inner = 0.7978845608028654f * (v + 0.044715f * v * v * v);
-    return 0.5f * v * (1.0f + tanhf(inner));
-  }
-  return v;
-}
-
 // (float(acc) * sa) * sw, rounded at each step as the JAX kernel's
 // `acc * sx * sw` is (no fused multiply-add).
 __device__ __forceinline__ float dequant(int acc, float sa, float sw) {
@@ -80,14 +71,6 @@ __device__ __forceinline__ float dequant(int acc, float sa, float sw) {
 // row_quantize_kernel: one warp per row, 8 rows a block. The row is read
 // twice (absmax, then quantize); the second read comes from L1/L2.
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ void load8f(const bf16* p, float* f) { load8(p, f); }
-__device__ __forceinline__ void load8f(const float* p, float* f) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
-  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
-}
-
 template <typename T>
 __global__ void __launch_bounds__(256)
     row_quantize_kernel(const T* __restrict__ x, int8_t* __restrict__ q, float* __restrict__ scale,
@@ -99,7 +82,7 @@ __global__ void __launch_bounds__(256)
   float m = 0.0f;
   for (int c = lane * 8; c < K; c += 256) {
     float v[8];
-    load8f(xr + c, v);
+    load8(xr + c, v);
 #pragma unroll
     for (int e = 0; e < 8; ++e) m = fmaxf(m, fabsf(v[e]));
   }
@@ -108,7 +91,7 @@ __global__ void __launch_bounds__(256)
   int8_t* qr = q + size_t(row) * K;
   for (int c = lane * 8; c < K; c += 256) {
     float v[8];
-    load8f(xr + c, v);
+    load8(xr + c, v);
     union { int8_t b[8]; uint2 u; } pack;
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
@@ -140,9 +123,6 @@ constexpr int STAGE = (BM + BN) * LDS;  // bytes per pipeline stage
 
 __device__ __forceinline__ void store2(bf16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 
 template <int EPI, typename OutT>
@@ -225,7 +205,7 @@ __global__ void __launch_bounds__(g8::THREADS)
         const int col = n0 + wn + 8 * j + t2;
         const float v0 = __fadd_rn(dequant(acc[i][j][2 * half], s_row, sw[col]), bias[col]);
         const float v1 = __fadd_rn(dequant(acc[i][j][2 * half + 1], s_row, sw[col + 1]), bias[col + 1]);
-        store2(crow + col, activation<EPI>(v0), activation<EPI>(v1));
+        store2(crow + col, v0, v1);
       }
     }
   }
@@ -239,12 +219,6 @@ cudaError_t gemm_s8(int epilogue, const int8_t* A, const int8_t* W, const float*
   switch (epilogue) {
     case kBias:
       gemm_s8_kernel<kBias, OutT><<<grid, g8::THREADS, 0, stream>>>(A, W, sa, sw, bias, C, M, N, K);
-      break;
-    case kBiasGeluErf:
-      gemm_s8_kernel<kBiasGeluErf, OutT><<<grid, g8::THREADS, 0, stream>>>(A, W, sa, sw, bias, C, M, N, K);
-      break;
-    case kBiasGeluTanh:
-      gemm_s8_kernel<kBiasGeluTanh, OutT><<<grid, g8::THREADS, 0, stream>>>(A, W, sa, sw, bias, C, M, N, K);
       break;
     default:
       return cudaErrorInvalidValue;
@@ -417,17 +391,8 @@ cudaError_t launch_row_quantize(const bf16* x, int8_t* q, float* scale, int M, i
   return row_quantize(x, q, scale, M, K, stream);
 }
 
-cudaError_t launch_row_quantize(const float* x, int8_t* q, float* scale, int M, int K, cudaStream_t stream) {
-  return row_quantize(x, q, scale, M, K, stream);
-}
-
 cudaError_t launch_gemm_s8(int epilogue, const int8_t* A, const int8_t* W, const float* sa, const float* sw,
                            const float* bias, bf16* C, int M, int N, int K, cudaStream_t stream) {
-  return gemm_s8(epilogue, A, W, sa, sw, bias, C, M, N, K, stream);
-}
-
-cudaError_t launch_gemm_s8(int epilogue, const int8_t* A, const int8_t* W, const float* sa, const float* sw,
-                           const float* bias, float* C, int M, int N, int K, cudaStream_t stream) {
   return gemm_s8(epilogue, A, W, sa, sw, bias, C, M, N, K, stream);
 }
 

@@ -33,7 +33,7 @@ BUILD_DIR = _PKG / "build"
 SOURCES = ("gemm.cu", "attention_block.cu", "ffn_block.cu", "int8_gemm.cu", "int8_ffn_block.cu",
            "int8_attention_block.cu", "fused_attention.cu", "shear.cu", "bn_stats.cu", "selective_scan.cu",
            "kan_spline.cu", "flash_attention.cu", "attention_ablate.cu")
-HEADERS = ("common.cuh", "attention_sm90.cuh", "attention_bwd_sm90.cuh")
+HEADERS = ("common.cuh", "attention_sm90.cuh", "attention_bwd_sm90.cuh", "int8_gemm_sm90.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-lineinfo", "-Xptxas=-v", "-Xcompiler", "-fPIC")
 
@@ -45,7 +45,7 @@ _SIGNATURES = {
     "attention_block_forward": [_P] * 11 + [_I] * 4 + [_F, _F, _P],
     # x, w1, b1, w2, b2, gamma, beta, h, out, N, H, Di, eps, act, stream
     "ffn_block_forward": [_P] * 9 + [_I] * 3 + [_F, _I, _P],
-    # x, w1, s1, b1, w2, s2, b2, gamma, beta, x_q, sx, h, h_q, sh, out, N, H, Di, eps, act, stream
+    # x, w1, s1, b1, w2, s2, b2, gamma, beta, x_q, sx, part, h_q, sh, out, N, H, Di, eps, act, stream
     "int8_ffn_block_forward": [_P] * 15 + [_I] * 3 + [_F, _I, _P],
     # x, wqkv, sqkv, bqkv, wo, so, bo, gamma, beta, bias, x_q, sx, qkv, ctx, c_q, sc, out,
     # B, L, HD, heads, scale, eps, stream

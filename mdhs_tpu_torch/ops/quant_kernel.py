@@ -4,8 +4,9 @@
     int8_attention_block:  out = LN(x + deq(rq(MHA(deq(rq(x) @ Wqkv_i8^T) + bqkv)) @ Wo_i8^T) + bo)
 
 Counterpart of ``mdhs_tpu/ops/quant_kernel.py``; the kernels are
-``csrc/int8_ffn_block.cu`` and ``csrc/int8_attention_block.cu`` (with
-``csrc/int8_gemm.cu``), whose header comments have the design. ``rq`` is the
+``csrc/int8_ffn_block.cu`` (on the s8 wgmma mainloop ``csrc/int8_gemm_sm90.cuh``)
+and ``csrc/int8_attention_block.cu`` (with ``csrc/int8_gemm.cu``), whose header
+comments have the design. ``rq`` is the
 kernels' row quantization (absmax times float32(1/127), as the JAX kernels'
 ``_rowquant_f32``; ``ops/quant.py::quantize_rows`` divides by 127 instead),
 ``deq`` the float32 rescale ``acc * s_row * s_channel``.
@@ -33,18 +34,38 @@ from .gelu import gelu
 from .quant import int_matmul
 
 __all__ = [
-    "int8_ffn_block", "int8_ffn_block_reference", "supports",
+    "int8_ffn_block", "int8_ffn_block_reference", "supports", "TILE_COLS", "tile_absmax",
+    "scale_from_partials", "ffn_hidden_quant_reference",
     "int8_attention_block", "int8_attention_block_reference", "attn_supports",
 ]
 
 _ACT_CODES = {"erf": 0, "tanh": 1}
 _INV_127 = float(np.float32(1.0 / 127.0))  # jnp.float32(1.0 / 127.0), exactly
+# Columns of the FFN kernel's narrowest GEMM1 tile (128 or 256): its pass A
+# writes the absmax of h per row and tile, and h's row scale is their maximum
+# (csrc/int8_ffn_block.cu).
+TILE_COLS = 128
 
 
 def _rowquant(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """The kernels' row quantization of float32 ``(R, K)``: (int8, scale (R, 1))."""
     scale = x.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8) * _INV_127
     return torch.round(x / scale).clamp(-127, 127).to(torch.int8), scale
+
+
+def tile_absmax(h: torch.Tensor, cols: int = TILE_COLS) -> torch.Tensor:
+    """Pass A's partials: the absmax of each row of float32 ``h`` (R, K) over
+    each tile of ``cols`` columns (the last tile ragged), (R, ceil(K / cols))."""
+    R, K = h.shape
+    tiles = -(-K // cols)
+    padded = torch.nn.functional.pad(h.abs(), (0, tiles * cols - K))  # |h| >= 0: zeros change no max
+    return padded.reshape(R, tiles, cols).amax(dim=-1)
+
+
+def scale_from_partials(part: torch.Tensor) -> torch.Tensor:
+    """Pass B's row scale from pass A's partials, (R, 1): the largest partial,
+    at least 1e-8, times float32(1/127), as ``_rowquant_f32`` scales a row."""
+    return part.amax(dim=-1, keepdim=True).clamp_min(1e-8) * _INV_127
 
 
 def _dequant(x_i8, sx, w_i8, sw) -> torch.Tensor:
@@ -78,16 +99,23 @@ def attn_supports(dtype: torch.dtype, seq_len: int, hidden: int, num_heads: int)
 
 
 # ---------------------------------------------------------------------------
+def ffn_hidden_quant_reference(x2d, w1_i8, s1, b1, act: str = "erf") -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version's (h_i8 (N, Di) int8, sh (N,) float32): the kernel's
+    two-pass staging, the row scale taken from the tiles' partial maxima."""
+    x_i8, sx = _rowquant(x2d.float())
+    h = gelu(_dequant(x_i8, sx, w1_i8, s1) + b1.float(), act)
+    sh = scale_from_partials(tile_absmax(h))
+    return torch.round(h / sh).clamp(-127, 127).to(torch.int8), sh[:, 0]
+
+
 def int8_ffn_block_reference(x2d, w1_i8, s1, b1, w2_i8, s2, b2, gamma, beta, ln_eps: float,
                              act: str = "erf") -> torch.Tensor:
     """Plain PyTorch version with the kernel's order of roundings: the GELU
     output is re-quantized straight from float32, the residual and LayerNorm
     are float32, the output is rounded once to ``x2d.dtype``."""
     xf = x2d.float()
-    x_i8, sx = _rowquant(xf)
-    h = gelu(_dequant(x_i8, sx, w1_i8, s1) + b1.float(), act)
-    h_i8, sh = _rowquant(h)
-    y = (xf + _dequant(h_i8, sh, w2_i8, s2)) + b2.float()
+    h_i8, sh = ffn_hidden_quant_reference(x2d, w1_i8, s1, b1, act)
+    y = (xf + _dequant(h_i8, sh[:, None], w2_i8, s2)) + b2.float()
     return _layer_norm_f32(y, gamma, beta, ln_eps).to(x2d.dtype)
 
 
@@ -98,6 +126,11 @@ def int8_ffn_block(x2d, w1_i8, s1, b1, w2_i8, s2, b2, gamma, beta, ln_eps: float
         raise ValueError(f"act={act!r}: expected 'erf' or 'tanh'")
     if x2d.device.type == "cpu":
         return int8_ffn_block_reference(x2d, w1_i8, s1, b1, w2_i8, s2, b2, gamma, beta, ln_eps, act)
+    return launch_int8_ffn_block(x2d, w1_i8, s1, b1, w2_i8, s2, b2, gamma, beta, ln_eps, act)[0]
+
+
+def launch_int8_ffn_block(x2d, w1_i8, s1, b1, w2_i8, s2, b2, gamma, beta, ln_eps: float, act: str):
+    """The kernel on CUDA tensors: (out, h_i8, sh), the last two its scratch."""
     if x2d.device.type != "cuda":
         raise ValueError(f"int8_ffn_block: unsupported device {x2d.device}")
     N, H = x2d.shape
@@ -114,7 +147,7 @@ def int8_ffn_block(x2d, w1_i8, s1, b1, w2_i8, s2, b2, gamma, beta, ln_eps: float
     lib = _build.load_library()
     x_q = torch.empty((N, H), dtype=i8, device=dev)
     sx = torch.empty((N,), dtype=f32, device=dev)
-    h = torch.empty((N, Di), dtype=f32, device=dev)  # float32 GELU output, through device memory
+    part = torch.empty((N, Di // TILE_COLS), dtype=f32, device=dev)  # pass A's row maxima, a tile each at most
     h_q = torch.empty((N, Di), dtype=i8, device=dev)
     sh = torch.empty((N,), dtype=f32, device=dev)
     out = torch.empty_like(x2d)
@@ -122,12 +155,12 @@ def int8_ffn_block(x2d, w1_i8, s1, b1, w2_i8, s2, b2, gamma, beta, ln_eps: float
         err = lib.int8_ffn_block_forward(
             x2d.data_ptr(), w1_i8.data_ptr(), s1.data_ptr(), b1.data_ptr(), w2_i8.data_ptr(),
             s2.data_ptr(), b2.data_ptr(), gamma.data_ptr(), beta.data_ptr(), x_q.data_ptr(),
-            sx.data_ptr(), h.data_ptr(), h_q.data_ptr(), sh.data_ptr(), out.data_ptr(),
+            sx.data_ptr(), part.data_ptr(), h_q.data_ptr(), sh.data_ptr(), out.data_ptr(),
             N, H, Di, float(ln_eps), _ACT_CODES[act], _build.stream_of(dev),
         )
     _build.check_launch(lib, err, "int8_ffn_block_forward")
     int8_ffn_block.launches += 1
-    return out
+    return out, h_q, sh
 
 
 int8_ffn_block.launches = 0

@@ -27,8 +27,9 @@ __all__ = ["shear_sublane", "shear_reference", "supports"]
 
 def supports(x_shape, dtype: torch.dtype, pad: int) -> bool:
     """The kernel's own gate: a float32 (B, C, S, L) input with S > 2*pad,
-    and a grid that fits the card's limits (B*C planes and ceil(W / 8) row
-    blocks each at most 65535). No shared memory: any L works."""
+    and a grid that fits the card's limits (B*C planes at most 65535, and
+    ceil(W / 8) at most 65535, which the kernel's 32-row blocks meet with
+    room). No shared memory: any L works."""
     if len(x_shape) != 4 or dtype != torch.float32 or pad < 1:
         return False
     B, C, S, L = x_shape

@@ -7,7 +7,8 @@ the suite's conftest:
     python -m pytest tests/test_torch_port_cuda.py --noconftest -q
 
 Shapes are small and ragged on purpose (odd row counts, L not a multiple of
-16 or 64, head_dim 32 and 64); the full-width shapes run in chip_smoke.py.
+16 or 64, head_dim 32 and 64); the full-width shapes run in chip_smoke.py,
+and the int8 FFN's also here, with its scratch and its peak allocation.
 Tolerances are the JAX kernels' own: max |d| <= 6e-2 and mean |d| < 5e-3 in
 bf16 (tests/test_fused_attention.py:126-127) for the bf16 kernels, and max
 |d| <= 0.01 * max |plain| (tests/test_quant.py:160) with mean |d| < 5e-3 for
@@ -143,20 +144,57 @@ def test_int_matmul_on_the_card_is_exact(dev, M, K, N):
     np.testing.assert_array_equal(out.cpu().numpy(), a.astype(np.int64) @ w.astype(np.int64).T)
 
 
-@pytest.mark.parametrize("act", ["erf", "tanh"])
-@pytest.mark.parametrize("N, H, Di", [(1, 128, 256), (37, 128, 384), (300, 768, 3072)])
-def test_int8_ffn_block_kernel_matches_plain(dev, N, H, Di, act):
+def _ffn_args(N, H, Di, act, dev):
     rng = np.random.default_rng(N)
     x = _randn(rng, (N, H), 1.0, dev)
     w1, s1 = quantize_weight(_randn(rng, (Di, H), 0.03, dev))
     w2, s2 = quantize_weight(_randn(rng, (H, Di), 0.03, dev))
-    args = (x, w1, s1, _f32(rng, (Di,), 0.01, dev), w2, s2, _f32(rng, (H,), 0.01, dev),
+    return (x, w1, s1, _f32(rng, (Di,), 0.01, dev), w2, s2, _f32(rng, (H,), 0.01, dev),
             _f32(rng, (H,), 0.1, dev, 1.0), _f32(rng, (H,), 0.1, dev), 1e-12, act)
+
+
+# The int8 FFN (csrc/int8_ffn_block.cu on csrc/int8_gemm_sm90.cuh) at ragged and at
+# the preset's shapes, batch 1 (128 rows) and batch 512 (65,536), H 384 and 1024, and
+# both widths of GEMM1's tiles (128 columns at few rows or Di not a multiple of 256,
+# 256 where they fill the card). Its scratch too: sh is the plain version's bit for
+# bit, h_i8 within 1 of it, with under 0.1 % of the values apart.
+@pytest.mark.parametrize("act", ["erf", "tanh"])
+@pytest.mark.parametrize("N, H, Di", [(1, 128, 256), (37, 128, 384), (300, 768, 3072), (128, 768, 3072),
+                                      (65536, 768, 3072), (300, 384, 1536), (4096, 1024, 4096), (2000, 384, 1408)])
+def test_int8_ffn_block_kernel_matches_plain(dev, N, H, Di, act):
+    args = _ffn_args(N, H, Di, act, dev)
     n = qk.int8_ffn_block.launches
-    out = qk.int8_ffn_block(*args)
+    out, h_q, sh = qk.launch_int8_ffn_block(*args)
     torch.cuda.synchronize()
     assert qk.int8_ffn_block.launches == n + 1
     _close_int8(out, qk.int8_ffn_block_reference(*args))
+    hq_ref, sh_ref = qk.ffn_hidden_quant_reference(*args[:4], act)
+    assert torch.equal(sh, sh_ref)
+    d = (h_q.int() - hq_ref.int()).abs()
+    assert d.max().item() <= 1 and (d > 0).float().mean().item() < 1e-3
+
+
+def test_int8_ffn_block_keeps_no_float32_hidden(dev):
+    """No (N, Di) float32 scratch: the call's peak allocation stays under one."""
+    N, H, Di = 65536, 768, 3072
+    args = _ffn_args(N, H, Di, "tanh", dev)
+    qk.int8_ffn_block(*args)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    qk.int8_ffn_block(*args)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated(dev) - base < N * Di * 4
+
+
+def test_int8_ffn_block_raises_outside_its_gate(dev):
+    args = list(_ffn_args(64, 1152, 4608, "erf", dev))  # wider than the LayerNorm cluster
+    with pytest.raises(ValueError, match="unsupported"):
+        qk.int8_ffn_block(*args)
+    args = list(_ffn_args(64, 768, 3072, "erf", dev))
+    args[0] = args[0].float()
+    with pytest.raises(ValueError, match="unsupported"):
+        qk.int8_ffn_block(*args)
 
 
 @pytest.mark.parametrize("B, L, HD, heads", [(2, 16, 128, 2), (3, 100, 128, 4), (2, 128, 768, 12),
@@ -283,8 +321,14 @@ from mdhs_tpu_torch.ops import bn_stats as bns  # noqa: E402
 from mdhs_tpu_torch.ops import shear as sh  # noqa: E402
 
 
+# The column-strip shear (8 output rows a thread, 4 strips a block): the training
+# step's pads 17 and 31 and the baseline family's 49 and 82, W not a multiple of the
+# strip or of the 32-row block, L not a multiple of the 32-lane warp, B * C = 1; a
+# second launch gives the same bits.
 @pytest.mark.parametrize("B, C, W, L, pad", [(32, 3, 224, 224, 17), (32, 3, 224, 224, 31), (4, 3, 224, 224, 49),
-                                             (4, 3, 224, 224, 82), (3, 2, 37, 45, 5), (1, 1, 1, 1, 1)])
+                                             (4, 3, 224, 224, 82), (3, 2, 37, 45, 5), (1, 1, 1, 1, 1),
+                                             (2, 3, 37, 45, 17), (1, 1, 13, 33, 3), (1, 1, 224, 200, 31),
+                                             (1, 1, 7, 1, 2)])
 def test_shear_kernel_is_bit_exact(dev, B, C, W, L, pad):
     rng = np.random.default_rng(W + L + pad)
     x = torch.zeros((B, C, W + 2 * pad, L), dtype=torch.float32)
@@ -297,6 +341,7 @@ def test_shear_kernel_is_bit_exact(dev, B, C, W, L, pad):
     assert sh.shear_sublane.launches == n + 1
     assert torch.equal(out, sh.shear_reference(x, d, pad))
     assert torch.equal(out.cpu(), sh.shear_reference(x.cpu(), d.cpu(), pad))
+    assert torch.equal(out, sh.shear_sublane(x, d, pad))
 
 
 def test_rotation_launches_three_shears(dev):

@@ -169,6 +169,23 @@ def test_int8_ffn_block_matches_jax_kernel(ffn_case, act, entry):
     _within(out.float().numpy(), ref_r)
 
 
+@pytest.mark.parametrize("cols", [64, 128, 256])
+@pytest.mark.parametrize("Di", [384, 3072])
+@pytest.mark.parametrize("N", [1, 37, 300])
+def test_ffn_row_scale_from_tile_partials_is_jax_bit_for_bit(N, Di, cols):
+    """The FFN kernel's two-pass staging (csrc/int8_ffn_block.cu): pass A's row
+    maxima over each tile of columns, then their maximum, give _rowquant_f32's
+    scale of the whole row bit for bit. Di 384 at 256 columns leaves a ragged
+    last tile; every seventh row lies under the 1e-8 floor."""
+    rng = np.random.default_rng(N + Di + cols)
+    h = (rng.standard_normal((N, Di)) * rng.uniform(0.01, 3.0, (N, 1))).astype(np.float32)
+    h[::7] *= 1e-9
+    part = tqk.tile_absmax(_t(h), cols)
+    assert part.shape == (N, -(-Di // cols))
+    _, ref_s = jqk._rowquant_f32(jnp.asarray(h))
+    np.testing.assert_array_equal(tqk.scale_from_partials(part).numpy(), np.asarray(ref_s))
+
+
 @pytest.mark.parametrize("entry", ["reference", "wrapper"])
 def test_int8_attention_block_matches_jax_kernel(entry):
     rng = np.random.default_rng(0)
