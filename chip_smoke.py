@@ -41,7 +41,14 @@ Phases, each printing JSON lines:
               (the flash kernels, fused_attention's and the five
               ablations') print on a build line, and beside them those of
               int8_ffn_block's s8 wgmma kernels (ffn_s8_*_kernel<act, tile
-              width>, csrc/int8_gemm_sm90.cuh) and of shear_sublane_kernel
+              width>, csrc/int8_gemm_sm90.cuh), of shear_sublane_kernel and
+              of int8_attention_block's kernels (attn_s8_qkv_kernel<tile
+              width>, attn_s8_out_ln_kernel, and int8_attention_core_kernel<NC>,
+              fused_attention_kernel<NC>'s code over the packed qkv);
+              int8_attention_block at (8, 128), (8, 256) and the preset's
+              (512, 128) and (512, 256), its device time split by stage
+              (row quantize of x and ctx, QKV product, attention core, output
+              projection + LayerNorm)
   4. ablate   the attention ablation (ops/attention_ablate.py: the fused
               core with one stage removed, five compile-time variants of
               its mainloop) at the TPU script's shape, B 256, L 128, 12
@@ -81,6 +88,10 @@ Phases, each printing JSON lines:
               latency at batch 1, tower times and the device breakdown, with
               int8_ffn_block's own kernels' device ms a forward
               (int8_ffn_device_ms_per_forward, the int8_ffn_kernels family)
+              and int8_attention_block's by stage
+              (int8_attention_device_ms_per_forward: its three families and
+              the 24 of the forward's 36 row quantizes that it launches, told
+              from the FFN's by the next int8 kernel on the stream)
   7. seq512   the exact bf16 MIBF-Net, one request of 32 rows at seq 512:
               fused_attention and ffn_block launched 12 times, attention_block
               none; BERT output and logits within 0.15 / 0.01 of the plain path
@@ -165,6 +176,7 @@ from torch import nn
 
 from mdhs_tpu_torch import resolve_device
 from mdhs_tpu_torch.diagnostics import attention_ablate as diag
+from mdhs_tpu_torch.diagnostics import trace
 from mdhs_tpu_torch.models.baseline import MultimodalBaselineModel
 from mdhs_tpu_torch.models.bert import BertConfig, int8_composite
 from mdhs_tpu_torch.models.init import init_parameters
@@ -303,18 +315,22 @@ def diff(out: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
 
 # kernel family <- name fragments, first match wins (cuDNN's implicit-GEMM
 # convolutions are "fprop" kernels, so they are tested before cuBLAS's GEMMs;
-# fused_attention_kernel before attention_kernel, the s8 GEMMs before both)
+# fused_attention_kernel before attention_kernel)
 _FAMILIES = {
     # int8_ffn_block's own kernels (csrc/int8_ffn_block.cu): GEMM1's two passes, the row
     # scale, GEMM2 + LayerNorm; its row quantize of x is in row_quantize_kernel
     "int8_ffn_kernels": ("ffn_s8_", "ffn_row_scale_kernel"),
+    # int8_attention_block's own kernels (csrc/int8_attention_block.cu), a family a stage: the
+    # QKV product, the attention core (fused_attention's mainloop over the packed qkv), the
+    # output projection + LayerNorm; its two row quantizes are in row_quantize_kernel
+    "int8_attention_qkv": ("attn_s8_qkv_kernel",),
+    "int8_attention_core": ("int8_attention_core_kernel",),
+    "int8_attention_out_ln": ("attn_s8_out_ln_kernel",),
     "flash_attention_kernels": ("flash_forward_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel"),
     "selective_scan_kernel": ("selective_scan_kernel",),
     "kan_forward_kernel": ("kan_forward_kernel",),
     "shear_kernel": ("shear_sublane_kernel",),
     "bn_stats_kernel": ("bn_stats_",),
-    "gemm_s8_residual_ln_kernel": ("gemm_s8_residual_ln_kernel",),
-    "gemm_s8_kernel": ("gemm_s8_kernel",),
     "row_quantize_kernel": ("row_quantize_kernel",),
     "gemm_residual_ln_kernel": ("gemm_residual_ln_kernel",),
     "gemm_bias_kernel": ("gemm_bias_kernel",),
@@ -334,19 +350,12 @@ _FAMILIES = {
 }
 
 
-def _device_kernels(fn, reps: int) -> list:
+def _device_kernels(fn, reps: int, whole: bool = False) -> list:
     """(name, device ms per call, launches per call) of every CUDA kernel fn
-    runs, from torch.profiler over ``reps`` calls after one warm-up call."""
-    fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    # a user annotation (torch.optim's "Optimizer.step#Adam.step") spans kernels counted on their own
-    return [(e.key, e.self_device_time_total / 1e3 / reps, e.count / reps) for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
+    runs, from torch.profiler over ``reps`` calls after one warm-up call.
+    ``whole``: fn launches the same kernels every call, and a trace whose
+    counts say otherwise lost records and is taken again."""
+    return trace.by_kernel(trace.kernel_events(fn, reps, trace.whole_calls(reps) if whole else None), reps)
 
 
 def device_profile(fn, forward_ms: float, reps: int = 3, top: int = 0) -> dict:
@@ -366,10 +375,40 @@ def device_profile(fn, forward_ms: float, reps: int = 3, top: int = 0) -> dict:
     return out
 
 
+def int8_attention_stages(fn, reps: int = 10, blocks: int = 1, alone: bool = True) -> dict:
+    """int8_attention_block's device time a call of fn by stage: its own kernels by name, and its
+    row quantizes by launch order, the ones whose next int8 kernel on the stream is the block's
+    (x's before the QKV product, ctx's before the output projection; the FFN's own quantize of x
+    is followed by ffn_s8_*). fn calls the block ``blocks`` times, and a trace that lost any of
+    their kernels is taken again. ``alone``: fn is one call of the block and nothing else."""
+    stages = {"qkv": "attn_s8_qkv_kernel", "core": "int8_attention_core_kernel",
+              "out_ln": "attn_s8_out_ln_kernel"}
+    def whole(events):
+        return all(sum(frag in e.name for e in events) == reps * blocks for frag in stages.values())
+
+    events = trace.kernel_events(fn, reps, whole)
+    kernels = [(e.time_range.start, e.name, e.time_range.elapsed_us() / 1e3 / reps) for e in events]
+    out = {s: sum(ms for _, n, ms in kernels if frag in n) for s, frag in stages.items()}
+    launches = {s: sum(frag in n for _, n, _ in kernels) for s, frag in stages.items()}
+    quantizes, pending = [], []
+    for _, n, ms in kernels:
+        if "row_quantize_kernel" in n:
+            pending.append(ms)
+        elif "ffn_s8_" in n or any(frag in n for frag in stages.values()):
+            quantizes += [] if "ffn_s8_" in n else pending
+            pending = []
+    out["row_quantize_x_and_ctx"] = sum(quantizes)
+    check(len(quantizes) == 2 * launches["qkv"] == 2 * launches["out_ln"] > 0,
+          f"int8 attention: {len(quantizes)} row quantizes for {launches}")
+    if alone:
+        check(abs(sum(out.values()) - sum(ms for _, _, ms in kernels)) < 1e-9, f"int8 attention kernels {kernels}")
+    return out
+
+
 def kernel_device_ms(fn, reps: int = 10) -> float:
     """Device time of one call (the sum of its kernels' times), without the
     host's launch overhead that CUDA events around a short call include."""
-    return sum(ms for _, ms, _ in _device_kernels(fn, reps))
+    return sum(ms for _, ms, _ in _device_kernels(fn, reps, whole=True))
 
 
 # --- bounds: the least time the card could take for each kernel's work -------
@@ -529,11 +568,14 @@ def phase_build() -> None:
     emit({"phase": "build", "library": str(path.relative_to(_build.BUILD_DIR.parent.parent)),
           "seconds": seconds})
     # the attention kernels' ptxas report (the consumers run at setmaxnreg 240, the producer
-    # at 24); the int8 FFN's s8 wgmma kernels (ffn_s8_*_kernel<act, tile width>) and the shear
+    # at 24); the int8 FFN's s8 wgmma kernels (ffn_s8_*_kernel<act, tile width>) and the shear;
+    # the int8 attention block's (attn_s8_qkv_kernel<tile width>, attn_s8_out_ln_kernel) and its
+    # core, int8_attention_core_kernel<NC>, fused_attention_kernel<NC>'s code
     log = Path(str(path) + ".log").read_text()
     emit({"phase": "build",
           "ptxas_attention": _ptxas(log, ("flash_", "fused_attention_kernel", "attention_ablate_kernel")),
-          "ptxas_int8_ffn_and_shear": _ptxas(log, ("ffn_s8_", "ffn_row_scale_kernel", "shear_sublane_kernel"))})
+          "ptxas_int8_ffn_and_shear": _ptxas(log, ("ffn_s8_", "ffn_row_scale_kernel", "shear_sublane_kernel")),
+          "ptxas_int8_attention": _ptxas(log, ("attn_s8_", "int8_attention_core_kernel"))})
 
 
 def _rand(rng, shape, scale, dev):
@@ -673,7 +715,7 @@ def _sdpa_calls(q, k, v, seg, do):
     return forward, backward
 
 
-def _kernel_cases(dev, rng):
+def _kernel_cases(dev, rng, seed):
     """(name, shape, plain, args, main path?, (bound_ms, bound_by), library call or None, judge)."""
     cases = []
     for B, L in ((8, 128), (8, 256), (BATCH, SEQ)):
@@ -701,12 +743,15 @@ def _kernel_cases(dev, rng):
                     _rand_f32(rng, (HD,), 0.1, dev), 1e-12, act)
             cases.append(("int8_ffn_block", f"N={N},act={act}", qk.int8_ffn_block_reference, args,
                           (N, act) == (P * SEQ, "tanh"), bound_int8_ffn_block(N), None, judge_int8))
-    for B, L in ((8, 128), (8, LONG_SEQ), (P, SEQ)):
-        wqkv, sqkv = quantize_weight(_rand(rng, (3 * HD, HD), 0.03, dev))
-        wo, so = quantize_weight(_rand(rng, (HD, HD), 0.03, dev))
-        args = (_rand(rng, (B, L, HD), 1.0, dev), wqkv, sqkv, _rand_f32(rng, (3 * HD,), 0.01, dev), wo, so,
-                _rand_f32(rng, (HD,), 0.01, dev), _rand_f32(rng, (HD,), 0.1, dev, 1.0),
-                _rand_f32(rng, (HD,), 0.1, dev), _key_bias(B, L, 28, dev), HEADS, 0.125, 1e-12)
+    # the preset at seq 128 and at its own 256; the 256 case draws from a generator of its own, so
+    # the cases and phases after it get the inputs they got before it was added
+    for B, L, g in ((8, 128, rng), (8, LONG_SEQ, rng), (P, SEQ, rng),
+                    (P, LONG_SEQ, np.random.default_rng([seed, P, LONG_SEQ]))):
+        wqkv, sqkv = quantize_weight(_rand(g, (3 * HD, HD), 0.03, dev))
+        wo, so = quantize_weight(_rand(g, (HD, HD), 0.03, dev))
+        args = (_rand(g, (B, L, HD), 1.0, dev), wqkv, sqkv, _rand_f32(g, (3 * HD,), 0.01, dev), wo, so,
+                _rand_f32(g, (HD,), 0.01, dev), _rand_f32(g, (HD,), 0.1, dev, 1.0),
+                _rand_f32(g, (HD,), 0.1, dev), _key_bias(B, L, 28, dev), HEADS, 0.125, 1e-12)
         cases.append(("int8_attention_block", f"B={B},L={L}", qk.int8_attention_block_reference, args,
                       (B, L) == (P, SEQ), bound_int8_attention_block(B, L), None, judge_int8))
     for B, L in ((8, 384), (8, 500), (8, SEQ512), (BATCH, SEQ512)):
@@ -806,10 +851,10 @@ def _flash_backward_pair(dev, rng) -> None:
               "library_device_ms": kernel_device_ms(sdpa_backward), "library": "SDPA backward alone"})
 
 
-def phase_kernels(dev, rng) -> dict:
+def phase_kernels(dev, rng, seed: int) -> dict:
     """Each kernel against its plain version; returns per-kernel summaries."""
     summary = {}
-    for name, shape, plain, args, main_path, (bound_ms, bound_by), library, judge in _kernel_cases(dev, rng):
+    for name, shape, plain, args, main_path, (bound_ms, bound_by), library, judge in _kernel_cases(dev, rng, seed):
         kernel = KERNELS[name][0]
         out = kernel(*args)
         torch.cuda.synchronize()
@@ -822,10 +867,13 @@ def phase_kernels(dev, rng) -> dict:
         library_ms = cuda_ms(library) if library is not None else None
         device_ms = kernel_device_ms(lambda: kernel(*args))
         library_device_ms = kernel_device_ms(library) if library is not None else None
-        emit({"phase": "kernels", "kernel": name, "shape": shape, "max_abs_err": mx, "mean_abs_err": mean,
-              "max_abs_bound": max_bound, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
-              "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
-              "library_device_ms": library_device_ms})
+        line = {"phase": "kernels", "kernel": name, "shape": shape, "max_abs_err": mx, "mean_abs_err": mean,
+                "max_abs_bound": max_bound, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+                "library_device_ms": library_device_ms}
+        if name == "int8_attention_block":
+            line["device_ms_by_stage"] = int8_attention_stages(lambda: kernel(*args))
+        emit(line)
         s = summary.setdefault(name, {"max_abs_err": 0.0})
         s["max_abs_err"] = max(s["max_abs_err"], mx)
         if main_path:
@@ -1152,7 +1200,11 @@ def phase_preset(dev, rng, seed: int) -> dict:
         }
         towers["device"] = device_profile(fwd, towers["forward_ms"], reps=2)
         # int8_ffn_block's share of the forward: its own kernels, twelve calls
-        towers["int8_ffn_device_ms_per_forward"] = towers["device"]["by_family_ms"]["int8_ffn_kernels"]
+        fam = towers["device"]["by_family_ms"]
+        towers["int8_ffn_device_ms_per_forward"] = fam["int8_ffn_kernels"]
+        # int8_attention_block's, by stage: its own kernels and its two row quantizes a layer
+        split = int8_attention_stages(fwd, reps=2, blocks=cfg.num_hidden_layers, alone=False)
+        towers["int8_attention_device_ms_per_forward"] = {**split, "total": sum(split.values())}
 
     emit({"phase": "preset", "model": "MIBFNet(num_labels=7): ResNet50 + BERT-base, bf16, "
           "fast_math + quantize=int8 (configs/serving/mibf_ham_serving.yml)",
@@ -1704,7 +1756,7 @@ def main() -> int:
 
     dev, smi = phase_device()
     phase_build()
-    summary = phase_kernels(dev, rng)
+    summary = phase_kernels(dev, rng, seed)
     summary["attention_ablate"], ablate_launches = phase_ablate(dev, rng)
     slice_launches, model, plain = phase_slice(dev, rng, seed)
     seq512_launches = phase_seq512(dev, rng, model, plain)

@@ -1,6 +1,8 @@
 // The Hopper attention forward, written once for fused_attention.cu and for
-// the forward of flash_attention.cu. Each of them instantiates
-// attention_sm90<NC, Kind> inside its own __global__ kernel.
+// the forward of flash_attention.cu, and run by int8_attention_block.cu's core
+// (the fused kind over the thirds of a packed qkv: head_map's pitch) and by
+// attention_ablate.cu. Each of them instantiates attention_sm90<NC, Kind>
+// inside its own __global__ kernel.
 //
 // Work items are 128 query rows of one (head, batch row). The grid is
 // persistent, one block an SM, and a block walks its items in turn with
@@ -695,12 +697,15 @@ inline cudaError_t bind_device(int* device) {
 }
 
 // 3-D map over a (B, L, HD) bf16 tensor, innermost first, box (64 columns, ``rows`` rows, 1),
-// 128-byte swizzle; rows past L and columns past HD read as zero.
-inline cudaError_t head_map(CUtensorMap* map, const void* ptr, int B, int L, int HD, int rows = KT) {
+// 128-byte swizzle; rows past L and columns past HD read as zero. Its rows lie ``pitch``
+// elements apart (0: HD, a tensor of its own; 3 HD: one third of a packed (B, L, 3 HD)
+// qkv, which TMA takes when the base and the pitch are multiples of 16 bytes).
+inline cudaError_t head_map(CUtensorMap* map, const void* ptr, int B, int L, int HD, int rows = KT, int pitch = 0) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t row = static_cast<cuuint64_t>(pitch > 0 ? pitch : HD) * 2;  // bytes
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(HD), static_cast<cuuint64_t>(L), static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(HD) * 2, static_cast<cuuint64_t>(L) * HD * 2};
+  const cuuint64_t strides[2] = {row, static_cast<cuuint64_t>(L) * row};
   const cuuint32_t box[3] = {CHUNK, static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box, elem,
@@ -712,11 +717,12 @@ inline cudaError_t head_map(CUtensorMap* map, const void* ptr, int B, int L, int
 // Checks, tensor maps and the launch of one forward call: kernel1 (one
 // 64-column chunk) at head_dim <= 64, kernel2 (two) above; a persistent grid,
 // one block an SM (at most one a work item). q, k, v, out: (B, L, HD) bf16 with
-// HD = num_heads * D, D % 8 == 0, D <= 128; key_words (B, L) 32-bit.
+// HD = num_heads * D, D % 8 == 0, D <= 128; key_words (B, L) 32-bit. The rows of
+// q, k and v lie ``pitch`` elements apart (0: HD; head_map), out's HD apart.
 template <typename Kernel>
 cudaError_t launch(Kernel kernel1, Kernel kernel2, const void* q, const void* k, const void* v, const void* key_words,
                    void* out, float* m_out, float* l_out, int B, int L, int HD, int num_heads, float sm_scale,
-                   void* stream) {
+                   void* stream, int pitch = 0) {
   if (B <= 0 || B > 65535 || L <= 0 || num_heads <= 0 || num_heads > 65535 || HD % num_heads != 0)
     return cudaErrorInvalidValue;
   const int D = HD / num_heads;
@@ -729,9 +735,9 @@ cudaError_t launch(Kernel kernel1, Kernel kernel2, const void* q, const void* k,
   cudaError_t err;
   if ((err = bind_device(&device)) != cudaSuccess) return err;
   CUtensorMap tq, tk, tv;
-  if ((err = head_map(&tq, q, B, L, HD)) != cudaSuccess) return err;
-  if ((err = head_map(&tk, k, B, L, HD)) != cudaSuccess) return err;
-  if ((err = head_map(&tv, v, B, L, HD)) != cudaSuccess) return err;
+  if ((err = head_map(&tq, q, B, L, HD, KT, pitch)) != cudaSuccess) return err;
+  if ((err = head_map(&tk, k, B, L, HD, KT, pitch)) != cudaSuccess) return err;
+  if ((err = head_map(&tv, v, B, L, HD, KT, pitch)) != cudaSuccess) return err;
   if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(sp.bytes))) !=
       cudaSuccess)
     return err;

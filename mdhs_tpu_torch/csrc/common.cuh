@@ -96,7 +96,7 @@ cudaError_t launch_attention(const bf16* qkv, const float* bias, bf16* ctx, int 
                              int num_heads, float sm_scale, cudaStream_t stream);
 
 // ---------------------------------------------------------------------------
-// int8 (a8w8) pieces, int8_gemm.cu. Quantization is symmetric absmax with
+// The int8 (a8w8) row quantize, int8_gemm.cu. Quantization is symmetric absmax with
 // round-half-to-even (rintf), as mdhs_tpu/ops/quant_kernel.py::_rowquant_f32:
 //   scale = max(absmax, 1e-8) * float32(1/127);  q = clip(rint(x / scale), -127, 127)
 // ---------------------------------------------------------------------------
@@ -104,18 +104,5 @@ cudaError_t launch_attention(const bf16* qkv, const float* bias, bf16* ctx, int 
 // q[M, K] int8 and scale[M] float32 from the rows of x[M, K]. Needs K % 8 == 0.
 cudaError_t launch_row_quantize(const bf16* x, int8_t* q, float* scale, int M, int K,
                                 cudaStream_t stream);
-
-// C[M, N] = bf16(float(A_i8[M, K] @ W_i8[N, K]^T) * sa[m] * sw[n] + bias[n]), the integer
-// product accumulated in int32; epilogue kBias only. Needs N % 128 == 0, K % 64 == 0.
-cudaError_t launch_gemm_s8(int epilogue, const int8_t* A, const int8_t* W, const float* sa,
-                           const float* sw, const float* bias, bf16* C, int M, int N, int K,
-                           cudaStream_t stream);
-
-// out[M, N] = LayerNorm((resid + float(A_i8 @ W_i8^T) * sa[m] * sw[n]) + bias[n]) * gamma + beta,
-// float32 statistics. Needs N % 128 == 0, N <= 1024, K % 64 == 0.
-cudaError_t launch_gemm_s8_residual_ln(const int8_t* A, const int8_t* W, const float* sa,
-                                       const float* sw, const float* bias, const bf16* resid,
-                                       const float* gamma, const float* beta, bf16* out, int M,
-                                       int N, int K, float eps, cudaStream_t stream);
 
 }  // namespace mdhs

@@ -1,7 +1,9 @@
-// The Hopper s8 x s8 -> s32 GEMM mainloop, written once for the int8 FFN
-// sublayer's three products (int8_ffn_block.cu). A kernel instantiates
+// The Hopper s8 x s8 -> s32 GEMM mainloop of the int8 sublayers' products: the
+// FFN's three (int8_ffn_block.cu) and the attention block's QKV and output
+// projections (int8_attention_block.cu). A kernel instantiates
 // gemm_s8_sm90<Epi> inside its own __global__ function with an epilogue that
-// takes the finished integer tile from the registers.
+// takes the finished integer tile from the registers; the epilogues the two
+// share are in int8_ln_sm90.cuh.
 //
 //     C[M, N] = A_i8[M, K] @ W_i8[N, K]^T     (int32, exact)
 //
@@ -50,6 +52,8 @@
 // attention_sm90.cuh; nothing of that header changes.
 #pragma once
 
+#include <type_traits>
+
 #include "attention_sm90.cuh"
 
 namespace mdhs {
@@ -71,13 +75,15 @@ constexpr int THREADS = 256;          // two warpgroups
 constexpr int WARPS = THREADS / 32;
 constexpr uint32_t A_BYTES = BM * BK;
 
-// The two tile widths (the header comment): 128 columns at two blocks an SM, 256 at one.
-template <int BN_>
+// The two tile widths (the header comment): 128 columns at two blocks an SM, 256 at one;
+// the ring's stages, unless an epilogue that keeps a tile of its own in shared memory
+// asks for fewer (StagesOf).
+template <int BN_, int ST_ = BN_ == 128 ? 3 : 4>
 struct Cfg {
   static_assert(BN_ == 128 || BN_ == 256, "tile width");
   static constexpr int BN = BN_;
   static constexpr int BLOCKS_PER_SM = BN_ == 128 ? 2 : 1;
-  static constexpr int ST = BN_ == 128 ? 3 : 4;  // ring stages
+  static constexpr int ST = ST_;  // ring stages
   static constexpr int NACC = BN_ / 2;           // int32 sums a thread holds
   static constexpr uint32_t B_BYTES = BN_ * BK;
   static constexpr uint32_t STAGE_BYTES = A_BYTES + B_BYTES;
@@ -87,6 +93,12 @@ struct Cfg {
   // bytes of alignment slack first)
   static constexpr uint32_t smem_bytes(uint32_t extra) { return 1024 + EXTRA_OFFSET + extra; }
 };
+
+// The ring's stages for an epilogue: its kStages where it names one, else Cfg's.
+template <class Epi, class = void>
+struct StagesOf : std::integral_constant<int, Cfg<Epi::BN>::ST> {};
+template <class Epi>
+struct StagesOf<Epi, std::void_t<decltype(Epi::kStages)>> : std::integral_constant<int, Epi::kStages> {};
 
 // --------------------------------------------------------------------------- PTX helpers
 // One box of a 2-D tensor map (coordinates innermost first) into shared memory;
@@ -244,11 +256,12 @@ __device__ __forceinline__ Sched<BN> make_sched(int M, int N, bool by_rank) {
 //   void init()                                           one thread, before the first sync
 //   void prefetch(const Tile&, int consumer_thread)        each consumer thread, as a tile starts
 //   static constexpr int BN;                              the tile width (Cfg)
+//   static constexpr int kStages;                         optional: the ring's stages (StagesOf)
 //   void operator()(int (&acc)[BN / 2], const Tile&, int cw, int t128)   each thread
 template <class Epi>
 __device__ __forceinline__ void gemm_s8_sm90(const CUtensorMap* ta, const CUtensorMap* tb, int M, int N, int K,
                                              Epi& epi) {
-  using C = Cfg<Epi::BN>;
+  using C = Cfg<Epi::BN, StagesOf<Epi>::value>;
   constexpr int ST = C::ST;
   extern __shared__ __align__(1024) unsigned char s8_smem[];
   unsigned char* base = reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(s8_smem) + 1023) & ~uintptr_t(1023));

@@ -38,6 +38,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops.attention_ablate import MODES, attention_ablate
+from . import trace
 
 B, L, H, D = 256, 128, 12, 64
 HD = H * D
@@ -135,23 +136,18 @@ def timeit(chain: Chain, *args, n: int = 5) -> float:
 def device_split(chain: Chain, *args) -> dict:
     """Device time of one eager run of the chain by torch.profiler, a step:
     the kernel's and the rest's (the q + t passes, the sums, the scalar adds),
-    and the kernel's own time a call. The kernels are those the graph replays."""
-    chain.eager(*args)
-    torch.cuda.synchronize(chain.device)
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        chain.eager(*args)
-        torch.cuda.synchronize(chain.device)
+    and the kernel's own time a call. The kernels are those the graph replays;
+    a trace that holds fewer than ``chain.steps`` launches of the kernel is
+    taken again (``trace.kernel_events``)."""
+    def whole(events):
+        return sum(_KERNEL in e.name for e in events) == chain.steps
+
     kernel_us = other_us = calls = 0
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA or e.is_user_annotation:
-            continue
-        if _KERNEL in e.key:
-            kernel_us, calls = kernel_us + e.self_device_time_total, calls + e.count
+    for e in trace.kernel_events(lambda: chain.eager(*args), complete=whole):
+        if _KERNEL in e.name:
+            kernel_us, calls = kernel_us + e.time_range.elapsed_us(), calls + 1
         else:
-            other_us += e.self_device_time_total
-    if calls != chain.steps:
-        raise RuntimeError(f"profiler saw {calls} launches of {_KERNEL}, expected {chain.steps}")
+            other_us += e.time_range.elapsed_us()
     return {"kernel_device_ms": kernel_us / 1e3 / calls,
             "chain_device_ms_per_step": {"kernel": kernel_us / 1e3 / chain.steps,
                                          "elementwise": other_us / 1e3 / chain.steps}}

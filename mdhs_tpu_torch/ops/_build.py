@@ -33,7 +33,7 @@ BUILD_DIR = _PKG / "build"
 SOURCES = ("gemm.cu", "attention_block.cu", "ffn_block.cu", "int8_gemm.cu", "int8_ffn_block.cu",
            "int8_attention_block.cu", "fused_attention.cu", "shear.cu", "bn_stats.cu", "selective_scan.cu",
            "kan_spline.cu", "flash_attention.cu", "attention_ablate.cu")
-HEADERS = ("common.cuh", "attention_sm90.cuh", "attention_bwd_sm90.cuh", "int8_gemm_sm90.cuh")
+HEADERS = ("common.cuh", "attention_sm90.cuh", "attention_bwd_sm90.cuh", "int8_gemm_sm90.cuh", "int8_ln_sm90.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-lineinfo", "-Xptxas=-v", "-Xcompiler", "-fPIC")
 

@@ -4,9 +4,12 @@
     int8_attention_block:  out = LN(x + deq(rq(MHA(deq(rq(x) @ Wqkv_i8^T) + bqkv)) @ Wo_i8^T) + bo)
 
 Counterpart of ``mdhs_tpu/ops/quant_kernel.py``; the kernels are
-``csrc/int8_ffn_block.cu`` (on the s8 wgmma mainloop ``csrc/int8_gemm_sm90.cuh``)
-and ``csrc/int8_attention_block.cu`` (with ``csrc/int8_gemm.cu``), whose header
-comments have the design. ``rq`` is the
+``csrc/int8_ffn_block.cu`` and ``csrc/int8_attention_block.cu``, whose header
+comments have the design: both run their s8 products on the wgmma mainloop
+``csrc/int8_gemm_sm90.cuh`` and their last product + residual + LayerNorm on
+the cluster epilogue ``csrc/int8_ln_sm90.cuh``, with the row quantize of
+``csrc/int8_gemm.cu``; the attention block's core is ``fused_attention``'s
+Hopper mainloop (``csrc/attention_sm90.cuh``) over the packed qkv. ``rq`` is the
 kernels' row quantization (absmax times float32(1/127), as the JAX kernels'
 ``_rowquant_f32``; ``ops/quant.py::quantize_rows`` divides by 127 instead),
 ``deq`` the float32 rescale ``acc * s_row * s_channel``.
@@ -29,7 +32,6 @@ import torch
 
 from . import _build
 from .attention_block import _layer_norm_f32
-from .attention_block import supports as _attention_block_supports
 from .gelu import gelu
 from .quant import int_matmul
 
@@ -37,6 +39,7 @@ __all__ = [
     "int8_ffn_block", "int8_ffn_block_reference", "supports", "TILE_COLS", "tile_absmax",
     "scale_from_partials", "ffn_hidden_quant_reference",
     "int8_attention_block", "int8_attention_block_reference", "attn_supports",
+    "int8_attention_stages_reference", "launch_int8_attention_block",
 ]
 
 _ACT_CODES = {"erf": 0, "tanh": 1}
@@ -90,12 +93,26 @@ def supports(dtype: torch.dtype, n_rows: int, hidden: int, intermediate: int) ->
 
 
 def attn_supports(dtype: torch.dtype, seq_len: int, hidden: int, num_heads: int) -> bool:
-    """The int8 attention kernel's gate: the attention core is
-    ``attention_block``'s, and its int8 projections take the same widths, so
-    the gate is ``attention_block.supports``: every L whose attention tile fits
-    the 227 KB of shared memory a block may use (L <= 320 at head_dim 64). The
-    TPU's ``128 <= L <= 256`` condition goes, so the preset's seq 256 runs here."""
-    return _attention_block_supports(dtype, seq_len, hidden, num_heads)
+    """The int8 attention kernel's gate, from its kernels' limits on the card
+    rather than TPU VMEM: bf16; ``hidden`` a multiple of 128 up to 1024 (the
+    projections' 128-column tiles and K steps, the LayerNorm cluster of
+    hidden / 128 <= 8 blocks); ``head_dim`` a multiple of 8 up to 128 (the
+    attention core's tensor maps over the thirds of the packed qkv need
+    16-byte rows, and its wgmma accumulators hold two 64-column chunks); and
+    ``1 <= L <= 512``, ``fused_attention``'s gate, since the core streams the
+    keys through shared memory. The TPU's ``128 <= L <= 256`` condition goes,
+    so the preset's seq 256 runs here."""
+    if num_heads <= 0 or hidden % num_heads:
+        return False
+    head_dim = hidden // num_heads
+    return (
+        dtype == torch.bfloat16
+        and hidden % 128 == 0
+        and 0 < hidden <= 1024
+        and head_dim % 8 == 0
+        and head_dim <= 128
+        and 1 <= seq_len <= 512
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -167,25 +184,40 @@ int8_ffn_block.launches = 0
 
 
 # ---------------------------------------------------------------------------
-def int8_attention_block_reference(x, wqkv_i8, sqkv, bqkv, wo_i8, so, bo, gamma, beta, bias,
-                                   num_heads: int, sm_scale: float, ln_eps: float) -> torch.Tensor:
-    """Plain PyTorch version with the kernel's order of roundings: qkv, the
-    softmax probabilities and ctx rounded to ``x.dtype`` where the kernel
-    rounds them; float32 scores and softmax (also under fast_math), float32
-    residual and LayerNorm."""
+def int8_attention_stages_reference(x, wqkv_i8, sqkv, bqkv, wo_i8, so, bo, gamma, beta, bias,
+                                    num_heads: int, sm_scale: float, ln_eps: float):
+    """The plain version's stages, as the kernel stages them: (x_i8 (M, HD) int8,
+    sx (M,) float32, qkv (M, 3 HD), ctx (M, HD), c_i8 (M, HD) int8, sc (M,)
+    float32, out (B, L, HD)), M = B * L, qkv, ctx and out in ``x.dtype``.
+
+    qkv is ``float(x_i8 @ Wqkv_i8^T) * sx * sqkv + bqkv`` in float32, each step
+    rounded on its own, then rounded to ``x.dtype``; the core has float32
+    scores and softmax (also under fast_math), probabilities and ctx rounded to
+    ``x.dtype``: ``fused_attention.attention_reference``'s function on q, k, v,
+    the thirds of qkv; the residual and LayerNorm are float32."""
     B, L, HD = x.shape
     D = HD // num_heads
     dt = x.dtype
     xf = x.float().reshape(B * L, HD)
     x_i8, sx = _rowquant(xf)
-    qkv = (_dequant(x_i8, sx, wqkv_i8, sqkv) + bqkv.float()).to(dt).float().reshape(B, L, 3 * HD)
-    q, k, v = (t.reshape(B, L, num_heads, D).transpose(1, 2) for t in qkv.split(HD, dim=-1))
+    qkv = (_dequant(x_i8, sx, wqkv_i8, sqkv) + bqkv.float()).to(dt)
+    q, k, v = (t.reshape(B, L, num_heads, D).transpose(1, 2)
+               for t in qkv.float().reshape(B, L, 3 * HD).split(HD, dim=-1))
     scores = q @ k.transpose(-1, -2) * sm_scale + bias.float()[:, None, None, :]
     probs = torch.softmax(scores, dim=-1).to(dt).float()
-    ctx = (probs @ v).transpose(1, 2).reshape(B * L, HD).to(dt).float()
-    c_i8, sc = _rowquant(ctx)
+    ctx = (probs @ v).transpose(1, 2).reshape(B * L, HD).to(dt)
+    c_i8, sc = _rowquant(ctx.float())
     y = (xf + _dequant(c_i8, sc, wo_i8, so)) + bo.float()
-    return _layer_norm_f32(y, gamma, beta, ln_eps).to(dt).reshape(B, L, HD)
+    out = _layer_norm_f32(y, gamma, beta, ln_eps).to(dt).reshape(B, L, HD)
+    return x_i8, sx[:, 0], qkv, ctx, c_i8, sc[:, 0], out
+
+
+def int8_attention_block_reference(x, wqkv_i8, sqkv, bqkv, wo_i8, so, bo, gamma, beta, bias,
+                                   num_heads: int, sm_scale: float, ln_eps: float) -> torch.Tensor:
+    """Plain PyTorch version with the kernel's order of roundings
+    (``int8_attention_stages_reference``'s last stage)."""
+    return int8_attention_stages_reference(x, wqkv_i8, sqkv, bqkv, wo_i8, so, bo, gamma, beta, bias,
+                                           num_heads, sm_scale, ln_eps)[-1]
 
 
 def int8_attention_block(x, wqkv_i8, sqkv, bqkv, wo_i8, so, bo, gamma, beta, bias,
@@ -194,6 +226,14 @@ def int8_attention_block(x, wqkv_i8, sqkv, bqkv, wo_i8, so, bo, gamma, beta, bia
     if x.device.type == "cpu":
         return int8_attention_block_reference(x, wqkv_i8, sqkv, bqkv, wo_i8, so, bo, gamma, beta, bias,
                                               num_heads, sm_scale, ln_eps)
+    return launch_int8_attention_block(x, wqkv_i8, sqkv, bqkv, wo_i8, so, bo, gamma, beta, bias,
+                                       num_heads, sm_scale, ln_eps)[0]
+
+
+def launch_int8_attention_block(x, wqkv_i8, sqkv, bqkv, wo_i8, so, bo, gamma, beta, bias,
+                                num_heads: int, sm_scale: float, ln_eps: float):
+    """The kernel on CUDA tensors: (out, x_i8, sx, qkv, ctx), the last four its
+    scratch in the layout of ``int8_attention_stages_reference``."""
     if x.device.type != "cuda":
         raise ValueError(f"int8_attention_block: unsupported device {x.device}")
     B, L, HD = x.shape
@@ -227,7 +267,7 @@ def int8_attention_block(x, wqkv_i8, sqkv, bqkv, wo_i8, so, bo, gamma, beta, bia
         )
     _build.check_launch(lib, err, "int8_attention_block_forward")
     int8_attention_block.launches += 1
-    return out
+    return out, x_q, sx, qkv, ctx
 
 
 int8_attention_block.launches = 0

@@ -197,8 +197,16 @@ def test_int8_ffn_block_raises_outside_its_gate(dev):
         qk.int8_ffn_block(*args)
 
 
+# The int8 attention block (csrc/int8_attention_block.cu): L from 1 to 512 (ragged, inside
+# and at the 128-key tile), the preset's (512, 128); head_dim 32, 64 and 128; the QKV
+# product on 128-column tiles (few rows, or 3 HD not a multiple of 256) and on 256; the
+# LayerNorm cluster from 1 to 8 blocks. Its scratch too: x_i8, sx and qkv are the plain
+# version's bit for bit, ctx within fused_attention's bf16 bound of the plain core on the
+# same qkv, out within the int8 bound; a second launch gives the same bits.
 @pytest.mark.parametrize("B, L, HD, heads", [(2, 16, 128, 2), (3, 100, 128, 4), (2, 128, 768, 12),
-                                             (1, 256, 768, 12)])
+                                             (1, 256, 768, 12), (2, 1, 128, 2), (2, 333, 768, 12),
+                                             (1, 512, 768, 12), (512, 128, 768, 12), (3, 77, 384, 6),
+                                             (2, 100, 1024, 8)])
 def test_int8_attention_block_kernel_matches_plain(dev, B, L, HD, heads):
     rng = np.random.default_rng(L)
     x = _randn(rng, (B, L, HD), 1.0, dev)
@@ -208,10 +216,26 @@ def test_int8_attention_block_kernel_matches_plain(dev, B, L, HD, heads):
             _f32(rng, (HD,), 0.1, dev, 1.0), _f32(rng, (HD,), 0.1, dev), _bias(rng, B, L, dev),
             heads, float(HD // heads) ** -0.5, 1e-12)
     n = qk.int8_attention_block.launches
-    out = qk.int8_attention_block(*args)
+    out, x_q, sx, qkv, ctx = qk.launch_int8_attention_block(*args)
     torch.cuda.synchronize()
     assert qk.int8_attention_block.launches == n + 1
-    _close_int8(out, qk.int8_attention_block_reference(*args))
+    x_q_ref, sx_ref, qkv_ref, ctx_ref, _, _, out_ref = qk.int8_attention_stages_reference(*args)
+    assert torch.equal(x_q, x_q_ref) and torch.equal(sx, sx_ref) and torch.equal(qkv, qkv_ref)
+    _close(ctx, ctx_ref)
+    _close_int8(out, out_ref)
+    again = qk.launch_int8_attention_block(*args)
+    assert all(torch.equal(a, b) for a, b in zip(again, (out, x_q, sx, qkv, ctx)))
+
+
+def test_int8_attention_block_raises_outside_its_gate(dev):
+    rng = np.random.default_rng(0)
+    for B, L, HD, heads in ((1, 513, 768, 12), (1, 64, 1152, 12), (1, 64, 384, 32)):
+        x = _randn(rng, (B, L, HD), 1.0, dev)
+        w, s = quantize_weight(_randn(rng, (3 * HD, HD), 0.03, dev))
+        v = _f32(rng, (HD,), 0.1, dev)
+        with pytest.raises(ValueError, match="unsupported"):
+            qk.int8_attention_block(x, w, s, _f32(rng, (3 * HD,), 0.01, dev), w[:HD], s[:HD], v, v, v,
+                                    _bias(rng, B, L, dev), heads, 0.125, 1e-12)
 
 
 # L past, inside and at the 128-key tile (1, 100, 333, 500, 512); head_dim 16, 32, 64, 128, and 40 and 72,
@@ -774,6 +798,7 @@ def test_bert_fast_math_makes_no_host_copy(dev, impl):
 # so each is held to one bf16 ulp of its own: |d| <= 2^-7 |p| + 2^-24. aligned writes
 # head_dim columns.
 from mdhs_tpu_torch.diagnostics import attention_ablate as diag  # noqa: E402
+from mdhs_tpu_torch.diagnostics import trace  # noqa: E402
 from mdhs_tpu_torch.ops import attention_ablate as aa  # noqa: E402
 
 # the TPU script's widths at batch 4; ragged L 100 and 200 (two key tiles: nopv keeps tile 0's
@@ -874,3 +899,17 @@ def test_ablation_chain_replays_its_graph(dev):
     assert torch.equal(first, again) and torch.equal(first, chain.eager(q, k, v, bias))
     with pytest.raises(ValueError, match="captured on other tensors"):
         chain(q.clone(), k, v, bias)
+
+
+def test_ablation_device_split_traces_every_launch(dev):
+    """The profiler's records of the chain's eager run hold all K_STEPS
+    launches of the kernel, trace after trace, without a second try; the
+    split's parts are positive."""
+    q, k, v, bias, heads, _ = _ablate_args(8, 128, 768, 12, dev)
+    bias = torch.zeros_like(bias)
+    chain = diag.build("full", dev, 8, 128, 12, 64)
+    for _ in range(20):
+        events = trace.kernel_events(lambda: chain.eager(q, k, v, bias))
+        assert sum("attention_ablate_kernel" in e.name for e in events) == chain.steps
+    split = diag.device_split(chain, q, k, v, bias)
+    assert split["kernel_device_ms"] > 0 and min(split["chain_device_ms_per_step"].values()) > 0

@@ -212,16 +212,70 @@ def test_int8_attention_block_matches_jax_kernel(entry):
     _within(out.float().numpy(), ref_r)
 
 
+def _attn_case(rng, B, L, HD, dtype):
+    """The port's int8 attention arguments, made with numpy: x, nn.Linear-layout
+    weights quantized by the port, float32 biases and LayerNorm, a key bias
+    padding the last keys of row 0."""
+    x = torch.tensor(rng.normal(size=(B, L, HD)).astype(np.float32)).to(dtype)
+    wqkv, sqkv = tquant.quantize_weight(_t(rng.normal(size=(3 * HD, HD)) * 0.05))
+    wo, so = tquant.quantize_weight(_t(rng.normal(size=(HD, HD)) * 0.05))
+    bias = np.zeros((B, L), np.float32)
+    bias[0, L - 3:] = -1e9
+    return (x, wqkv, sqkv, _t(rng.normal(size=(3 * HD,)) * 0.1), wo, so, _t(rng.normal(size=(HD,)) * 0.1),
+            _t(rng.normal(size=(HD,)) * 0.2 + 1.0), _t(rng.normal(size=(HD,)) * 0.1), _t(bias))
+
+
+# The kernel runs the int8 core on fused_attention's mainloop over the thirds of
+# qkv: the plain versions of the two compute the same function, bit for bit.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B, L, HD, heads", [(2, 128, 256, 4), (3, 37, 128, 2)])
+def test_int8_attention_core_is_fused_attentions_plain_version(dtype, B, L, HD, heads):
+    from mdhs_tpu_torch.ops.fused_attention import attention_reference
+
+    args = _attn_case(np.random.default_rng(L), B, L, HD, dtype)
+    sm = (HD // heads) ** -0.5
+    _, _, qkv, ctx, _, _, out = tqk.int8_attention_stages_reference(*args, heads, sm, LN_EPS)
+    q, k, v = qkv.reshape(B, L, 3 * HD).split(HD, dim=-1)  # column windows of the same qkv
+    ref = attention_reference(q, k, v, args[-1], heads, sm)
+    assert ctx.dtype == dtype and torch.equal(ctx, ref.reshape(B * L, HD))
+    assert torch.equal(out, tqk.int8_attention_block_reference(*args, heads, sm, LN_EPS))
+
+
+# The QKV stage is the plain version's float32 (float(acc) * sx) * sqkv + bqkv, each
+# step rounded on its own (the kernel's epilogue writes it with __fmul_rn / __fadd_rn),
+# then rounded to bf16; x's row quantization is the JAX kernel's _rowquant_f32.
+@pytest.mark.parametrize("B, L, HD", [(2, 64, 256), (1, 30, 128)])
+def test_int8_qkv_stage_is_the_dequant_plus_bias_in_order(B, L, HD):
+    rng = np.random.default_rng(HD + L)
+    args = _attn_case(rng, B, L, HD, torch.bfloat16)
+    x, wqkv, sqkv, bqkv = args[:4]
+    x_i8, sx, qkv, *_ = tqk.int8_attention_stages_reference(*args, 2, 0.125, LN_EPS)
+    ref_q, ref_s = jqk._rowquant_f32(jnp.asarray(x.float().reshape(B * L, HD).numpy()))
+    np.testing.assert_array_equal(x_i8.numpy(), np.asarray(ref_q))
+    np.testing.assert_array_equal(sx.numpy(), np.asarray(ref_s)[:, 0])
+    acc = (x_i8.numpy().astype(np.int64) @ wqkv.numpy().astype(np.int64).T).astype(np.float32)  # exact sums
+    f32 = np.float32
+    v = np.add(np.multiply(np.multiply(acc, sx.numpy()[:, None], dtype=f32), sqkv.numpy()[None, :], dtype=f32),
+               bqkv.numpy()[None, :], dtype=f32)
+    assert qkv.dtype == torch.bfloat16 and qkv.shape == (B * L, 3 * HD)
+    assert torch.equal(qkv, torch.from_numpy(v).to(torch.bfloat16))
+
+
 @pytest.mark.parametrize("args, ok", [
     ((torch.bfloat16, 128, 768, 12), True),   # the preset at seq 128
     ((torch.bfloat16, 256, 768, 12), True),   # the preset's own seq 256: the TPU gate rejected it
     ((torch.bfloat16, 100, 768, 12), True),   # ragged L: the attention core masks it
     ((torch.bfloat16, 1, 768, 12), True),
-    ((torch.bfloat16, 320, 768, 12), True),   # largest L whose attention tile fits 227 KB
-    ((torch.bfloat16, 384, 768, 12), False),
+    ((torch.bfloat16, 320, 768, 12), True),
+    ((torch.bfloat16, 384, 768, 12), True),   # the core streams its keys: fused_attention's 1 <= L <= 512
+    ((torch.bfloat16, 512, 768, 12), True),
+    ((torch.bfloat16, 513, 768, 12), False),
+    ((torch.bfloat16, 128, 1024, 8), True),   # the widest LayerNorm cluster, 8 blocks; head_dim 128
+    ((torch.bfloat16, 128, 1152, 12), False),  # wider than the LayerNorm cluster
+    ((torch.bfloat16, 128, 1088, 8), False),  # head_dim 136, past the core's two 64-column chunks
     ((torch.float32, 128, 768, 12), False),
     ((torch.bfloat16, 128, 64, 4), False),    # hidden not a multiple of 128
-    ((torch.bfloat16, 128, 384, 32), False),  # head_dim 12
+    ((torch.bfloat16, 128, 384, 32), False),  # head_dim 12: not a multiple of 8
 ])
 def test_int8_attention_supports(args, ok):
     assert tqk.attn_supports(*args) is ok
