@@ -41,14 +41,24 @@ Phases, each printing JSON lines:
               (the flash kernels, fused_attention's and the five
               ablations') print on a build line, and beside them those of
               int8_ffn_block's s8 wgmma kernels (ffn_s8_*_kernel<act, tile
-              width>, csrc/int8_gemm_sm90.cuh), of shear_sublane_kernel and
+              width>, csrc/gemm_sm90.cuh), of shear_sublane_kernel and
               of int8_attention_block's kernels (attn_s8_qkv_kernel<tile
               width>, attn_s8_out_ln_kernel, and int8_attention_core_kernel<NC>,
-              fused_attention_kernel<NC>'s code over the packed qkv);
+              fused_attention_kernel<NC>'s code over the packed qkv), and of
+              the bf16 sublayers' kernels (bf16_tile_gemm_kernel<act + 1,
+              tile width>, bf16_ln_gemm_kernel, the split plan's
+              bf16_partial_gemm_kernel and row passes, and
+              attention_block_core_kernel<NC>);
               int8_attention_block at (8, 128), (8, 256) and the preset's
               (512, 128) and (512, 256), its device time split by stage
               (row quantize of x and ctx, QKV product, attention core, output
-              projection + LayerNorm)
+              projection + LayerNorm); attention_block at (1, 128) (batch 1,
+              the split plan), (8, 128), (8, 256) and (32, 128), its device
+              time split by stage (QKV product, core, output projection +
+              LayerNorm), and ffn_block at N 128 and 4096, each beside its
+              two products alone on torch.matmul (cuBLAS: gemm_library_ms,
+              a yardstick of its GEMMs, since no one PyTorch call computes
+              a sublayer)
   4. ablate   the attention ablation (ops/attention_ablate.py: the fused
               core with one stage removed, five compile-time variants of
               its mainloop) at the TPU script's shape, B 256, L 128, 12
@@ -146,6 +156,10 @@ Phases, each printing JSON lines:
               plain flash op (loss within 1e-2 relative, BERT gradient cosine
               >= 0.99); step ms in turns against the same preset under "auto",
               and both steps' device breakdowns
+Every device breakdown (device_profile) comes from a trace checked to hold
+whole calls: a census of one call against two names the kernels every call
+launches, and a trace that lost a record of one is taken again; the census,
+the records and the wrappers' launches of one call print beside it.
 Every served phase (slice, preset, seq512, flash, baseline) runs one warm
 forward from device-resident inputs under torch.cuda.set_sync_debug_mode(
 "error") ("sync_free"): a call that makes the host wait on the device fails
@@ -314,8 +328,8 @@ def diff(out: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
 
 
 # kernel family <- name fragments, first match wins (cuDNN's implicit-GEMM
-# convolutions are "fprop" kernels, so they are tested before cuBLAS's GEMMs;
-# fused_attention_kernel before attention_kernel)
+# convolutions are "fprop" kernels, so they are tested before cuBLAS's GEMMs, and
+# the port's own GEMM kernels before both)
 _FAMILIES = {
     # int8_ffn_block's own kernels (csrc/int8_ffn_block.cu): GEMM1's two passes, the row
     # scale, GEMM2 + LayerNorm; its row quantize of x is in row_quantize_kernel
@@ -332,10 +346,15 @@ _FAMILIES = {
     "shear_kernel": ("shear_sublane_kernel",),
     "bn_stats_kernel": ("bn_stats_",),
     "row_quantize_kernel": ("row_quantize_kernel",),
-    "gemm_residual_ln_kernel": ("gemm_residual_ln_kernel",),
-    "gemm_bias_kernel": ("gemm_bias_kernel",),
+    # the bf16 sublayers' own kernels (csrc/bf16_gemm.cu, csrc/attention_block.cu): the tile GEMM (QKV
+    # product, FFN GEMM1) with its split row pass, the LayerNorm GEMM (both output products) with its,
+    # the split products' partial tiles, the attention block's core (fused_attention's mainloop over the
+    # packed qkv)
+    "bf16_tile_gemm": ("bf16_tile_gemm_kernel", "bias_act_rows_kernel"),
+    "bf16_ln_gemm": ("bf16_ln_gemm_kernel", "ln_rows_kernel"),
+    "bf16_split_partials": ("bf16_partial_gemm_kernel",),
+    "attention_block_core": ("attention_block_core_kernel",),
     "fused_attention_kernel": ("fused_attention_kernel",),
-    "attention_kernel": ("attention_kernel",),
     "cudnn_conv": ("fprop", "dgrad", "wgrad", "conv"),
     "batch_norm": ("batch_norm",),
     "cublas_gemm": ("nvjet", "gemm", "cublas"),
@@ -350,25 +369,28 @@ _FAMILIES = {
 }
 
 
-def _device_kernels(fn, reps: int, whole: bool = False) -> list:
-    """(name, device ms per call, launches per call) of every CUDA kernel fn
-    runs, from torch.profiler over ``reps`` calls after one warm-up call.
-    ``whole``: fn launches the same kernels every call, and a trace whose
-    counts say otherwise lost records and is taken again."""
-    return trace.by_kernel(trace.kernel_events(fn, reps, trace.whole_calls(reps) if whole else None), reps)
-
-
 def device_profile(fn, forward_ms: float, reps: int = 3, top: int = 0) -> dict:
     """Device time per call by kernel family (torch.profiler, CUDA events
     only), its share of the unprofiled CUDA-event time of the call, and the
-    ``top`` kernels by device time."""
-    kernels = _device_kernels(fn, reps)
+    ``top`` kernels by device time; from a trace checked to hold whole calls
+    (trace.whole_trace: the census of one call against two names the kernels
+    every call launches, and a trace that lost a record of one is taken
+    again). The census and the wrappers' launches of one call go beside it."""
+    saved = read_counts()
+    zero_counts()
+    fn()
+    launches = {k: v for k, v in read_counts().items() if v}
+    for name, (wrapper, _, _) in KERNELS.items():
+        wrapper.launches = saved[name]
+    events, census = trace.whole_trace(fn, reps)
+    kernels = trace.by_kernel(events, reps)
     by = dict.fromkeys([*_FAMILIES, "other"], 0.0)
     for name, ms, _ in kernels:
         low = name.lower()
         by[next((f for f, frags in _FAMILIES.items() if any(x in low for x in frags)), "other")] += ms
     busy = sum(by.values())
-    out = {"kernel_ms": busy, "busy_share": busy / forward_ms, "by_family_ms": by}
+    out = {"kernel_ms": busy, "busy_share": busy / forward_ms, "by_family_ms": by,
+           "records_a_call": len(events) / reps, "census": census, "launches_a_call": launches}
     if top:
         out["top_kernels"] = [{"name": n[:120], "ms": ms, "launches": c}
                               for n, ms, c in sorted(kernels, key=lambda k: -k[1])[:top]]
@@ -405,10 +427,43 @@ def int8_attention_stages(fn, reps: int = 10, blocks: int = 1, alone: bool = Tru
     return out
 
 
+def attention_block_stages(fn, reps: int = 10) -> dict:
+    """attention_block's device time a call by stage: the QKV product (its tile GEMM, or its
+    split's row pass), the core, the output projection + LayerNorm (its clustered LayerNorm GEMM,
+    or its split's row pass); a split product's partial tiles count for the stage of the row pass
+    that follows them. fn is one call of the block and nothing else."""
+    stage_of = {"bf16_tile_gemm_kernel": "qkv", "bias_act_rows_kernel": "qkv", "attention_block_core_kernel": "core",
+                "bf16_ln_gemm_kernel": "out_ln", "ln_rows_kernel": "out_ln"}
+    out, pending = dict.fromkeys(("qkv", "core", "out_ln"), 0.0), 0.0
+    for e in trace.kernel_events(fn, reps, trace.whole_calls(reps)):
+        ms = e.time_range.elapsed_us() / 1e3 / reps
+        if "bf16_partial_gemm_kernel" in e.name:
+            pending += ms
+            continue
+        stage = next((s for frag, s in stage_of.items() if frag in e.name), None)
+        check(stage is not None, f"attention_block: kernel {e.name} of no stage")
+        out[stage] += ms + pending
+        pending = 0.0
+    check(pending == 0.0, "attention_block: partial tiles with no row pass after them")
+    return out
+
+
+def _sublayer_products(name, args):
+    """The bf16 sublayer's two matrix products alone on torch.matmul (cuBLAS), on its inputs'
+    shapes: the yardstick of its GEMMs (no one PyTorch call computes the sublayer)."""
+    if name == "attention_block":
+        x, wqkv, _, wo = args[:4]
+        x2 = x.view(-1, x.shape[-1])
+        return lambda: (torch.matmul(x2, wqkv.t()), torch.matmul(x2, wo.t()))
+    x, w1, _, w2 = args[:4]
+    h = torch.empty((x.shape[0], w1.shape[0]), dtype=x.dtype, device=x.device).normal_(0.0, 0.1)
+    return lambda: (torch.matmul(x, w1.t()), torch.matmul(h, w2.t()))
+
+
 def kernel_device_ms(fn, reps: int = 10) -> float:
     """Device time of one call (the sum of its kernels' times), without the
     host's launch overhead that CUDA events around a short call include."""
-    return sum(ms for _, ms, _ in _device_kernels(fn, reps, whole=True))
+    return sum(ms for _, ms, _ in trace.by_kernel(trace.kernel_events(fn, reps, trace.whole_calls(reps)), reps))
 
 
 # --- bounds: the least time the card could take for each kernel's work -------
@@ -570,12 +625,17 @@ def phase_build() -> None:
     # the attention kernels' ptxas report (the consumers run at setmaxnreg 240, the producer
     # at 24); the int8 FFN's s8 wgmma kernels (ffn_s8_*_kernel<act, tile width>) and the shear;
     # the int8 attention block's (attn_s8_qkv_kernel<tile width>, attn_s8_out_ln_kernel) and its
-    # core, int8_attention_core_kernel<NC>, fused_attention_kernel<NC>'s code
+    # core, int8_attention_core_kernel<NC>, fused_attention_kernel<NC>'s code; the bf16 sublayers'
+    # (bf16_tile_gemm_kernel<act + 1, tile width>, bf16_ln_gemm_kernel, the split's
+    # bf16_partial_gemm_kernel and row passes, attention_block_core_kernel<NC>)
     log = Path(str(path) + ".log").read_text()
     emit({"phase": "build",
           "ptxas_attention": _ptxas(log, ("flash_", "fused_attention_kernel", "attention_ablate_kernel")),
           "ptxas_int8_ffn_and_shear": _ptxas(log, ("ffn_s8_", "ffn_row_scale_kernel", "shear_sublane_kernel")),
-          "ptxas_int8_attention": _ptxas(log, ("attn_s8_", "int8_attention_core_kernel"))})
+          "ptxas_int8_attention": _ptxas(log, ("attn_s8_", "int8_attention_core_kernel")),
+          "ptxas_bf16_sublayers": _ptxas(log, ("bf16_tile_gemm_kernel", "bf16_ln_gemm_kernel", "bf16_partial_gemm_kernel",
+                                               "bias_act_rows_kernel", "ln_rows_kernel",
+                                               "attention_block_core_kernel"))})
 
 
 def _rand(rng, shape, scale, dev):
@@ -718,10 +778,13 @@ def _sdpa_calls(q, k, v, seg, do):
 def _kernel_cases(dev, rng, seed):
     """(name, shape, plain, args, main path?, (bound_ms, bound_by), library call or None, judge)."""
     cases = []
-    for B, L in ((8, 128), (8, 256), (BATCH, SEQ)):
-        args = (_rand(rng, (B, L, HD), 1.0, dev), _rand(rng, (3 * HD, HD), 0.03, dev),
-                _rand(rng, (3 * HD,), 0.01, dev), _rand(rng, (HD, HD), 0.03, dev), _rand(rng, (HD,), 0.01, dev),
-                (1.0 + _rand(rng, (HD,), 0.1, dev)).contiguous(), _rand(rng, (HD,), 0.1, dev),
+    # batch 1 (the p50 metric's sublayer, on the split plan) draws from a generator of its own, so the
+    # cases and phases after it get the inputs they got before it was added
+    for B, L, g in ((1, SEQ, np.random.default_rng([seed, 1, SEQ])), (8, 128, rng), (8, 256, rng),
+                    (BATCH, SEQ, rng)):
+        args = (_rand(g, (B, L, HD), 1.0, dev), _rand(g, (3 * HD, HD), 0.03, dev),
+                _rand(g, (3 * HD,), 0.01, dev), _rand(g, (HD, HD), 0.03, dev), _rand(g, (HD,), 0.01, dev),
+                (1.0 + _rand(g, (HD,), 0.1, dev)).contiguous(), _rand(g, (HD,), 0.1, dev),
                 _key_bias(B, L, 28, dev), HEADS, 0.125, 1e-12)
         cases.append(("attention_block", f"B={B},L={L}", ab.attention_block_reference, args,
                       (B, L) == (BATCH, SEQ), bound_attention_block(B, L), None, judge_bf16))
@@ -873,6 +936,12 @@ def phase_kernels(dev, rng, seed: int) -> dict:
                 "library_device_ms": library_device_ms}
         if name == "int8_attention_block":
             line["device_ms_by_stage"] = int8_attention_stages(lambda: kernel(*args))
+        if name == "attention_block":
+            line["device_ms_by_stage"] = attention_block_stages(lambda: kernel(*args))
+        if name in ("attention_block", "ffn_block"):
+            products = _sublayer_products(name, args)
+            line.update(gemm_library="torch.matmul (cuBLAS) of the sublayer's two products alone",
+                        gemm_library_ms=cuda_ms(products), gemm_library_device_ms=kernel_device_ms(products))
         emit(line)
         s = summary.setdefault(name, {"max_abs_err": 0.0})
         s["max_abs_err"] = max(s["max_abs_err"], mx)

@@ -2,7 +2,7 @@
 // (x before their first products, ctx before the attention block's output
 // projection), the piece the TPU kernels ran inside one grid step on the VPU
 // (mdhs_tpu/ops/quant_kernel.py::_rowquant_f32). The sublayers' s8 products run
-// on the wgmma mainloop of int8_gemm_sm90.cuh.
+// on the wgmma mainloop of gemm_sm90.cuh.
 //
 // What bounds it on the H100: it reads a bf16 row and writes its int8 values
 // and one float32 scale, 3 bytes an element, at the memory rate.

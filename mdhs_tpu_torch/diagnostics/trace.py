@@ -20,14 +20,13 @@ PAD_S = 0.02
 TRIES = 3
 
 
-def whole_calls(reps: int) -> Callable[[list], bool]:
+def whole_calls(reps: int, irregular=()) -> Callable[[list], bool]:
     """The check for ``reps`` calls of a function that launches the same
-    kernels every call: each kernel's record count is a multiple of ``reps``."""
+    kernels every call: each kernel's record count is a multiple of ``reps``.
+    Kernels named in ``irregular`` (a census found their count varying from
+    call to call) are left out of it."""
     def check(events: list) -> bool:
-        counts: dict[str, int] = {}
-        for e in events:
-            counts[e.name] = counts.get(e.name, 0) + 1
-        return all(n % reps == 0 for n in counts.values())
+        return all(n % reps == 0 for name, n in counts(events).items() if name not in irregular)
 
     return check
 
@@ -56,6 +55,33 @@ def kernel_events(fn, reps: int = 1, complete: Callable[[list], bool] | None = N
             return events
     raise RuntimeError(f"the profiler lost kernel records in each of {TRIES} traces; the last held "
                        f"{len(events)}")
+
+
+def counts(events: list) -> dict[str, int]:
+    """Records of each kernel name in a trace."""
+    out: dict[str, int] = {}
+    for e in events:
+        out[e.name] = out.get(e.name, 0) + 1
+    return out
+
+
+def census(fn) -> dict:
+    """One call of ``fn`` and two calls, each traced once: the records of each
+    trace and every kernel name whose count in the two calls is not twice its
+    count in the one, with both counts. A kernel that ``fn`` launches on some
+    calls and not on others shows here, and so does a record the profiler lost."""
+    one, two = counts(kernel_events(fn, 1)), counts(kernel_events(fn, 2))
+    odd = {n: [one.get(n, 0), two.get(n, 0)] for n in sorted(set(one) | set(two)) if two.get(n, 0) != 2 * one.get(n, 0)}
+    return {"records_one": sum(one.values()), "records_two": sum(two.values()), "irregular": odd}
+
+
+def whole_trace(fn, reps: int) -> tuple[list, dict]:
+    """The kernel records of ``reps`` calls of ``fn`` from a trace that passed
+    ``whole_calls``, and the census that says which kernels it checks: those
+    whose count in two calls was twice their count in one. A trace that lost
+    a record of one of them is taken again (``kernel_events``)."""
+    c = census(fn)
+    return kernel_events(fn, reps, whole_calls(reps, set(c["irregular"]))), c
 
 
 def by_kernel(events: list, reps: int) -> list[tuple[str, float, float]]:

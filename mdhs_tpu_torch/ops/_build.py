@@ -30,10 +30,10 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("gemm.cu", "attention_block.cu", "ffn_block.cu", "int8_gemm.cu", "int8_ffn_block.cu",
+SOURCES = ("bf16_gemm.cu", "attention_block.cu", "ffn_block.cu", "int8_gemm.cu", "int8_ffn_block.cu",
            "int8_attention_block.cu", "fused_attention.cu", "shear.cu", "bn_stats.cu", "selective_scan.cu",
            "kan_spline.cu", "flash_attention.cu", "attention_ablate.cu")
-HEADERS = ("common.cuh", "attention_sm90.cuh", "attention_bwd_sm90.cuh", "int8_gemm_sm90.cuh", "int8_ln_sm90.cuh")
+HEADERS = ("common.cuh", "attention_sm90.cuh", "attention_bwd_sm90.cuh", "gemm_sm90.cuh", "epi_sm90.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-lineinfo", "-Xptxas=-v", "-Xcompiler", "-fPIC")
 
@@ -41,10 +41,15 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # x, wqkv, bqkv, wo, bo, gamma, beta, bias, qkv, ctx, out, B, L, HD, heads, scale, eps, stream
-    "attention_block_forward": [_P] * 11 + [_I] * 4 + [_F, _F, _P],
-    # x, w1, b1, w2, b2, gamma, beta, h, out, N, H, Di, eps, act, stream
-    "ffn_block_forward": [_P] * 9 + [_I] * 3 + [_F, _I, _P],
+    # x, wqkv, bqkv, wo, bo, gamma, beta, bias, qkv, ctx, work, out, B, L, HD, heads, scale, eps,
+    # the two products' plans (width, splits, cluster), stream
+    "attention_block_forward": [_P] * 12 + [_I] * 4 + [_F, _F] + [_I] * 6 + [_P],
+    # x, w1, b1, w2, b2, gamma, beta, h, work, out, N, H, Di, eps, act, the two plans, stream
+    "ffn_block_forward": [_P] * 10 + [_I] * 3 + [_F, _I] + [_I] * 6 + [_P],
+    # A, W, bias, C, work, M, N, K, act, width, splits, cluster, stream
+    "bf16_tile_gemm_forward": [_P] * 5 + [_I] * 7 + [_P],
+    # A, W, bias, resid, gamma, beta, out, work, M, H, K, eps, width, splits, cluster, stream
+    "bf16_ln_gemm_forward": [_P] * 8 + [_I] * 3 + [_F] + [_I] * 3 + [_P],
     # x, w1, s1, b1, w2, s2, b2, gamma, beta, x_q, sx, part, h_q, sh, out, N, H, Di, eps, act, stream
     "int8_ffn_block_forward": [_P] * 15 + [_I] * 3 + [_F, _I, _P],
     # x, wqkv, sqkv, bqkv, wo, so, bo, gamma, beta, bias, x_q, sx, qkv, ctx, c_q, sc, out,

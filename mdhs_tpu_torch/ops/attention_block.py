@@ -3,7 +3,10 @@
     out = LayerNorm(x + MHA(x @ Wqkv^T + bqkv; bias) @ Wo^T + bo)
 
 Counterpart of ``mdhs_tpu/ops/attention_block.py``; the kernel is
-``csrc/attention_block.cu`` (its header comment has the design). Weights are
+``csrc/attention_block.cu`` (its header comment has the design): the QKV
+product and the output projection + LayerNorm on the bf16 wgmma mainloop
+(``csrc/bf16_gemm.cu``), each on the plan ``ops/bf16_gemm.py`` makes, and the
+core on ``fused_attention``'s Hopper mainloop over the packed qkv. Weights are
 in nn.Linear layout: ``wqkv`` is ``(3*HD, HD)`` = [Wq; Wk; Wv], ``wo`` is
 ``(HD, HD)``.
 
@@ -17,35 +20,29 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from . import bf16_gemm
+from .bf16_gemm import layer_norm_f32
 
-__all__ = ["attention_block", "attention_block_reference", "supports"]
+__all__ = ["attention_block", "attention_block_reference", "supports", "plans"]
 
-_QT = 64  # query rows per block (csrc/attention_block.cu: at::QT)
-
-
-def _align128(n: int) -> int:
-    return (n + 127) // 128 * 128
-
-
-def _smem_bytes(seq_len: int, head_dim: int) -> int:
-    """Shared memory of one attention block: csrc/attention_block.cu::attn_plan."""
-    Lp = (seq_len + 15) // 16 * 16
-    Dp = (head_dim + 15) // 16 * 16
-    ldk, lds, ldp = Dp + 8, max(Lp, Dp) + 4, Lp + 8
-    off = _align128(_QT * ldk * 2)       # Q
-    off = _align128(off + Lp * ldk * 2)  # K
-    off = _align128(off + Lp * ldk * 2)  # V
-    off = _align128(off + _QT * lds * 4)  # scores, float32
-    return _align128(off + _QT * ldp * 2)  # probabilities, bf16
+# The longest L the block takes at each head_dim, by ceil(head_dim / 16): the
+# lengths whose score tile fit the 227 KB of shared memory of the block's first
+# design (a whole head's K and V and a 64 x L float32 score tile). The core is
+# now fused_attention's, which takes any L up to 512, but the limit stays: it
+# is the route BERT takes (models/bert.py::_kernel_plan), so seq 512, and
+# every L past these, stays on fused_attention as JAX routes it. Widening it
+# is a decision of its own (ROADMAP.md).
+_MAX_SEQ = {1: 464, 2: 400, 3: 352, 4: 320, 5: 288, 6: 256, 7: 240, 8: 224}
 
 
 def supports(dtype: torch.dtype, seq_len: int, hidden: int, num_heads: int) -> bool:
     """The kernel's own gate, from the card's limits rather than TPU VMEM.
 
-    bf16 only; ``hidden == num_heads * head_dim`` with ``head_dim % 8 == 0``;
-    ``hidden`` a multiple of 128 up to 1024 (the GEMM tiles and the
-    row-LayerNorm block); and every L whose attention tile fits the 227 KB of
-    shared memory a block may use (L <= 320 at head_dim 64).
+    bf16 only; ``hidden == num_heads * head_dim`` with ``head_dim % 8 == 0``
+    and ``head_dim <= 128`` (the core's two 64-column chunks); ``hidden`` a
+    multiple of 128 up to 1024 (the GEMM tiles and the LayerNorm GEMM's
+    cluster of hidden / 128 blocks); and ``1 <= L <= _MAX_SEQ`` (L <= 320 at
+    head_dim 64).
     """
     if num_heads <= 0 or hidden % num_heads:
         return False
@@ -53,18 +50,18 @@ def supports(dtype: torch.dtype, seq_len: int, hidden: int, num_heads: int) -> b
     return (
         dtype == torch.bfloat16
         and head_dim % 8 == 0
+        and head_dim <= 128
         and hidden % 128 == 0
         and hidden <= 1024
-        and seq_len >= 1
-        and _smem_bytes(seq_len, head_dim) <= 232448
+        and 1 <= seq_len <= _MAX_SEQ.get(-(-head_dim // 16), 0)
     )
 
 
-def _layer_norm_f32(y: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float) -> torch.Tensor:
-    mu = y.mean(dim=-1, keepdim=True)
-    yc = y - mu
-    var = (yc * yc).mean(dim=-1, keepdim=True)
-    return yc * torch.rsqrt(var + eps) * gamma.float() + beta.float()
+def plans(rows: int, hidden: int, sms: int) -> tuple[bf16_gemm.Plan, bf16_gemm.Plan]:
+    """The launch plans of the QKV product and of the output projection +
+    LayerNorm, at ``rows`` = B * L."""
+    return (bf16_gemm.plan(rows, 3 * hidden, hidden, False, sms),
+            bf16_gemm.plan(rows, hidden, hidden, True, sms))
 
 
 def attention_block_reference(x, wqkv, bqkv, wo, bo, gamma, beta, bias,
@@ -85,7 +82,7 @@ def attention_block_reference(x, wqkv, bqkv, wo, bo, gamma, beta, bias,
     probs = torch.softmax(scores, dim=-1).to(dt).float()
     ctx = (probs @ v).transpose(1, 2).reshape(B, L, HD).to(dt).float()
     y = xf + ctx @ wo.float().t() + bo.float()
-    return _layer_norm_f32(y, gamma, beta, ln_eps).to(dt)
+    return layer_norm_f32(y, gamma, beta, ln_eps).to(dt)
 
 
 def attention_block(x, wqkv, bqkv, wo, bo, gamma, beta, bias,
@@ -108,15 +105,19 @@ def attention_block(x, wqkv, bqkv, wo, bo, gamma, beta, bias,
         _build.require(t, name, shape, dt, dev)
     _build.require(bias, "bias", (B, L), torch.float32, dev)
     lib = _build.load_library()
-    qkv = torch.empty((B * L, 3 * HD), dtype=dt, device=dev)
-    ctx = torch.empty((B * L, HD), dtype=dt, device=dev)
+    M = B * L
+    p_qkv, p_out = plans(M, HD, bf16_gemm.sm_count(dev))
+    qkv = torch.empty((M, 3 * HD), dtype=dt, device=dev)
+    ctx = torch.empty((M, HD), dtype=dt, device=dev)
+    work = max(p_qkv.workspace(M, 3 * HD), p_out.workspace(M, HD))
+    ws = torch.empty((work,), dtype=torch.float32, device=dev) if work else None
     out = torch.empty_like(x)
     with torch.cuda.device(dev):
         err = lib.attention_block_forward(
             x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wo.data_ptr(), bo.data_ptr(),
             gamma.data_ptr(), beta.data_ptr(), bias.data_ptr(), qkv.data_ptr(), ctx.data_ptr(),
-            out.data_ptr(), B, L, HD, num_heads, float(sm_scale), float(ln_eps),
-            _build.stream_of(dev),
+            ws.data_ptr() if ws is not None else None, out.data_ptr(), B, L, HD, num_heads,
+            float(sm_scale), float(ln_eps), *p_qkv.args(), *p_out.args(), _build.stream_of(dev),
         )
     _build.check_launch(lib, err, "attention_block_forward")
     attention_block.launches += 1

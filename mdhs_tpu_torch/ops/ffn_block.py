@@ -3,7 +3,9 @@
     out = LayerNorm(x + gelu(x @ W1^T + b1) @ W2^T + b2)
 
 Counterpart of ``mdhs_tpu/ops/ffn_block.py``; the kernel is
-``csrc/ffn_block.cu``. Weights are in nn.Linear layout: ``w1`` is
+``csrc/ffn_block.cu`` (its header comment has the design): GEMM1 + bias +
+GELU and GEMM2 + residual + LayerNorm on the bf16 wgmma mainloop
+(``csrc/bf16_gemm.cu``), each on the plan ``ops/bf16_gemm.py`` makes. Weights are in nn.Linear layout: ``w1`` is
 ``(Di, H)``, ``w2`` is ``(H, Di)``. ``act`` is "erf" (exact GELU) or "tanh"
 (the ``fast_math`` preset).
 
@@ -17,10 +19,11 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .attention_block import _layer_norm_f32
+from . import bf16_gemm
+from .bf16_gemm import layer_norm_f32
 from .gelu import gelu
 
-__all__ = ["ffn_block", "ffn_block_reference", "supports"]
+__all__ = ["ffn_block", "ffn_block_reference", "supports", "plans"]
 
 _ACT_CODES = {"erf": 0, "tanh": 1}
 
@@ -39,6 +42,13 @@ def supports(dtype: torch.dtype, n_rows: int, hidden: int, intermediate: int) ->
     )
 
 
+def plans(rows: int, hidden: int, intermediate: int, sms: int) -> tuple[bf16_gemm.Plan, bf16_gemm.Plan]:
+    """The launch plans of GEMM1 (+ bias + GELU) and of GEMM2 + residual +
+    LayerNorm at ``rows`` rows."""
+    return (bf16_gemm.plan(rows, intermediate, hidden, False, sms),
+            bf16_gemm.plan(rows, hidden, intermediate, True, sms))
+
+
 def ffn_block_reference(x2d, w1, b1, w2, b2, gamma, beta, ln_eps: float, act: str = "erf") -> torch.Tensor:
     """Plain PyTorch version with the kernel's order of roundings: float32
     accumulation, GELU on the float32 pre-activation, h rounded to
@@ -47,7 +57,7 @@ def ffn_block_reference(x2d, w1, b1, w2, b2, gamma, beta, ln_eps: float, act: st
     xf = x2d.float()
     h = gelu(xf @ w1.float().t() + b1.float(), act).to(dt).float()
     y = xf + h @ w2.float().t() + b2.float()
-    return _layer_norm_f32(y, gamma, beta, ln_eps).to(dt)
+    return layer_norm_f32(y, gamma, beta, ln_eps).to(dt)
 
 
 def ffn_block(x2d, w1, b1, w2, b2, gamma, beta, ln_eps: float, act: str = "erf") -> torch.Tensor:
@@ -68,13 +78,17 @@ def ffn_block(x2d, w1, b1, w2, b2, gamma, beta, ln_eps: float, act: str = "erf")
                            (beta, "beta", (H,))):
         _build.require(t, name, shape, dt, dev)
     lib = _build.load_library()
+    p1, p2 = plans(N, H, Di, bf16_gemm.sm_count(dev))
     h = torch.empty((N, Di), dtype=dt, device=dev)  # intermediate, through device memory
+    work = max(p1.workspace(N, Di), p2.workspace(N, H))
+    ws = torch.empty((work,), dtype=torch.float32, device=dev) if work else None
     out = torch.empty_like(x2d)
     with torch.cuda.device(dev):
         err = lib.ffn_block_forward(
             x2d.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-            gamma.data_ptr(), beta.data_ptr(), h.data_ptr(), out.data_ptr(),
-            N, H, Di, float(ln_eps), _ACT_CODES[act], _build.stream_of(dev),
+            gamma.data_ptr(), beta.data_ptr(), h.data_ptr(), ws.data_ptr() if ws is not None else None,
+            out.data_ptr(), N, H, Di, float(ln_eps), _ACT_CODES[act], *p1.args(), *p2.args(),
+            _build.stream_of(dev),
         )
     _build.check_launch(lib, err, "ffn_block_forward")
     ffn_block.launches += 1

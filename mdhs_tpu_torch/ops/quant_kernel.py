@@ -6,8 +6,8 @@
 Counterpart of ``mdhs_tpu/ops/quant_kernel.py``; the kernels are
 ``csrc/int8_ffn_block.cu`` and ``csrc/int8_attention_block.cu``, whose header
 comments have the design: both run their s8 products on the wgmma mainloop
-``csrc/int8_gemm_sm90.cuh`` and their last product + residual + LayerNorm on
-the cluster epilogue ``csrc/int8_ln_sm90.cuh``, with the row quantize of
+``csrc/gemm_sm90.cuh`` and their last product + residual + LayerNorm on
+the cluster epilogue of ``csrc/epi_sm90.cuh``, with the row quantize of
 ``csrc/int8_gemm.cu``; the attention block's core is ``fused_attention``'s
 Hopper mainloop (``csrc/attention_sm90.cuh``) over the packed qkv. ``rq`` is the
 kernels' row quantization (absmax times float32(1/127), as the JAX kernels'
@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from . import _build
-from .attention_block import _layer_norm_f32
+from .bf16_gemm import layer_norm_f32
 from .gelu import gelu
 from .quant import int_matmul
 
@@ -133,7 +133,7 @@ def int8_ffn_block_reference(x2d, w1_i8, s1, b1, w2_i8, s2, b2, gamma, beta, ln_
     xf = x2d.float()
     h_i8, sh = ffn_hidden_quant_reference(x2d, w1_i8, s1, b1, act)
     y = (xf + _dequant(h_i8, sh[:, None], w2_i8, s2)) + b2.float()
-    return _layer_norm_f32(y, gamma, beta, ln_eps).to(x2d.dtype)
+    return layer_norm_f32(y, gamma, beta, ln_eps).to(x2d.dtype)
 
 
 def int8_ffn_block(x2d, w1_i8, s1, b1, w2_i8, s2, b2, gamma, beta, ln_eps: float,
@@ -208,7 +208,7 @@ def int8_attention_stages_reference(x, wqkv_i8, sqkv, bqkv, wo_i8, so, bo, gamma
     ctx = (probs @ v).transpose(1, 2).reshape(B * L, HD).to(dt)
     c_i8, sc = _rowquant(ctx.float())
     y = (xf + _dequant(c_i8, sc, wo_i8, so)) + bo.float()
-    out = _layer_norm_f32(y, gamma, beta, ln_eps).to(dt).reshape(B, L, HD)
+    out = layer_norm_f32(y, gamma, beta, ln_eps).to(dt).reshape(B, L, HD)
     return x_i8, sx[:, 0], qkv, ctx, c_i8, sc[:, 0], out
 
 

@@ -8,7 +8,9 @@ the suite's conftest:
 
 Shapes are small and ragged on purpose (odd row counts, L not a multiple of
 16 or 64, head_dim 32 and 64); the full-width shapes run in chip_smoke.py,
-and the int8 FFN's also here, with its scratch and its peak allocation.
+and the int8 FFN's also here, with its scratch and its peak allocation, and
+the bf16 sublayers' at BERT-base widths on both of their plans (split K and
+unsplit), each product alone against a float32 matmul.
 Tolerances are the JAX kernels' own: max |d| <= 6e-2 and mean |d| < 5e-3 in
 bf16 (tests/test_fused_attention.py:126-127) for the bf16 kernels, and max
 |d| <= 0.01 * max |plain| (tests/test_quant.py:160) with mean |d| < 5e-3 for
@@ -24,6 +26,7 @@ import torch
 from mdhs_tpu_torch.models.bert import BertConfig, BertModel, int8_composite
 from mdhs_tpu_torch.models.init import init_parameters
 from mdhs_tpu_torch.ops import attention_block as ab
+from mdhs_tpu_torch.ops import bf16_gemm as bg
 from mdhs_tpu_torch.ops import ffn_block as fb
 from mdhs_tpu_torch.ops import fused_attention as fa
 from mdhs_tpu_torch.ops import quant_kernel as qk
@@ -117,6 +120,146 @@ def test_bert_layers_use_the_kernels(dev):
     assert d.max().item() < 0.15 and d.mean().item() < 0.01
 
 
+# The bf16 sublayers on the wgmma mainloop (csrc/bf16_gemm.cu): BERT-base widths at ragged
+# and small row counts, where the plan (ops/bf16_gemm.py) splits K, and at the main path's
+def _attention_args(rng, B, L, HD, heads, dev):
+    x = _randn(rng, (B, L, HD), 1.0, dev)
+    wqkv, bqkv = _randn(rng, (3 * HD, HD), 0.03, dev), _randn(rng, (3 * HD,), 0.01, dev)
+    wo, bo = _randn(rng, (HD, HD), 0.03, dev), _randn(rng, (HD,), 0.01, dev)
+    gamma = (1.0 + _randn(rng, (HD,), 0.1, dev)).contiguous()
+    beta = _randn(rng, (HD,), 0.1, dev)
+    mask = np.ones((B, L), np.float32)
+    mask[:, L - L // 5:] = 0.0
+    bias = torch.tensor((1.0 - mask) * -1e9, dtype=torch.float32, device=dev)
+    return (x, wqkv, bqkv, wo, bo, gamma, beta, bias, heads, float(HD // heads) ** -0.5, 1e-12)
+
+
+def _ffn_bf16_args(rng, N, H, Di, act, dev):
+    x = _randn(rng, (N, H), 1.0, dev)
+    w1, b1 = _randn(rng, (Di, H), 0.03, dev), _randn(rng, (Di,), 0.01, dev)
+    w2, b2 = _randn(rng, (H, Di), 0.03, dev), _randn(rng, (H,), 0.01, dev)
+    gamma = (1.0 + _randn(rng, (H,), 0.1, dev)).contiguous()
+    return (x, w1, b1, w2, b2, gamma, _randn(rng, (H,), 0.1, dev), 1e-12, act)
+
+
+@pytest.mark.parametrize("act", ["erf", "tanh"])
+@pytest.mark.parametrize("N", [1, 37, 128, 300, 4096])
+def test_ffn_block_at_bert_width_matches_plain(dev, N, act):
+    args = _ffn_bf16_args(np.random.default_rng(N + 1), N, 768, 3072, act, dev)
+    n = fb.ffn_block.launches
+    out = fb.ffn_block(*args)
+    torch.cuda.synchronize()
+    assert fb.ffn_block.launches == n + 1
+    _close(out, fb.ffn_block_reference(*args))
+
+
+_LENGTHS_AND_HEAD_DIMS = [(L, D) for L in (1, 16, 100, 128, 257, 320) for D in (32, 64, 128)]
+
+
+@pytest.mark.parametrize("L, D", [(L, D) for L, D in _LENGTHS_AND_HEAD_DIMS
+                                  if ab.supports(torch.bfloat16, L, 256, 256 // D)])
+def test_attention_block_lengths_and_head_dims_match_plain(dev, L, D):
+    args = _attention_args(np.random.default_rng(L + D), 2, L, 256, 256 // D, dev)
+    n = ab.attention_block.launches
+    out = ab.attention_block(*args)
+    torch.cuda.synchronize()
+    assert ab.attention_block.launches == n + 1
+    _close(out, ab.attention_block_reference(*args))
+
+
+def _other_plan(p, rows, cols, depth, layer_norm):
+    """The plan the wrapper does not take at this shape: split three ways if it is
+    unsplit, else unsplit (clustered for the LayerNorm GEMM)."""
+    tiles = -(-rows // 128) * (cols // 128)
+    if p.splits == 1:
+        return bg.Plan(128, 3, 1, 3 * tiles)
+    return bg.Plan(128, 1, cols // 128 if layer_norm else 1, tiles)
+
+
+@pytest.mark.parametrize("N", [128, 4096])
+def test_ffn_block_split_and_unsplit_plans_match_plain(dev, monkeypatch, N):
+    args = _ffn_bf16_args(np.random.default_rng(N + 2), N, 768, 3072, "erf", dev)
+    ref = fb.ffn_block_reference(*args)
+    own = fb.plans(N, 768, 3072, bg.sm_count(dev))
+    other = (_other_plan(own[0], N, 3072, 768, False), _other_plan(own[1], N, 768, 3072, True))
+    assert (own[0].splits > 1) == (N == 128) and (other[1].splits > 1) == (N == 4096)
+    for plans in (own, other):
+        monkeypatch.setattr(fb, "plans", lambda *a, p=plans: p)
+        _close(fb.ffn_block(*args), ref)
+
+
+@pytest.mark.parametrize("B", [1, 32])
+def test_attention_block_split_and_unsplit_plans_match_plain(dev, monkeypatch, B):
+    args = _attention_args(np.random.default_rng(B + 3), B, 128, 768, 12, dev)
+    ref = ab.attention_block_reference(*args)
+    M = B * 128
+    own = ab.plans(M, 768, bg.sm_count(dev))
+    other = (_other_plan(own[0], M, 2304, 768, False), _other_plan(own[1], M, 768, 768, True))
+    for plans in (own, other):
+        monkeypatch.setattr(ab, "plans", lambda *a, p=plans: p)
+        _close(ab.attention_block(*args), ref)
+
+
+def _close_to_f32(out, ref, atol):
+    """A bf16 result against the float32 value it rounds: half a bf16 step of each
+    value, and the float32 sums' order."""
+    d = (out.float() - ref).abs()
+    assert torch.isfinite(out.float()).all()
+    assert bool((d <= 2.0 ** -8 * ref.abs() + atol).all()), d.max().item()
+
+
+def _plan_as(monkeypatch, split):
+    """Make bg.plan give the split plan, or the unsplit one, whichever its own is."""
+    own = bg.plan
+
+    def plan(rows, cols, depth, layer_norm, sms):
+        p = own(rows, cols, depth, layer_norm, sms)
+        return p if split == (p.splits > 1) else _other_plan(p, rows, cols, depth, layer_norm)
+
+    monkeypatch.setattr(bg, "plan", plan)
+
+
+@pytest.mark.parametrize("split", [False, True])
+@pytest.mark.parametrize("M, N, K", [(1, 2304, 768), (128, 3072, 768), (300, 768, 3072), (4096, 2304, 768)])
+def test_tile_gemm_alone_matches_float32_matmul(dev, monkeypatch, M, N, K, split):
+    rng = np.random.default_rng(M + K)
+    a, w, b = _randn(rng, (M, K), 1.0, dev), _randn(rng, (N, K), 0.03, dev), _randn(rng, (N,), 0.01, dev)
+    _plan_as(monkeypatch, split)
+    _close_to_f32(bg.tile_gemm(a, w, b), a.float() @ w.float().t() + b.float(), 1e-3)
+
+
+@pytest.mark.parametrize("split", [False, True])
+@pytest.mark.parametrize("M, H, K", [(1, 768, 768), (128, 768, 3072), (300, 256, 384), (4096, 768, 3072),
+                                     (200, 1024, 1024)])
+def test_ln_gemm_alone_matches_float32_matmul(dev, monkeypatch, M, H, K, split):
+    rng = np.random.default_rng(M + H + K)
+    a, w, b = _randn(rng, (M, K), 1.0, dev), _randn(rng, (H, K), 0.03, dev), _randn(rng, (H,), 0.01, dev)
+    x, g, beta = _randn(rng, (M, H), 1.0, dev), (1.0 + _randn(rng, (H,), 0.1, dev)).contiguous(), \
+        _randn(rng, (H,), 0.1, dev)
+    _plan_as(monkeypatch, split)
+    y = x.float() + a.float() @ w.float().t() + b.float()
+    _close_to_f32(bg.ln_gemm(a, w, b, x, g, beta, 1e-12), bg.layer_norm_f32(y, g, beta, 1e-12), 2e-3)
+
+
+def test_bf16_sublayers_raise_instead_of_falling_back(dev, monkeypatch):
+    rng = np.random.default_rng(5)
+    for L, HD, heads in ((336, 768, 12), (257, 512, 4), (64, 512, 2)):  # past the gate; head_dim 256
+        with pytest.raises(ValueError, match="unsupported"):
+            ab.attention_block(*_attention_args(rng, 1, L, HD, heads, dev))
+    with pytest.raises(ValueError, match="unsupported"):
+        fb.ffn_block(*_ffn_bf16_args(rng, 8, 768, 3000, "erf", dev))
+    a, w, b = _randn(rng, (128, 768), 1.0, dev), _randn(rng, (768, 768), 0.03, dev), _randn(rng, (768,), 0.01, dev)
+    for p in (bg.Plan(128, 13, 1, 78), bg.Plan(256, 2, 1, 6), bg.Plan(128, 1, 2, 6)):  # no kernel runs these
+        monkeypatch.setattr(bg, "plan", lambda *args, p=p: p)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            bg.tile_gemm(a, w, b)
+    for p in (bg.Plan(128, 1, 1, 6), bg.Plan(128, 2, 6, 12)):
+        monkeypatch.setattr(bg, "plan", lambda *args, p=p: p)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            bg.ln_gemm(a, w, b, a, b, b, 1e-12)
+    torch.cuda.synchronize()
+
+
 def _close_int8(out, ref):
     d = (out.float() - ref.float()).abs()
     assert torch.isfinite(out.float()).all()
@@ -153,7 +296,7 @@ def _ffn_args(N, H, Di, act, dev):
             _f32(rng, (H,), 0.1, dev, 1.0), _f32(rng, (H,), 0.1, dev), 1e-12, act)
 
 
-# The int8 FFN (csrc/int8_ffn_block.cu on csrc/int8_gemm_sm90.cuh) at ragged and at
+# The int8 FFN (csrc/int8_ffn_block.cu on csrc/gemm_sm90.cuh) at ragged and at
 # the preset's shapes, batch 1 (128 rows) and batch 512 (65,536), H 384 and 1024, and
 # both widths of GEMM1's tiles (128 columns at few rows or Di not a multiple of 256,
 # 256 where they fill the card). Its scratch too: sh is the plain version's bit for

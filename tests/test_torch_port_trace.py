@@ -68,3 +68,42 @@ def test_kernel_events_raises_when_every_trace_lost_records(traces):
     with pytest.raises(RuntimeError, match=f"each of {trace.TRIES} traces"):
         trace.kernel_events(traces.fn, reps=2, complete=trace.whole_calls(2))
     assert not traces.queue
+
+
+def test_census_names_kernels_whose_count_does_not_double(traces):
+    # one call: a, b, c; two calls: a, b, a, b, c (c once in two calls, or a record lost)
+    traces.queue.extend([[_event(n, t, 1.0) for t, n in enumerate("abc")],
+                         [_event(n, t, 1.0) for t, n in enumerate("ababc")]])
+    assert trace.census(traces.fn) == {"records_one": 3, "records_two": 5, "irregular": {"c": [1, 1]}}
+    assert len(traces.calls) == (1 + 1) + (1 + 2)
+
+
+def test_whole_calls_leaves_out_the_irregular_kernels():
+    ev = [_event(n, t, 1.0) for t, n in enumerate("ababc")]
+    assert not trace.whole_calls(2)(ev) and trace.whole_calls(2, {"c"})(ev)
+    assert not trace.whole_calls(2, {"c"})(ev[:3])  # b lost
+
+
+def _calls(kernels, n):
+    return [_event(k, t, 1.0) for t, k in enumerate(kernels * n)]
+
+
+@pytest.mark.parametrize("lost", [0, 1])
+def test_whole_trace_takes_again_a_trace_that_lost_a_record(traces, lost):
+    # the census (one call, two calls), then the traces of 3 calls: the first lost its last record
+    # when ``lost``
+    whole = _calls("ab", 3)
+    traces.queue.extend([_calls("ab", 1), _calls("ab", 2)] + [whole[:-1]] * lost + [whole])
+    events, census = trace.whole_trace(traces.fn, 3)
+    assert len(events) == 6 and census["irregular"] == {} and not traces.queue
+    assert len(traces.calls) == (1 + 1) + (1 + 2) + 1 + 3 * (lost + 1)  # a warm-up call, then each trace
+
+
+def test_whole_trace_checks_only_the_kernels_every_call_launches(traces):
+    # c runs on one call in two: the census finds it, and a trace of 2 calls with one c is whole
+    traces.queue.extend([[_event(n, t, 1.0) for t, n in enumerate("abc")],
+                         [_event(n, t, 1.0) for t, n in enumerate("ababc")],
+                         [_event(n, t, 1.0) for t, n in enumerate("aba")],  # b lost: taken again
+                         [_event(n, t, 1.0) for t, n in enumerate("abcab")]])
+    events, census = trace.whole_trace(traces.fn, 2)
+    assert [e.name for e in events] == list("abcab") and census["irregular"] == {"c": [1, 1]}
