@@ -21,7 +21,12 @@ Phases, each printing JSON lines:
               the kernel's) on the same inputs scaled_dot_product_attention
               for fused_attention, grid_sample for shear_sublane and var_mean
               for bn_stats (none for selective_scan and kan_forward: no one
-              PyTorch call computes either); shear_sublane bit-exact;
+              PyTorch call computes either; kan_forward's line carries its
+              two products alone on torch.matmul, float32 with TF32 off and
+              the bases made beforehand, as its yardstick gemm_library_ms,
+              and bound_rate, the rate its bound reckons the products at:
+              the 3xTF32 route, three TF32 products at 494.7 TFLOP/s);
+              shear_sublane bit-exact;
               bn_stats within rtol 1e-5 and
               atol 1e-6 * E|x| (mean) or * E[x^2] (variance), and its backward
               within 1e-5 of the largest gradient; selective_scan (N 16, and
@@ -48,7 +53,9 @@ Phases, each printing JSON lines:
               the bf16 sublayers' kernels (bf16_tile_gemm_kernel<act + 1,
               tile width>, bf16_ln_gemm_kernel, the split plan's
               bf16_partial_gemm_kernel and row passes, and
-              attention_block_core_kernel<NC>);
+              attention_block_core_kernel<NC>), and of kan_forward_kernel<bn>
+              (64 wide, 8 and 16 narrow tiles) and
+              selective_scan_kernel<T, S> (ptxas_kan_and_scan);
               int8_attention_block at (8, 128), (8, 256) and the preset's
               (512, 128) and (512, 256), its device time split by stage
               (row quantize of x and ctx, QKV product, attention core, output
@@ -164,7 +171,9 @@ Every served phase (slice, preset, seq512, flash, baseline) runs one warm
 forward from device-resident inputs under torch.cuda.set_sync_debug_mode(
 "error") ("sync_free"): a call that makes the host wait on the device fails
 the script.
-Then a JSON line of the kernels, the nvidia-smi line, and the result line.
+Then a JSON line of the kernels (kan_forward's entry with its two layers'
+numbers under "layers", each with the launches the baseline run counted for
+its (IN, OUT)), the nvidia-smi line, and the result line.
 Each path sets every launch count to 0 just before it runs and reads them
 just after. Any failure raises: the exit code is not 0 and no result line is
 printed.
@@ -259,6 +268,7 @@ BF16_STEPS, BF16_MEAN = 2.0 ** -6, 2.0 ** -10
 RESIDUAL_BN_SCALE = 0.1
 # H100 SXM datasheet peaks at 700 W: bytes/s of HBM, dense ops/s (float32 outside the tensor cores)
 HBM_BPS, BF16_OPS, INT8_OPS, F32_OPS = 3.35e12, 989e12, 1979e12, 67e12
+TF32_OPS = 494.7e12  # dense TF32 on the tensor cores (kan_forward's 3xTF32 products)
 
 KERNELS = {  # name: (module, source, TPU kernel it replaces)
     "attention_block": (ab.attention_block, "mdhs_tpu_torch/csrc/attention_block.cu",
@@ -300,6 +310,7 @@ def check(cond: bool, msg: str) -> None:
 def zero_counts() -> None:
     for fn, _, _ in KERNELS.values():
         fn.launches = 0
+    ks.kan_forward.launches_by_layer = {}
 
 
 def read_counts() -> dict:
@@ -553,14 +564,31 @@ def bound_selective_scan(B, L, D, N):
 # recursion's 10 + 9 + 8; the rest are exactly 0), 9 operations each (4
 # subtractions, 2 divisions, 2 products, 1 sum); silu 4
 KAN_BASIS_OPS = 3 * 11 + 9 * (2 + 3 + 4) + 4
+# the route kan_forward's products take (csrc/kan_spline.cu): 3xTF32 on the tensor cores
+KAN_PRODUCT_ROUTE = "3xTF32: three TF32 products a multiply-add at 494.7 TFLOP/s dense"
 
 
 def bound_kan_forward(E, B, IN, OUT, shared):
     # x read once (once for all experts when shared), grid, Wb, Ws (C = 8), y written;
-    # the product 2 * (C + 1) a (row, input, output) and the bases of each x once
+    # the product 2 * (C + 1) a (row, input, output) as three TF32 products on the tensor
+    # cores, beside the bases of each x once in float32 on the CUDA cores (the two units
+    # run at once: the larger time counts)
     rows = B if shared else E * B
     nbytes = 4 * (rows * IN + E * IN * 12 + E * OUT * IN * 9 + E * B * OUT)
-    return _bound(nbytes, (2 * 9 * E * B * IN * OUT + KAN_BASIS_OPS * rows * IN) / F32_OPS)
+    return _bound(nbytes, max(3 * 2 * 9 * E * B * IN * OUT / TF32_OPS, KAN_BASIS_OPS * rows * IN / F32_OPS))
+
+
+def _kan_products(x, grid, base_w, spline_w):
+    """kan_forward's two products alone on torch.matmul, float32 with TF32 off, the
+    bases made beforehand (timing only): the yardstick of its products, since no one
+    PyTorch call computes the layer."""
+    check(not torch.backends.cuda.matmul.allow_tf32, "the float32 yardstick needs allow_tf32 off")
+    E, OUT, IN = base_w.shape
+    xs = x if x.dim() == 3 else x.expand(E, *x.shape)
+    silu_x = F.silu(xs)
+    bases = torch.stack([ks.b_splines(xe, ge, 3).reshape(xe.shape[0], -1) for xe, ge in zip(xs, grid)])
+    wb, ws_ = base_w.transpose(1, 2), spline_w.reshape(E, OUT, -1).transpose(1, 2)
+    return lambda: (torch.matmul(silu_x, wb), torch.matmul(bases, ws_))
 
 
 # ---------------------------------------------------------------------------
@@ -635,7 +663,8 @@ def phase_build() -> None:
           "ptxas_int8_attention": _ptxas(log, ("attn_s8_", "int8_attention_core_kernel")),
           "ptxas_bf16_sublayers": _ptxas(log, ("bf16_tile_gemm_kernel", "bf16_ln_gemm_kernel", "bf16_partial_gemm_kernel",
                                                "bias_act_rows_kernel", "ln_rows_kernel",
-                                               "attention_block_core_kernel"))})
+                                               "attention_block_core_kernel")),
+          "ptxas_kan_and_scan": _ptxas(log, ("kan_forward_kernel", "selective_scan_kernel"))})
 
 
 def _rand(rng, shape, scale, dev):
@@ -942,6 +971,16 @@ def phase_kernels(dev, rng, seed: int) -> dict:
             products = _sublayer_products(name, args)
             line.update(gemm_library="torch.matmul (cuBLAS) of the sublayer's two products alone",
                         gemm_library_ms=cuda_ms(products), gemm_library_device_ms=kernel_device_ms(products))
+        if name == "kan_forward":
+            products = _kan_products(*args)
+            line.update(bound_rate=KAN_PRODUCT_ROUTE,
+                        gemm_library="torch.matmul of the layer's two products alone, float32, TF32 off, "
+                                     "the bases made beforehand",
+                        gemm_library_ms=cuda_ms(products), gemm_library_device_ms=kernel_device_ms(products))
+            summary.setdefault("kan_forward_layers", []).append(
+                {"in_out": list(args[2].shape[:-3:-1])}
+                | {k: line[k] for k in ("shape", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                                        "gemm_library_ms", "gemm_library_device_ms")})
         emit(line)
         s = summary.setdefault(name, {"max_abs_err": 0.0})
         s["max_abs_err"] = max(s["max_abs_err"], mx)
@@ -1437,9 +1476,16 @@ def phase_baseline(dev, rng, seed: int) -> dict:
         zero_counts()
         outs = list(server.predict_stream(iter(requests), depth=2))
         launches = read_counts()
+        by_layer = dict(ks.kan_forward.launches_by_layer)
         want = {**dict.fromkeys(KERNELS, 0), "attention_block": layers * 3, "ffn_block": layers * 3,
                 kernel: per_forward * 3}
         check(launches == want, f"{name} launches {launches}, expected {want}")
+        if kernel == "kan_forward":
+            bank = model.classifier.moe.experts[0].layers
+            want_layers = {(l.in_features, l.out_features): 3 for l in bank}
+            check(by_layer == want_layers and len(bank) == per_forward,
+                  f"{name} kan_forward launches by layer {by_layer}, expected {want_layers}")
+            result["kan_forward_by_layer"] = by_layer
         for req, out in zip(requests, outs):
             n = req["image"].shape[0]
             check(out.shape == (n, cfg.num_classes) and bool(np.isfinite(out).all()), f"{name} logits {out.shape}")
@@ -1849,6 +1895,8 @@ def main() -> int:
          "ms": summary[name]["ms"], "device_ms": summary[name]["device_ms"], "plain_ms": summary[name]["plain_ms"],
          "bound_ms": summary[name]["bound_ms"], "bound_by": summary[name]["bound_by"],
          "library_ms": summary[name]["library_ms"], "library_device_ms": summary[name]["library_device_ms"]}
+        | ({"layers": [{**layer, "launches": baseline["kan_forward_by_layer"].get(tuple(layer["in_out"]), 0)}
+                       for layer in summary["kan_forward_layers"]]} if name == "kan_forward" else {})
         for name, (_, src, rep) in KERNELS.items()]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,9 @@ the dense expert bank (every expert runs on the whole batch; the gates,
 zero for experts not chosen, combine the outputs). The JAX package vmaps a
 KAN over a stacked parameter bank; here the expert axis is written out: each
 KAN layer of the bank is one ``kan_forward`` launch over all experts, with
-layer 0's input shared by them. State-dict names are the reference's
+layer 0's input shared by them. The stacked operands of each layer (grids,
+base weights, scaled spline weights) are made once and kept, and made again
+only when a parameter or grid has changed (``stacked_layers``). State-dict names are the reference's
 (``w_gate``, ``w_noise``, ``experts.{e}.layers.{i}.{base_weight,
 spline_weight,spline_scaler,grid}``), which
 ``mdhs_tpu.core.convert._convert_kan_bank`` reads.
@@ -68,18 +70,45 @@ class MoE(nn.Module):
         self.w_noise = nn.Parameter(torch.zeros((input_size, num_experts), **f32))
         self.experts = nn.ModuleList(KAN(layers, grid_size, spline_order, device=device, dtype=dtype)
                                      for _ in range(num_experts))
+        # the stacked bank (stacked_layers): plain attributes, not buffers, so state_dict
+        # keeps the converter's keys
+        self._bank: list | None = None
+        self._bank_made_from: tuple = ()
+
+    def _stack(self) -> list[tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+        return [(torch.stack([l.grid for l in bank]), torch.stack([l.base_weight for l in bank]),
+                 torch.stack([l.scaled_spline_weight() for l in bank]))
+                for bank in zip(*(e.layers for e in self.experts))]
+
+    def stacked_layers(self) -> list[tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+        """Each KAN layer's (grids, base weights, scaled spline weights) stacked
+        over the experts, float32, as ``kan_forward`` takes them. Kept, and made
+        again whenever a parameter or grid has changed since they were made: a
+        move or load_state_dict changes a tensor's storage, an in-place update its
+        version counter. The values are the stack of each layer's own ``grid``,
+        ``base_weight`` and ``scaled_spline_weight()``, bit for bit. Stacked anew
+        on each call where a kept stack would be wrong: with gradients on for a
+        tensor that takes them (so that they reach the parameters), and where a
+        tensor is an inference tensor (no version counter shows its updates)."""
+        tensors = [t for e in self.experts for layer in e.layers
+                   for t in (layer.grid, layer.base_weight, layer.spline_weight, layer.spline_scaler)]
+        if any(t.is_inference() or (t.requires_grad and torch.is_grad_enabled()) for t in tensors):
+            return self._stack()
+        key = tuple((t.data_ptr(), t._version) for t in tensors)
+        if self._bank is None or key != self._bank_made_from:
+            with torch.inference_mode(False), torch.no_grad():
+                self._bank = self._stack()
+            self._bank_made_from = key
+        return self._bank
 
     def expert_bank(self, x: torch.Tensor) -> torch.Tensor:
         """(E, B, out) in the module's dtype: one ``kan_forward`` per KAN layer
         over the stacked experts; each layer's output is cast to the module's
         dtype, as each JAX KANLinear's is."""
         h = x
-        for i in range(len(self.experts[0].layers)):
-            bank = [e.layers[i] for e in self.experts]
-            h = _ks.kan_forward(h.float().contiguous(), torch.stack([l.grid for l in bank]),
-                                torch.stack([l.base_weight for l in bank]),
-                                torch.stack([l.scaled_spline_weight() for l in bank]),
-                                bank[0].spline_order).to(self.out_dtype)
+        order = self.experts[0].layers[0].spline_order
+        for grid, base_w, spline_w in self.stacked_layers():
+            h = _ks.kan_forward(h.float().contiguous(), grid, base_w, spline_w, order).to(self.out_dtype)
         return h
 
     def forward(self, x: torch.Tensor, train: bool = False):

@@ -63,8 +63,8 @@ _SIGNATURES = {
     "bn_stats_forward": [_P, _I] + [_P] * 4 + [_I] * 4 + [_P],
     # x, dt, A, B, C, D, y, batch, L, D, N, stream
     "selective_scan_forward": [_P] * 7 + [_I] * 4 + [_P],
-    # x, grid, base_w, spline_w, y, ws, E, B, IN, OUT, x_shared, splits, inputs_per_split, stream
-    "kan_forward": [_P] * 6 + [_I] * 7 + [_P],
+    # x, grid, base_w, spline_w, y, ws, counters, E, B, IN, OUT, ldb, x_shared, bn, splits, per, stream
+    "kan_forward": [_P] * 7 + [_I] * 11 + [_P],
     # q, k, v, bias, ctx, B, L, HD, heads, scale, mode, stream
     "attention_ablate_forward": [_P] * 5 + [_I] * 4 + [_F, _I, _P],
     # q, k, v, seg, out, m, l, B, L, HD, heads, scale, stream

@@ -5,11 +5,12 @@ Counterpart of ``mdhs_tpu/ops/kan_spline.py``; the kernel is
 ``csrc/kan_spline.cu`` and replaces the Pallas TPU kernel
 ``_kan_forward_pallas`` (``pl.pallas_call`` at :114). Like it, the kernel
 makes the B-spline bases of each input on chip and feeds them straight into
-the product, so the (B, IN, C) bases tensor is never stored; at layer 0 of the
-baseline MoE head it is bound by operations (float32 FMAs). Where the output
-tiles are too few to fill the card (the classifier layer's OUT = 7), the
-wrapper splits the inputs over more blocks and the kernel adds the partial
-sums in a fixed order.
+the product, so the (B, IN, C) bases tensor is never stored. The products run
+on the tensor cores at float32 accuracy (3xTF32: each operand split into a
+TF32 high and low part, three products); at layer 0 of the baseline MoE head
+the kernel is bound by the bytes of the weights. ``plan`` picks its tile
+orientation and how far the inputs are split over blocks, so that the tiles
+fill the card; the splits are added in a fixed order inside the same launch.
 
 Shapes, float32 throughout: ``x`` (B, IN), ``grid`` (IN, P), ``base_w`` (OUT,
 IN), ``spline_w`` (OUT, IN, C) already scaled, giving (B, OUT); or a bank of E
@@ -21,11 +22,13 @@ package).
 ``kan_forward`` launches the kernel for a CUDA tensor and raises if it
 cannot; for a CPU tensor it returns ``kan_forward_reference``
 (``kan_forward_ref``'s math). Its ``launches`` attribute counts calls that
-launched the kernel. Eval only: no backward (the training path adds one).
+launched the kernel, and ``launches_by_layer`` the same calls by the layer's
+(IN, OUT). Eval only: no backward (the training path adds one).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import torch
@@ -33,11 +36,13 @@ import torch.nn.functional as F
 
 from . import _build
 
-__all__ = ["b_splines", "kan_forward", "kan_forward_reference", "supports"]
+__all__ = ["Plan", "b_splines", "kan_forward", "kan_forward_reference", "plan", "supports"]
 
 N_PTS, ORDER = 12, 3  # the kernel's knots per input and spline order (grid_size 5)
-_ROWS, _COLS, _INPUTS = 32, 64, 8  # the kernel's block tile: batch rows, outputs, inputs a K chunk
-_BLOCKS_PER_SM = 2
+STAGE_INPUTS = 32  # inputs of one silu stage of K (32 floats of Wb): splits hold whole ones
+ROWS_M = 128  # a wide tile's weight rows (two warpgroups' wgmma M)
+BATCH_ROWS = 64  # a tile's batch rows: the wide tile's wgmma N, the narrow one's M
+NARROW_OUT = 16  # at most this many outputs: the narrow orientation
 
 
 def b_splines(x: torch.Tensor, grid: torch.Tensor, spline_order: int) -> torch.Tensor:
@@ -55,13 +60,48 @@ def b_splines(x: torch.Tensor, grid: torch.Tensor, spline_order: int) -> torch.T
 
 def supports(x_shape, grid_shape, base_shape, spline_order: int, dtype: torch.dtype) -> bool:
     """The kernel's own gate: float32, 12 knots an input with spline order 3
-    (grid_size 5: every KANLinear of the repo), at most 65535 experts and
-    65535 tiles of 32 batch rows. Any B, IN and OUT (ragged tiles are masked)."""
+    (grid_size 5: every KANLinear of the repo). Any E, B, IN and OUT (ragged
+    tiles are masked) whose stacked weight rows E * OUT fit an int32."""
     if dtype != torch.float32 or spline_order != ORDER or grid_shape[-1] != N_PTS:
         return False
     E = base_shape[0] if len(base_shape) == 3 else 1
-    B = x_shape[-2]
-    return 1 <= E <= 65535 and 1 <= B <= 65535 * 32 and x_shape[-1] >= 1 and base_shape[-2] >= 1
+    return E >= 1 and x_shape[-2] >= 1 and x_shape[-1] >= 1 and 1 <= base_shape[-2] and E * base_shape[-2] < 2 ** 31
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """A launch of the kernel. ``bn`` 64: wide tiles of 128 weight rows (one
+    expert's) by 64 batch rows; 8 or 16: narrow tiles of 64 batch rows by
+    ``bn`` outputs. The inputs go in ``splits`` ranges of ``per`` (whole
+    stages of 32), the last one ragged, none empty."""
+
+    bn: int
+    row_tiles: int
+    col_tiles: int
+    tiles: int
+    splits: int
+    per: int
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles * self.splits
+
+
+def plan(E: int, B: int, IN: int, OUT: int, n_sm: int) -> Plan:
+    """The narrow orientation at OUT <= 16 (the classifier layer: OUT = 7 on 8
+    columns), else the wide one; then the inputs split until the tiles fill
+    about one block an SM (a block takes most of an SM's shared memory)."""
+    if OUT <= NARROW_OUT:
+        bn = 8 if OUT <= 8 else NARROW_OUT
+        row_tiles, col_tiles = -(-B // BATCH_ROWS), -(-OUT // bn)
+    else:
+        bn = BATCH_ROWS
+        row_tiles, col_tiles = -(-OUT // ROWS_M), -(-B // BATCH_ROWS)
+    tiles = E * row_tiles * col_tiles
+    stages = -(-IN // STAGE_INPUTS)
+    splits = max(1, min(-(-n_sm // tiles), stages))
+    per = -(-stages // splits) * STAGE_INPUTS
+    return Plan(bn, row_tiles, col_tiles, tiles, -(-IN // per), per)
 
 
 @functools.cache
@@ -69,15 +109,18 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def _split_plan(E: int, B: int, IN: int, OUT: int, n_sm: int) -> tuple[int, int]:
-    """(splits, inputs_per_split): split the inputs until the blocks fill about
-    two an SM, keeping at least 4 K chunks (32 inputs) a split."""
-    row_tiles = -(-B // _ROWS)
-    blocks = -(-OUT // _COLS) * row_tiles * E
-    chunks = -(-IN // _INPUTS)
-    splits = max(1, min(-(-_BLOCKS_PER_SM * n_sm // blocks), chunks // 4, 65535 // row_tiles))
-    per = -(-chunks // splits) * _INPUTS
-    return -(-IN // per), per
+_counters: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _tile_counters(dev: torch.device, tiles: int) -> torch.Tensor:
+    """The split-K counters of one device and stream, one int a tile: zero
+    between launches (the last block of a tile resets its own), so they are
+    made once and kept."""
+    key = (dev.index, _build.stream_of(dev))
+    c = _counters.get(key)
+    if c is None or c.numel() < tiles:
+        c = _counters[key] = torch.zeros(max(tiles, 1024), dtype=torch.int32, device=dev)
+    return c
 
 
 def kan_forward_reference(x, grid, base_w, spline_w, spline_order: int = ORDER) -> torch.Tensor:
@@ -113,16 +156,25 @@ def kan_forward(x, grid, base_w, spline_w, spline_order: int = ORDER) -> torch.T
     _build.require(base_w, "base_w", lead + (OUT, IN), torch.float32, dev)
     _build.require(spline_w, "spline_w", lead + (OUT, IN, N_PTS - 1 - ORDER), torch.float32, dev)
     lib = _build.load_library()
-    splits, per = _split_plan(E, B, IN, OUT, _sm_count(dev.index))
+    p = plan(E, B, IN, OUT, _sm_count(dev.index))
+    # TMA reads rows whose pitch is a multiple of 16 bytes: Wb's is IN floats, padded
+    # with zero columns where IN is not a multiple of 4 (no layer of the repo's models)
+    ldb = -(-IN // 4) * 4
+    bw = base_w if ldb == IN else F.pad(base_w, (0, ldb - IN))
     y = torch.empty(lead + (B, OUT), dtype=torch.float32, device=dev)
-    ws = torch.empty((splits, E, B, OUT) if splits > 1 else (0,), dtype=torch.float32, device=dev)
+    split = p.splits > 1
+    ws = torch.empty((p.splits, E, B, OUT) if split else (0,), dtype=torch.float32, device=dev)
+    counters = _tile_counters(dev, p.tiles) if split else None
     with torch.cuda.device(dev):
-        err = lib.kan_forward(x.data_ptr(), grid.data_ptr(), base_w.data_ptr(), spline_w.data_ptr(), y.data_ptr(),
-                              ws.data_ptr() if splits > 1 else None, E, B, IN, OUT, int(shared), splits, per,
+        err = lib.kan_forward(x.data_ptr(), grid.data_ptr(), bw.data_ptr(), spline_w.data_ptr(), y.data_ptr(),
+                              ws.data_ptr() if split else None, counters.data_ptr() if split else None,
+                              E, B, IN, OUT, ldb, int(shared), p.bn, p.row_tiles, p.col_tiles, p.splits, p.per,
                               _build.stream_of(dev))
     _build.check_launch(lib, err, "kan_forward")
     kan_forward.launches += 1
+    kan_forward.launches_by_layer[IN, OUT] = kan_forward.launches_by_layer.get((IN, OUT), 0) + 1
     return y
 
 
 kan_forward.launches = 0
+kan_forward.launches_by_layer = {}

@@ -10,7 +10,10 @@ Counterpart of ``mdhs_tpu/ops/selective_scan.py``; the kernel is
 ``(batch, L, D)`` float32, ``A`` is ``(D, N)``, ``B`` and ``C`` are
 ``(batch, L, N)``, ``D_skip`` is ``(D,)``; the result is ``(batch, L, D)``
 float32. The kernel is bound by bytes (one read of x and dt, one write of
-y); its chains of L sequential steps keep their state in registers.
+y); its chains of L sequential steps keep their state in registers, split
+over 2 to 8 threads a chain, and read x, dt, B and C from shared memory,
+where asynchronous copies bring the next chunk of time steps in under the
+current one.
 
 ``selective_scan`` launches the kernel for a CUDA tensor and raises if it
 cannot; for a CPU tensor it returns ``selective_scan_reference``, the

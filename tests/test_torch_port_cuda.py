@@ -683,6 +683,97 @@ def test_kan_forward_kernel_matches_plain(dev, E, B, IN, OUT, shared):
     _close_f32(out, ks.kan_forward_reference(*args))
 
 
+@pytest.mark.parametrize("L", [1, 37, 49, 196])  # 37: not a multiple of the kernel's 16-step chunk
+@pytest.mark.parametrize("D, N", [(130, 8), (130, 16), (72, 17), (100, 128)])  # D past the block's channels
+def test_selective_scan_lengths_and_state_sizes_match_plain(dev, L, D, N):
+    args = _scan_args(np.random.default_rng(7 * L + N), 2, L, D, N, dev)
+    n = ss.selective_scan.launches
+    out = ss.selective_scan(*args)
+    torch.cuda.synchronize()
+    assert ss.selective_scan.launches == n + 1
+    _close_f32(out, ss.selective_scan_reference(*args))
+
+
+# E (None: one layer, no expert axis), B, IN, OUT, x shared: E 1 and 4, ragged B (1, 33, 64, and
+# past a tile: 130), IN not a multiple of the 32-input stage (and not of 4: Wb's padded pitch),
+# OUT 7 and 16 (narrow tiles), 65, 200 and 1024 (wide)
+_KAN_PLAN_CASES = [(4, 64, 256, 1024, True), (4, 64, 1024, 7, False), (1, 33, 100, 65, True), (4, 1, 37, 7, False),
+                   (4, 33, 70, 1024, False), (None, 64, 20, 65, False), (1, 1, 9, 1024, False),
+                   (4, 64, 256, 16, True), (2, 130, 40, 9, False), (2, 130, 64, 200, True)]
+
+
+@pytest.mark.parametrize("split", [True, False])
+@pytest.mark.parametrize("E, B, IN, OUT, shared", _KAN_PLAN_CASES)
+def test_kan_forward_plans_match_plain(dev, monkeypatch, E, B, IN, OUT, shared, split):
+    """Both orientations on the split plan (the wrapper's, for 132 SMs) and unsplit
+    (the plan for a card of one SM), twice in a row: the split-K counters are left
+    at zero for the next launch."""
+    if not split:
+        monkeypatch.setattr(ks, "_sm_count", lambda index: 1)
+    p = ks.plan(E or 1, B, IN, OUT, ks._sm_count(dev.index))
+    assert (p.splits > 1) == split or -(-IN // 32) == 1
+    args = _kan_args(np.random.default_rng(B + IN + OUT), E, B, IN, OUT, dev, shared)
+    ref = ks.kan_forward_reference(*args)
+    for _ in range(2):
+        out = ks.kan_forward(*args)
+        torch.cuda.synchronize()
+        _close_f32(out, ref)
+
+
+def test_kan_forward_kept_tensor_maps_follow_the_weights(dev):
+    """Two weight sets of one shape in turns: the weights' tensor maps are kept by
+    their arguments, so each call reads its own weights; each call is tallied
+    under its layer's (IN, OUT)."""
+    x, grid, bw, sw = _kan_args(np.random.default_rng(11), 4, 64, 256, 1024, dev, True)
+    other = (bw.flip(1).contiguous(), (sw * -0.5).contiguous())
+    refs = [ks.kan_forward_reference(x, grid, bw, sw), ks.kan_forward_reference(x, grid, *other)]
+    before = ks.kan_forward.launches_by_layer.get((256, 1024), 0)
+    for i in range(4):
+        out = ks.kan_forward(x, grid, *((bw, sw) if i % 2 == 0 else other))
+        torch.cuda.synchronize()
+        _close_f32(out, refs[i % 2])
+    assert ks.kan_forward.launches_by_layer[256, 1024] == before + 4
+
+
+@pytest.mark.parametrize("field, delta", [("row_tiles", -1), ("row_tiles", 1), ("col_tiles", -1), ("col_tiles", 1)])
+def test_kan_forward_entry_rejects_tiles_that_do_not_cover(dev, monkeypatch, field, delta):
+    """The plan is the tiling's one source; the entry refuses tiles that miss
+    outputs or leave a tile empty, rather than index past the counters."""
+    plan = ks.plan
+
+    def off(E, *a):
+        p = plan(E, *a)
+        p = dataclasses.replace(p, **{field: getattr(p, field) + delta})
+        return dataclasses.replace(p, tiles=E * p.row_tiles * p.col_tiles)
+
+    monkeypatch.setattr(ks, "plan", off)
+    args = _kan_args(np.random.default_rng(12), 4, 130, 256, 200, dev, False)
+    with pytest.raises(RuntimeError, match="kan_forward: CUDA error"):
+        ks.kan_forward(*args)
+
+
+def test_moe_bank_makes_no_copy_in_a_warm_forward(dev):
+    """The stacked, scaled weights are made once: two warm forwards hand kan_forward
+    the same tensors, and the result is the per-forward stack's."""
+    moe = moe_mod.MoE(48, 7, num_experts=4, k=2, expert_layers=(48, 96, 7), device=dev)
+    init_parameters(moe, torch.Generator(device=dev).manual_seed(3))
+    x = torch.tensor(np.random.default_rng(4).standard_normal((20, 48)), dtype=torch.float32, device=dev)
+    with torch.inference_mode():
+        moe(x)
+        made = [tuple(t.data_ptr() for t in layer) for layer in moe.stacked_layers()]
+        n = ks.kan_forward.launches
+        out, _ = moe(x)
+        assert ks.kan_forward.launches == n + 2
+        assert [tuple(t.data_ptr() for t in layer) for layer in moe._bank] == made
+        h = x
+        for i in range(2):
+            bank = [e.layers[i] for e in moe.experts]
+            h = ks.kan_forward(h.contiguous(), torch.stack([l.grid for l in bank]),
+                               torch.stack([l.base_weight for l in bank]),
+                               torch.stack([l.scaled_spline_weight() for l in bank]))
+    torch.testing.assert_close(moe.expert_bank(x), h, atol=0, rtol=0)
+
+
 def test_baseline_kernel_wrappers_raise_instead_of_falling_back(dev):
     args = _scan_args(np.random.default_rng(0), 2, 8, 16, 16, dev)
     with pytest.raises(ValueError, match="unsupported"):

@@ -246,12 +246,158 @@ def test_kan_init_bounds():
 
 
 @pytest.mark.parametrize("E, B, IN, OUT", [(4, 64, 256, 1024), (4, 64, 1024, 7), (1, 40, 64, 200), (1, 3, 5, 7),
-                                           (2, 33, 20, 70), (1, 65535 * 32, 8, 8), (4, 1, 1, 1)])
+                                           (2, 33, 20, 70), (1, 65535 * 32, 8, 8), (4, 1, 1, 1), (3, 130, 37, 9),
+                                           (2, 129, 33, 16), (4, 65, 257, 17), (1, 1, 100, 1024), (4, 1, 256, 1024)])
 def test_kan_split_plan_covers_the_inputs(E, B, IN, OUT):
-    """The wrapper's split of the inputs over blocks: whole K chunks of 8, every
-    input in exactly one split, no empty split, the grid's y within 65535."""
-    splits, per = tks._split_plan(E, B, IN, OUT, 132)
-    assert per % 8 == 0 and (splits - 1) * per < IN <= splits * per
-    assert splits * -(-B // 32) <= 65535
-    if (E, B, IN, OUT) == (4, 64, 1024, 7):  # the classifier layer: one output tile, 32 splits of 32 inputs
-        assert (splits, per) == (32, 32)
+    """The wrapper's launch plan: whole 32-input stages a split, every input in
+    exactly one split, no empty split; narrow tiles (64 batch rows by 8 or 16
+    outputs) at OUT <= 16, wide ones (128 weight rows by 64 batch rows) above,
+    covering every output; the splits fill about one block an SM."""
+    p = tks.plan(E, B, IN, OUT, 132)
+    assert p.per % 32 == 0 and (p.splits - 1) * p.per < IN <= p.splits * p.per
+    covered = np.zeros(IN, int)
+    for s in range(p.splits):
+        covered[s * p.per:(s + 1) * p.per] += 1
+    assert (covered == 1).all()
+    if OUT <= 16:
+        assert p.bn == (8 if OUT <= 8 else 16) and p.row_tiles * 64 >= B > (p.row_tiles - 1) * 64
+        assert p.col_tiles * p.bn >= OUT > (p.col_tiles - 1) * p.bn
+    else:
+        assert p.bn == 64 and p.row_tiles * 128 >= OUT > (p.row_tiles - 1) * 128
+        assert p.col_tiles * 64 >= B > (p.col_tiles - 1) * 64
+    assert p.tiles == E * p.row_tiles * p.col_tiles and p.blocks < min(2 ** 31, 132 + p.tiles)
+    if (E, B, IN, OUT) == (4, 64, 1024, 7):  # the classifier layer: one 8-column tile an expert, 32 splits of 32
+        assert (p.bn, p.splits, p.per) == (8, 32, 32)
+    if (E, B, IN, OUT) == (4, 64, 256, 1024):  # layer 0: 32 wide tiles, 4 splits of 64 inputs, 128 blocks
+        assert (p.bn, p.splits, p.per, p.blocks) == (64, 4, 64, 128)
+
+
+def _round_tf32(v):
+    """float32 to TF32 as cvt.rna.tf32.f32 rounds (csrc/kan_spline.cu): to nearest,
+    ties away from zero, on the 13 low mantissa bits (finite values)."""
+    bits = v.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_split(v):
+    """The kernel's (hi, lo) of a float32 operand: hi = tf32(v), lo = tf32(v - hi)."""
+    hi = _round_tf32(v)
+    return hi, _round_tf32(v.float() - hi)
+
+
+def _kan_3xtf32(x, grid, bw, sw):
+    """The kernel's arithmetic in plain torch: the bases operand [silu(x) |
+    bases(x)] and the weights [Wb | Ws], each split into a TF32 high and low
+    part (tf32_split: cvt.rna's rounding), and hi hi + hi lo + lo hi in
+    float32 (the dropped lo lo is about 2^-22 of each product)."""
+    a = torch.cat([x / (1.0 + torch.exp(-x)), tks.b_splines(x, grid, 3).reshape(x.shape[0], -1)], dim=1)
+    w = torch.cat([bw, sw.reshape(sw.shape[0], -1)], dim=1)
+    (ahi, alo), (whi, wlo) = tf32_split(a), tf32_split(w)
+    return ahi @ whi.T + ahi @ wlo.T + alo @ whi.T
+
+
+def test_tf32_split_is_round_to_nearest_away():
+    v = torch.tensor([1.0 + 2.0 ** -11, 1.0 + 2.0 ** -12, -(1.0 + 2.0 ** -11), 1.0 + 3 * 2.0 ** -12, 3.0e-3, 0.0])
+    hi, lo = tf32_split(v)
+    assert ((hi.view(torch.int32) & 0x1FFF) == 0).all() and ((lo.view(torch.int32) & 0x1FFF) == 0).all()
+    # a tie (half a TF32 step) rounds away from zero; below it, down
+    torch.testing.assert_close(hi[:4], torch.tensor([1.0 + 2.0 ** -10, 1.0, -(1.0 + 2.0 ** -10), 1.0 + 2.0 ** -10]),
+                               atol=0, rtol=0)
+    assert ((hi + lo - v).abs() <= 2.0 ** -22 * v.abs()).all()
+
+
+# the MoE bank's two layers at narrower widths: layer 0 (x shared, wide), layer 1 (x per expert, OUT 7)
+@pytest.mark.parametrize("E, B, IN, OUT, shared", [(4, 16, 64, 256, True), (4, 16, 256, 7, False)])
+def test_3xtf32_products_meet_the_tolerance(E, B, IN, OUT, shared):
+    """The tensor-core route's arithmetic against the JAX package's reference,
+    within the kernels' float32 tolerance, max |d| <= 1e-4 * max |ref|."""
+    x, grid, bw, sw = kan_inputs(B, IN, OUT, seed=IN + OUT, E=E)
+    for e in range(E):
+        xe = x[0] if shared else x[e]
+        ref = np.asarray(jks.kan_forward_ref(*map(jnp.asarray, (xe, grid[e], bw[e], sw[e])), 3))
+        out = _kan_3xtf32(*map(T, (np.ascontiguousarray(xe), grid[e], bw[e], sw[e]))).numpy()
+        _close(out, ref, frac=1e-4)
+
+
+def _stacked(mod):
+    return [(torch.stack([l.grid for l in bank]), torch.stack([l.base_weight for l in bank]),
+             torch.stack([l.scaled_spline_weight() for l in bank])) for bank in zip(*(e.layers for e in mod.experts))]
+
+
+def _bit_equal(a, b):
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_moe_bank_cache_is_the_stack_bit_for_bit(moe_pair):
+    *_, mod, x = moe_pair
+    with torch.no_grad():
+        mod(T(x))
+        cached = mod.stacked_layers()
+        assert mod.stacked_layers() is cached  # kept between forwards
+        assert all(_bit_equal(c, w) for got, want in zip(cached, _stacked(mod)) for c, w in zip(got, want))
+
+
+@pytest.mark.parametrize("name", ["spline_scaler", "spline_weight", "base_weight", "grid"])
+def test_moe_bank_cache_is_remade_after_an_in_place_change(name):
+    mod = init_parameters(tmoe.MoE(16, 7, 4, 2, expert_layers=(16, 24, 7)), torch.Generator().manual_seed(5))
+    x = T((np.random.default_rng(6).standard_normal((6, 16)) * 0.8).astype(np.float32))
+    with torch.no_grad():
+        before = mod.expert_bank(x)
+        cached = mod.stacked_layers()
+        getattr(mod.experts[2].layers[1], name).mul_(1.25)
+        after = mod.expert_bank(x)
+        assert mod.stacked_layers() is not cached
+        assert all(_bit_equal(c, w) for got, want in zip(mod.stacked_layers(), _stacked(mod)) for c, w in zip(got, want))
+        assert not torch.equal(before[2], after[2]) and torch.equal(before[:2], after[:2])
+        torch.testing.assert_close(after[2], mod.experts[2](x), atol=1e-6, rtol=0)
+
+
+def test_moe_bank_backward_reaches_the_parameters():
+    """With gradients on, the bank is stacked in the forward (a kept one is not used,
+    even after an inference forward kept one): backward reaches every expert's
+    parameters, with the gradients each expert's own KAN gives."""
+    mod = init_parameters(tmoe.MoE(16, 7, 4, 2, expert_layers=(16, 24, 7)), torch.Generator().manual_seed(7))
+    x = T((np.random.default_rng(8).standard_normal((6, 16)) * 0.8).astype(np.float32))
+    with torch.inference_mode():
+        mod.expert_bank(x)
+    assert mod._bank is not None
+    mod.expert_bank(x).square().sum().backward()
+    got = {n: p.grad.clone() for n, p in mod.named_parameters() if n.startswith("experts.")}
+    mod.zero_grad(set_to_none=True)
+    sum(e(x).square().sum() for e in mod.experts).backward()
+    for name in ("spline_weight", "spline_scaler", "base_weight"):
+        assert any(name in n for n in got)
+    for n, p in mod.named_parameters():
+        if n.startswith("experts."):
+            assert got[n].abs().sum() > 0, n
+            torch.testing.assert_close(got[n], p.grad, atol=1e-6, rtol=1e-5)
+
+
+def test_moe_bank_of_inference_tensors_follows_an_in_place_change():
+    """Parameters made in inference mode carry no version counter, so the bank is
+    stacked on each call: an in-place change shows in the next forward."""
+    with torch.inference_mode():
+        mod = init_parameters(tmoe.MoE(16, 7, 4, 2, expert_layers=(16, 24, 7)), torch.Generator().manual_seed(5))
+        x = T((np.random.default_rng(6).standard_normal((6, 16)) * 0.8).astype(np.float32))
+        before = mod.expert_bank(x)
+        mod.experts[1].layers[0].spline_scaler.mul_(1.5)
+        after = mod.expert_bank(x)
+        assert not torch.equal(before[1], after[1]) and torch.equal(before[0], after[0])
+        torch.testing.assert_close(after[1], mod.experts[1](x), atol=1e-6, rtol=0)
+
+
+def test_moe_head_matches_jax_after_its_bank_is_remade(moe_pair):
+    """The MoE head as test_moe_head_matches_jax holds it, on one set of weights
+    and then, after load_state_dict, on another: the kept bank follows."""
+    _, params, state, _, x = moe_pair
+    jhead = jheads.MoEHead(hidden_dim=16, num_classes=7, dropout=0.1, num_experts=4, k=2, dtype=jnp.float32)
+    var = jhead.init(jax.random.PRNGKey(2), jnp.asarray(x))
+    head = theads.MoEHead(16, 7, dropout=0.1, num_experts=4, k=2).eval()
+    for seed in (9, 10):
+        hp, hs = _perturb(var["params"], seed), var["kan_state"]
+        ref = jhead.apply({"params": hp, "kan_state": hs}, jnp.asarray(x))
+        head.load_state_dict(moe_state_dict_from_jax(hp["moe"], hs["moe"], "moe."), strict=True)
+        with torch.no_grad():
+            out = head(T(x))
+            assert head(T(x)).equal(out)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-5, rtol=0)
