@@ -30,7 +30,9 @@ Phases, each printing JSON lines:
               bn_stats within rtol 1e-5 and
               atol 1e-6 * E|x| (mean) or * E[x^2] (variance), and its backward
               within 1e-5 of the largest gradient; selective_scan (N 16, and
-              N 8 and 128) and kan_forward (both layers of the MoE bank)
+              N 8 and 128) and kan_forward (both layers of the baseline MoE
+              bank, and the four of ConNexT's at batch 32: 768 -> 512 with x
+              shared, 512 -> 128, 128 -> 32, 32 -> 7)
               within max |d| <= 1e-4 * max |plain| (float32); BERT's flash
               kernels (the forward at batch 32, seq 512, at seq 256 with the
               statistics m, l the backward reads, and seq 200, against SDPA's
@@ -163,17 +165,36 @@ Phases, each printing JSON lines:
               plain flash op (loss within 1e-2 relative, BERT gradient cosine
               >= 0.99); step ms in turns against the same preset under "auto",
               and both steps' device breakdowns
+ 12. connext ConNexT served at full width (configs/connext/connext_ham.yml:
+              ConvNeXt-base + BERT-base at seq 512, the MoE head of 4 KAN
+              experts [768, 512, 128, 32, 7], top-2), bf16, seeded random
+              weights with every layer scale at LAYER_SCALE (checked to move the
+              map by CONNEXT_SIGNAL of its norm against the init's 1e-6), the
+              image-side query and key convolutions scaled by CONNEXT_QK_SCALE
+              and w_gate along the rows' principal directions, logits of std
+              CONNEXT_GATE_STD (all four experts chosen),
+              through ServingModel(batch 32): 3 requests (32, 32, 5 rows) via
+              predict_stream and one of 1 row, with fused_attention and
+              ffn_block launched 12 times a forward, kan_forward 4 (once on each
+              layer of the bank) and nothing else; against the same weights on
+              the plain path (BERT under "xla", kan_forward's plain version):
+              BERT's CLS within SLICE_ATOL / SLICE_MEAN, the ConvNeXt map bit
+              for bit, the head on equal inputs within BF16_STEPS / BF16_MEAN of
+              max |logit|, the logits within CONNEXT_LOGIT_MAX / _MEAN of it;
+              images/s at batch 32, p50 latency at batch 1, tower and forward
+              times and the device breakdown
 Every device breakdown (device_profile) comes from a trace checked to hold
 whole calls: a census of one call against two names the kernels every call
 launches, and a trace that lost a record of one is taken again; the census,
 the records and the wrappers' launches of one call print beside it.
-Every served phase (slice, preset, seq512, flash, baseline) runs one warm
+Every served phase (slice, preset, seq512, flash, baseline, connext) runs one warm
 forward from device-resident inputs under torch.cuda.set_sync_debug_mode(
 "error") ("sync_free"): a call that makes the host wait on the device fails
 the script.
-Then a JSON line of the kernels (kan_forward's entry with its two layers'
-numbers under "layers", each with the launches the baseline run counted for
-its (IN, OUT)), the nvidia-smi line, and the result line.
+Then a JSON line of the kernels (each with its launches on every path that
+launched it, "launches_by_path"; kan_forward's entry with its six layers'
+numbers under "layers", each with the launches the baseline or the connext
+run counted for its (IN, OUT)), the nvidia-smi line, and the result line.
 Each path sets every launch count to 0 just before it runs and reads them
 just after. Any failure raises: the exit code is not 0 and no result line is
 printed.
@@ -202,6 +223,7 @@ from mdhs_tpu_torch.diagnostics import attention_ablate as diag
 from mdhs_tpu_torch.diagnostics import trace
 from mdhs_tpu_torch.models.baseline import MultimodalBaselineModel
 from mdhs_tpu_torch.models.bert import BertConfig, int8_composite
+from mdhs_tpu_torch.models.connext import ConNexTClassifier
 from mdhs_tpu_torch.models.init import init_parameters
 from mdhs_tpu_torch.models.mibf import MIBFNet
 from mdhs_tpu_torch.models.norm import BatchNorm2d
@@ -221,8 +243,8 @@ from mdhs_tpu_torch.ops import selective_scan as ss
 from mdhs_tpu_torch.ops import shear as sh
 from mdhs_tpu_torch.ops.preprocess import eval_pipeline
 from mdhs_tpu_torch.ops.quant import quantize_weight
-from mdhs_tpu_torch.serving import (BASELINE_BATCH, BASELINE_SEQ, HAM_FUSION_SSM, HAM_HEAD_MOE, MIBF_HAM_SERVING,
-                                    ServingModel)
+from mdhs_tpu_torch.serving import (BASELINE_BATCH, BASELINE_SEQ, CONNEXT_BATCH, CONNEXT_CROP, CONNEXT_HAM,
+                                    CONNEXT_SEQ, HAM_FUSION_SSM, HAM_HEAD_MOE, MIBF_HAM_SERVING, ServingModel)
 from mdhs_tpu_torch.train.trainer import MIBF_HAM_TRAIN, Trainer
 
 MAX_ABS, MEAN_ABS = 6e-2, 5e-3           # bf16 kernel vs plain version
@@ -266,6 +288,33 @@ BF16_STEPS, BF16_MEAN = 2.0 ** -6, 2.0 ** -10
 # weights, tests/test_torch_port_mixed_precision.py). A trained ResNet's
 # residual branches are damped (torchvision's zero_init_residual takes them to 0).
 RESIDUAL_BN_SCALE = 0.1
+# The connext phase's ConvNeXt-base takes every layer scale at 0.5: at the seeded init's 1e-6
+# each of its 36 blocks adds ~1e-6 of its branch, so the map would be the stem and the
+# downsampling convolutions alone and a wrong block would pass unseen. At 0.5 a block adds about
+# a third of a unit-variance branch to the stream, and the 27 of stage 2 take it to about four
+# times its variance: the map holds every block and stays far from bf16's range (the phase
+# checks the map moves by at least CONNEXT_SIGNAL of its norm against the init's layer scales).
+LAYER_SCALE, CONNEXT_SIGNAL = 0.5, 0.1
+# ConNexT's image-side cross-attention softmax is unscaled (the reference's): Q from BERT's CLS,
+# K from the 49 positions, dot products over 768 channels of order 1, so seeded weights give scores
+# of tens and a saturated softmax, where one bf16 ulp of the CLS (kernel path against plain path)
+# can move the winning position. Its query and key convolutions are scaled by 768^-0.25 each:
+# the scores of a 1/sqrt(768)-scaled softmax, which the phase prints (imag_scores).
+CONNEXT_QK_SCALE = 768 ** -0.25
+# ConNexT's logits on the kernel path against the plain path. The paths differ in BERT (bf16
+# kernels against the module path), whose CLS moves by up to SLICE_ATOL of a max |CLS| of order 4,
+# a few percent, and in the KAN bank (float32, ~1e-6); the head is smooth where its softmaxes are off
+# saturation and no row's top-2 experts lie within that difference of a tie (CONNEXT_GATE_STD). The
+# seeded four-layer bank gives logits of order 1e-2, so the bound is relative: max |d| within 2^-4 of
+# the largest logit, mean |d| within 2^-7 of it.
+CONNEXT_LOGIT_MAX, CONNEXT_LOGIT_MEAN = 2.0 ** -4, 2.0 ** -7
+# ConNexT's MoE gate (zero at init: every row routes alike) is set along the principal directions of
+# the first request's fused features, its logits spread with std 2 over the rows: the top-1 expert
+# takes most of a row's weight and the second the rest (the phase prints the mean top-1 gate), and
+# no row lies within the two paths' bf16 noise of a tie (_gate_along_row_spread says why a random
+# gate does not do that here)
+CONNEXT_GATE_STD = 2.0
+CONNEXT_BANK = (768, 512, 128, 32, 7)  # the MoE head's KAN experts (modules/moe.py's default stack)
 # H100 SXM datasheet peaks at 700 W: bytes/s of HBM, dense ops/s (float32 outside the tensor cores)
 HBM_BPS, BF16_OPS, INT8_OPS, F32_OPS = 3.35e12, 989e12, 1979e12, 67e12
 TF32_OPS = 494.7e12  # dense TF32 on the tensor cores (kan_forward's 3xTF32 products)
@@ -915,6 +964,18 @@ def _kernel_cases(dev, rng, seed):
                 f(rng.uniform(-1, 1, (E, OUT, IN)) / np.sqrt(IN)), f(rng.standard_normal((E, OUT, IN, 8)) * 0.01))
         cases.append(("kan_forward", f"E={E},x={tuple(x.shape)},OUT={OUT}", ks.kan_forward_reference, args, shared,
                       bound_kan_forward(E, BASELINE_BATCH, IN, OUT, shared), None, judge_f32))
+    # ConNexT's MoE bank at batch 32 (configs/connext/connext_ham.yml): 4 experts, [768, 512, 128, 32, 7],
+    # layer 0's x shared; a generator of its own, so the cases and phases after it get the inputs they got
+    # before it was added
+    g = np.random.default_rng([seed, CONNEXT_SEQ])
+    E = CONNEXT_HAM.moe_num_experts
+    for i, (IN, OUT) in enumerate(zip(CONNEXT_BANK, CONNEXT_BANK[1:])):
+        f = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+        x = f(g.standard_normal((CONNEXT_BATCH, IN) if i == 0 else (E, CONNEXT_BATCH, IN)) * 0.7)
+        args = (x, make_grid(IN, 5, 3, device=dev).expand(E, IN, 12).contiguous(),
+                f(g.uniform(-1, 1, (E, OUT, IN)) / np.sqrt(IN)), f(g.standard_normal((E, OUT, IN, 8)) * 0.01))
+        cases.append(("kan_forward", f"E={E},x={tuple(x.shape)},OUT={OUT}", ks.kan_forward_reference, args, False,
+                      bound_kan_forward(E, CONNEXT_BATCH, IN, OUT, i == 0), None, judge_f32))
     return cases
 
 
@@ -1457,6 +1518,29 @@ def _route_rows_apart(model, request, dev, g) -> None:
         model.classifier.moe.w_gate.copy_(w - m[:, None] * (m @ w)[None, :] / (m @ m))
 
 
+
+def _gate_along_row_spread(model, request, dev, std: float) -> None:
+    """Set ConNexT's MoE gate to the principal directions of the centred fused
+    features of ``request``'s rows, one an expert, without their part along the
+    mean feature, each scaled so that its logits spread over the rows with std
+    ``std``. A gate read along random directions
+    (``_route_rows_apart``) sees as small a share of the rows' differences, spread
+    over 768 directions, as of the bf16 noise between the kernel and the plain
+    path, so a few rows sit within that noise of a tie in the top-2; along the
+    directions in which the rows differ most the margin is several times wider (the
+    phase prints both, ``gate_spread_over_noise``)."""
+    with torch.inference_mode():
+        img = eval_pipeline(torch.from_numpy(request["image"]).to(dev), CONNEXT_CROP, normalize=True,
+                            dtype=torch.bfloat16)
+        feats = model.forward_features(img, torch.from_numpy(request["input_ids"]).to(dev),
+                                       torch.from_numpy(request["attention_mask"]).to(dev)).float()
+    m = feats.mean(dim=0)
+    x = feats - m
+    w = torch.linalg.svd(x, full_matrices=False)[2][:model.moe.w_gate.shape[1]].T  # (D, E)
+    w -= m[:, None] * (m @ w)[None, :] / (m @ m)  # no part along the mean: logits centred over the rows
+    with torch.no_grad():
+        model.moe.w_gate.copy_(w / (x @ w).std(dim=0) * std)
+
 def phase_baseline(dev, rng, seed: int) -> dict:
     """The baseline family's two served configurations at full width, bf16,
     through ServingModel(batch 64); returns the launches of each main path."""
@@ -1863,6 +1947,142 @@ def phase_train_flash(dev, rng, seed: int) -> dict:
     return launches
 
 
+def _layer_scales(model) -> list:
+    return [layer.layer_scale_parameter for stage in model.image_encoder.encoder.stages for layer in stage.layers]
+
+
+def phase_connext(dev, seed: int) -> dict:
+    """ConNexT served at full width (CONNEXT_HAM: ConvNeXt-base + BERT-base at seq
+    512, the KAN-expert MoE head), bf16, through ServingModel(batch 32); returns the
+    launches of the main path and kan_forward's by layer."""
+    rng = np.random.default_rng([seed, 20])  # inputs of its own: the other phases' stay as they were
+    g = torch.Generator(device=dev).manual_seed(seed + 20)
+    model = init_parameters(ConNexTClassifier(CONNEXT_HAM, device=dev, dtype=torch.bfloat16), g).eval()
+    server = ServingModel(model, CONNEXT_BATCH, dev, image_size=CONNEXT_CROP)  # channels_last weights from here on
+    bank = model.moe.experts[0].layers
+    check((bank[0].in_features, *(l.out_features for l in bank)) == CONNEXT_BANK, f"ConNexT's bank {bank}")
+    requests = [_request(rng, n, CONNEXT_SEQ) for n in (CONNEXT_BATCH, CONNEXT_BATCH, 5)]
+    r = requests[0]
+    with torch.inference_mode():
+        img = eval_pipeline(torch.from_numpy(r["image"]).to(dev), CONNEXT_CROP, normalize=True, dtype=torch.bfloat16)
+        ids = torch.from_numpy(r["input_ids"]).to(dev)
+        mask = torch.from_numpy(r["attention_mask"]).to(dev)
+    # --- the stated weights: layer scales at LAYER_SCALE (checked to carry the map), the image-side
+    # query and key at CONNEXT_QK_SCALE, the gate along the rows' spread (CONNEXT_GATE_STD)
+    with torch.no_grad():
+        with torch.inference_mode():
+            fmap_init = model.image_encoder(img).float()
+        for p in _layer_scales(model):
+            p.fill_(LAYER_SCALE)
+        attn = model.imagbased_cross_attention
+        for conv in (attn.query_conv, attn.key_conv):
+            conv.weight.mul_(CONNEXT_QK_SCALE)
+    _gate_along_row_spread(model, r, dev, CONNEXT_GATE_STD)
+    with torch.inference_mode():
+        cls, fmap = model.towers(img, ids, mask)
+        signal = ((fmap.float() - fmap_init).norm() / fmap.float().norm()).item()
+        check(bool(torch.isfinite(fmap).all()) and signal >= CONNEXT_SIGNAL,
+              f"ConvNeXt map at layer scale {LAYER_SCALE}: moved {signal} of its norm against the init's")
+        reduced = F.linear(fmap, model.conv.weight.flatten(1), model.conv.bias).flatten(1, 2)
+        scores = (attn.conv1x1(attn.query_conv, cls[:, None, None, :]) @
+                  attn.conv1x1(attn.key_conv, reduced[:, :, None, :]).transpose(1, 2)).float()
+        imag_scores = {"std": scores.std().item(), "max_abs": scores.abs().max().item()}
+    layers = CONNEXT_HAM.bert.num_hidden_layers
+
+    # --- the main path: three requests through predict_stream, then one of 1 row
+    zero_counts()
+    outs = list(server.predict_stream(iter(requests), depth=2))
+    launches = read_counts()
+    by_layer = dict(ks.kan_forward.launches_by_layer)
+    n_bank = len(CONNEXT_BANK) - 1
+    want = {**dict.fromkeys(KERNELS, 0), "fused_attention": layers * 3, "ffn_block": layers * 3,
+            "kan_forward": n_bank * 3}
+    check(launches == want, f"connext launches {launches}, expected {want}")
+    want_layers = {io: 3 for io in zip(CONNEXT_BANK, CONNEXT_BANK[1:])}
+    check(by_layer == want_layers, f"connext kan_forward launches by layer {by_layer}, expected {want_layers}")
+    for req, out in zip(requests, outs):
+        n = req["image"].shape[0]
+        check(out.shape == (n, CONNEXT_HAM.num_labels) and bool(np.isfinite(out).all()), f"connext logits {out.shape}")
+    one = {k: v[:1] for k, v in requests[2].items()}
+    zero_counts()
+    one_out = ServingModel(model, 1, dev, image_size=CONNEXT_CROP).predict(one)
+    one_launches = read_counts()
+    check(one_launches == {**dict.fromkeys(KERNELS, 0), "fused_attention": layers, "ffn_block": layers,
+                           "kan_forward": n_bank}, f"connext batch-1 launches {one_launches}")
+    check(bool(np.isfinite(one_out).all()), "connext batch-1 logits")
+
+    # --- the same weights on the plain path: BERT under "xla", kan_forward's plain version.
+    # The towers apart (BERT's CLS within the model bound, the ConvNeXt map the same bits: the
+    # same cuDNN path), the head on equal inputs, then the logits.
+    plain = ConNexTClassifier(dataclasses.replace(CONNEXT_HAM, bert=dataclasses.replace(
+        CONNEXT_HAM.bert, attention_impl="xla")), device=dev, dtype=torch.bfloat16).eval()
+    plain.load_state_dict(model.state_dict())
+    plain_server = ServingModel(plain, CONNEXT_BATCH, dev, image_size=CONNEXT_CROP)
+    with torch.inference_mode():
+        cls_plain, fmap_plain = plain.towers(img, ids, mask)
+        fused = model.fuse(cls, fmap)
+        head, _ = model.classify(fused)
+        with _plain_op(ks, "kan_forward", ks.kan_forward_reference):
+            head_plain, _ = model.classify(fused)
+            plain_outs = [plain_server.predict(q) for q in requests]
+    # the gate logits' spread over the rows against the two paths' difference in them (its rms), the
+    # least over the experts, for this gate and for one drawn as _route_rows_apart draws it
+    with torch.inference_mode():
+        noise = fused.float() - model.fuse(cls_plain, fmap_plain).float()
+        w_random = torch.randn(model.moe.w_gate.shape, generator=g, device=dev)
+        m = fused.float().mean(dim=0)
+        w_random -= m[:, None] * (m @ w_random)[None, :] / (m @ m)
+        gate_margin = {name: ((fused.float() @ w).std(dim=0) / (noise @ w).pow(2).mean(dim=0).sqrt()).min().item()
+                       for name, w in (("row_spread_gate", model.moe.w_gate), ("random_gate", w_random))}
+    cls_d = diff(cls, cls_plain)
+    check(cls_d[0] <= SLICE_ATOL and cls_d[1] < SLICE_MEAN, f"connext CLS kernel vs plain path: {cls_d}")
+    check(torch.equal(fmap, fmap_plain), "connext ConvNeXt map differs between two runs of the same path")
+    head_scale = head_plain.abs().max().item()
+    head_d = diff(head, head_plain)
+    check(head_d[0] <= BF16_STEPS * head_scale and head_d[1] <= BF16_MEAN * head_scale,
+          f"connext head kernel vs plain op: {head_d}, max |logit| {head_scale}")
+    logit_d = [diff(torch.from_numpy(o), torch.from_numpy(p)) for o, p in zip(outs, plain_outs)]
+    lmax, lmean = max(d[0] for d in logit_d), max(d[1] for d in logit_d)
+    scale = max(float(np.abs(p).max()) for p in plain_outs)
+    check(lmax <= CONNEXT_LOGIT_MAX * scale and lmean <= CONNEXT_LOGIT_MEAN * scale,
+          f"connext logits kernel vs plain path: max {lmax} mean {lmean}, max |logit| {scale}")
+
+    # --- routing, rates, tower and forward times, the device breakdown at batch 32
+    with torch.inference_mode():
+        gates, _ = noisy_top_k_gating(fused, model.moe.w_gate, None, CONNEXT_HAM.moe_k)
+    chosen = ["+".join(map(str, np.flatnonzero(row))) for row in (gates > 0).cpu().numpy()]
+    experts = {e for pair in chosen for e in pair.split("+")}
+    top1_gate_mean = gates.max(dim=1).values.mean().item()
+    check(len(experts) == CONNEXT_HAM.moe_num_experts, f"connext rows chose only experts {sorted(experts)}")
+    images_per_s = _stream_rate(server, requests[:2], 12)
+    p50 = _p50_ms(model, requests[0], dev)
+    with torch.inference_mode():
+        fwd = lambda: server.model(img, ids, mask)  # noqa: E731
+        forward_ms = cuda_ms(fwd, reps=5)
+        with _plain_op(ks, "kan_forward", ks.kan_forward_reference):
+            forward_plain_ms = cuda_ms(lambda: plain(img, ids, mask), reps=3)
+        towers = {"bert_tower_ms": cuda_ms(lambda: model.text_encoder(ids, mask), reps=5),
+                  "bert_tower_plain_ms": cuda_ms(lambda: plain.text_encoder(ids, mask), reps=5),
+                  "convnext_tower_ms": cuda_ms(lambda: model.image_encoder(img), reps=5),
+                  "head_ms": cuda_ms(lambda: model.classify(model.fuse(cls, fmap)), reps=5)}
+        device = device_profile(fwd, forward_ms, top=8)
+    emit({"phase": "connext", "config": "connext_ham", "model": "ConNexTClassifier: ConvNeXt-base + BERT-base, "
+          f"fusion 768, MoE head 4 KAN experts {list(CONNEXT_BANK)} top-2, bf16, seq {CONNEXT_SEQ}",
+          "requests": [int(q["image"].shape[0]) for q in requests], "launches": launches,
+          "kan_forward_by_layer": {f"{i}->{o}": n for (i, o), n in by_layer.items()}, "launches_batch1": one_launches,
+          "sync_free": sync_free(model, requests[0], dev), "layer_scale": LAYER_SCALE, "map_signal": signal,
+          "qk_scale": CONNEXT_QK_SCALE, "imag_scores": imag_scores, "gate_spread_over_noise": gate_margin,
+          "cls_vs_plain": {"max_abs": cls_d[0], "mean_abs": cls_d[1]},
+          "head_vs_plain_op": {"max_abs": head_d[0], "mean_abs": head_d[1], "max_abs_logit": head_scale},
+          "logits_vs_plain": {"max_abs": lmax, "mean_abs": lmean, "max_abs_logit": scale},
+          "top1_gate_mean": top1_gate_mean, "expert_pair_share_b32": {pair: chosen.count(pair) / len(chosen) for pair in sorted(set(chosen))},
+          "images_per_s_b32_stream": images_per_s, "p50_latency_ms_b1": p50, "forward_ms_b32": forward_ms,
+          "forward_plain_ms_b32": forward_plain_ms, "towers_b32": towers, "device_b32": device})
+    del model, plain, server, plain_server
+    torch.cuda.empty_cache()
+    return {"launches": launches, "kan_forward_by_layer": by_layer}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1883,19 +2103,28 @@ def main() -> int:
     baseline = phase_baseline(dev, rng, seed)
     train = phase_train(dev, rng, seed)
     train_flash = phase_train_flash(dev, rng, seed)
+    connext = phase_connext(dev, seed)
     main_path = {"attention_block": slice_launches, "ffn_block": slice_launches,
                  "fused_attention": seq512_launches, "int8_ffn_block": preset_launches,
                  "int8_attention_block": preset_launches, "shear_sublane": train["launches"],
                  "bn_stats": train["ab_launches"], **baseline, "flash_attention": flash_launches,
                  "flash_attention_bwd_dkv": train_flash, "flash_attention_bwd_dq": train_flash,
                  "attention_ablate": {"attention_ablate": ablate_launches}}
+    # every path's launches of each kernel, each counted from 0 just before that path ran
+    by_path = {"slice": slice_launches, "seq512": seq512_launches, "preset": preset_launches,
+               "baseline_ssm": baseline["selective_scan"], "baseline_moe": baseline["kan_forward"],
+               "train": train["launches"], "train_bn_stats": train["ab_launches"], "flash": flash_launches,
+               "train_flash": train_flash, "ablate": {"attention_ablate": ablate_launches},
+               "connext": connext["launches"]}
+    kan_by_layer = {**baseline["kan_forward_by_layer"], **connext["kan_forward_by_layer"]}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": main_path[name][name], "max_abs_err": summary[name]["max_abs_err"],
          "ms": summary[name]["ms"], "device_ms": summary[name]["device_ms"], "plain_ms": summary[name]["plain_ms"],
          "bound_ms": summary[name]["bound_ms"], "bound_by": summary[name]["bound_by"],
-         "library_ms": summary[name]["library_ms"], "library_device_ms": summary[name]["library_device_ms"]}
-        | ({"layers": [{**layer, "launches": baseline["kan_forward_by_layer"].get(tuple(layer["in_out"]), 0)}
+         "library_ms": summary[name]["library_ms"], "library_device_ms": summary[name]["library_device_ms"],
+         "launches_by_path": {path: counts[name] for path, counts in by_path.items() if counts.get(name)}}
+        | ({"layers": [{**layer, "launches": kan_by_layer.get(tuple(layer["in_out"]), 0)}
                        for layer in summary["kan_forward_layers"]]} if name == "kan_forward" else {})
         for name, (_, src, rep) in KERNELS.items()]})
     print(smi, flush=True)

@@ -1,14 +1,15 @@
 """JAX parameter trees -> PyTorch state_dicts (weights carried across).
 
 The exact inverse of ``mdhs_tpu.core.convert``'s torch -> flax converters
-(``convert_mibf_full``, ``convert_baseline_full``, ``convert_bert``,
-``convert_resnet_classifier``, ``convert_torch_mha``, ``_convert_kan_bank``):
+(``convert_mibf_full``, ``convert_baseline_full``, ``convert_connext_full``,
+``convert_bert``, ``convert_resnet_classifier``, ``convert_convnext_hf``,
+``convert_torch_mha``, ``_conv1x1``, ``_convert_kan_bank``):
 the input is the JAX package's ``params`` / ``batch_stats`` (/ ``kan_state``)
 trees as nested dicts of numpy arrays, the output a ``{name: Tensor}`` dict
 that ``load_state_dict`` takes. Layouts:
 
 - flax Dense kernel (in, out)  -> nn.Linear weight (out, in)
-- flax Conv kernel HWIO        -> nn.Conv2d weight OIHW
+- flax Conv kernel HWIO        -> nn.Conv2d weight OIHW (a depthwise (7, 7, 1, C) -> (C, 1, 7, 7))
 - BatchNorm scale/bias + batch_stats mean/var -> weight/bias/running_mean/running_var
 - LayerNorm scale -> weight; Embed embedding -> weight
 - MultiHeadAttention q/k/v_proj -> in_proj_weight (3E, E), in_proj_bias
@@ -44,6 +45,8 @@ def _ln(d: Tree, name: str, out: dict) -> None:
 
 def _conv(d: Tree, name: str, out: dict) -> None:
     out[f"{name}.weight"] = _t(np.transpose(np.asarray(d["kernel"]), (3, 2, 0, 1)))  # HWIO -> OIHW
+    if "bias" in d:
+        out[f"{name}.bias"] = _t(d["bias"])
 
 
 def _bn(p: Tree, s: Tree, name: str, out: dict) -> None:
@@ -194,4 +197,44 @@ def baseline_state_dict_from_jax(params: Tree, batch_stats: Tree, kan_state: Tre
         out.update(moe_state_dict_from_jax(head["moe"], kan_state["classifier"]["moe"], "classifier.moe."))
     else:
         raise ValueError(f"no converter for classifier_type={classifier_type!r}")
+    return out
+
+
+def convnext_state_dict_from_jax(params: Tree, prefix: str = "") -> dict[str, torch.Tensor]:
+    """``mdhs_tpu.models.convnext.ConvNeXt`` params -> HF ``ConvNextModel`` names
+    (``models/convnext.py``); the inverse of ``convert_convnext_hf``."""
+    out: dict[str, torch.Tensor] = {}
+    _conv(params["stem_conv"], f"{prefix}embeddings.patch_embeddings", out)
+    _ln(params["stem_norm"], f"{prefix}embeddings.layernorm", out)
+    for name, p in params.items():
+        if name.startswith("ds") and name.endswith("_norm"):
+            _ln(p, f"{prefix}encoder.stages.{name[2:-5]}.downsampling_layer.0", out)
+        elif name.startswith("ds") and name.endswith("_conv"):
+            _conv(p, f"{prefix}encoder.stages.{name[2:-5]}.downsampling_layer.1", out)
+        elif name.startswith("stage"):
+            stage, block = name[len("stage"):].split("_block")
+            base = f"{prefix}encoder.stages.{stage}.layers.{block}."
+            _conv(p["dwconv"], base + "dwconv", out)
+            _ln(p["norm"], base + "layernorm", out)
+            _lin(p["pwconv1"], base + "pwconv1", out)
+            _lin(p["pwconv2"], base + "pwconv2", out)
+            out[base + "layer_scale_parameter"] = _t(p["gamma"])
+    return out
+
+
+def connext_state_dict_from_jax(params: Tree, kan_state: Tree | None = None) -> dict[str, torch.Tensor]:
+    """``mdhs_tpu.models.connext.ConNexTClassifier`` (params, kan_state) -> state_dict
+    of ``mdhs_tpu_torch.models.connext.ConNexTClassifier``; the inverse of
+    ``convert_connext_full`` for either head (``moe`` when the tree has one,
+    else ``fc``)."""
+    out = bert_state_dict_from_jax(params["text_encoder"], "text_encoder.bert.")
+    out.update(convnext_state_dict_from_jax(params["image_encoder"], "image_encoder."))
+    _conv(params["reduce_conv"], "conv", out)
+    for name in ("textbased_cross_attention", "imagbased_cross_attention"):
+        for conv in ("query_conv", "key_conv", "value_conv"):
+            _conv(params[name][conv], f"{name}.{conv}", out)
+    if "moe" in params:
+        out.update(moe_state_dict_from_jax(params["moe"], kan_state["moe"], "moe."))
+    else:
+        _lin(params["fc"], "fc", out)
     return out

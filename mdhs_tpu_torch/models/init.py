@@ -12,6 +12,7 @@ from ..modules.attention import MultiHeadAttention
 from ..modules.kan import KANLinear, make_grid
 from ..modules.mamba import MambaBlock
 from ..modules.moe import MoE
+from .convnext import ConvNextLayer
 
 
 @torch.no_grad()
@@ -29,7 +30,8 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
     base weights and spline scalers uniform in +-scale / sqrt(in), spline
     coefficients uniform in +-scale_noise / (2 grid_size) (the JAX layer fits
     them to noise of that range), and the grid ``make_grid``'s, never drawn.
-    MoE: ``w_gate`` and ``w_noise`` zero. Values are drawn on the generator's
+    MoE: ``w_gate`` and ``w_noise`` zero. ConvNeXt's layer scale: its
+    ``layer_scale_init`` (1e-6). Values are drawn on the generator's
     device in float32 and cast to each parameter's dtype and device.
     """
 
@@ -70,4 +72,6 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
         elif isinstance(m, MoE):
             m.w_gate.zero_()
             m.w_noise.zero_()
+        elif isinstance(m, ConvNextLayer):
+            m.layer_scale_parameter.fill_(m.layer_scale_init)
     return model

@@ -11,6 +11,13 @@
   sqrt(head_dim), softmax in float32. Linear names follow the reference
   (``toQ_x``, ``toK_x``, ``toV_x``, ``toK_y``, ``toV_y``, ``to_out``), which
   ``mdhs_tpu.core.convert.convert_mibf_full`` reads.
+- ``ConvCrossAttention2D``: ConNexT's cross-attention over NHWC maps: Q from
+  map x, K and V from map y by 1x1 convolutions (``query_conv``,
+  ``key_conv``, ``value_conv``, the names ``convert_connext_full`` reads),
+  one head over the channels, the softmax in float32 and unscaled, as the
+  reference's raw dot-product softmax. A 1x1 convolution of a channels-last
+  map is a product on its last dimension, so each runs as ``F.linear`` with
+  the convolution's weight.
 """
 
 from __future__ import annotations
@@ -88,3 +95,23 @@ class JointKVCrossAttention(nn.Module):
         probs = torch.softmax(scores, dim=-1).to(x.dtype)
         ctx = (probs @ v).transpose(1, 2).reshape(x.shape[0], x.shape[1], self.dim)
         return self.to_out(ctx)
+
+
+class ConvCrossAttention2D(nn.Module):
+    def __init__(self, dim: int, device=None, dtype=None):
+        super().__init__()
+        f = dict(device=device, dtype=dtype)
+        self.query_conv = nn.Conv2d(dim, dim, 1, **f)
+        self.key_conv = nn.Conv2d(dim, dim, 1, **f)
+        self.value_conv = nn.Conv2d(dim, dim, 1, **f)
+
+    @staticmethod
+    def conv1x1(conv: nn.Conv2d, t: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, C) -> (B, H * W, C) through the 1x1 convolution."""
+        return F.linear(t.reshape(t.shape[0], -1, t.shape[-1]), conv.weight.flatten(1), conv.bias)
+
+    def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """x: (B, Hx, Wx, C) queries; y: (B, Hy, Wy, C). Returns x's shape."""
+        q, k, v = self.conv1x1(self.query_conv, x), self.conv1x1(self.key_conv, y), self.conv1x1(self.value_conv, y)
+        probs = torch.softmax((q @ k.transpose(1, 2)).float(), dim=-1).to(q.dtype)
+        return (probs @ v).reshape(*x.shape[:3], -1)

@@ -2,10 +2,12 @@
 
 Counterpart of ``mdhs_tpu/serving.py::ServingModel`` for an ``nn.Module``
 (the exported-artifact loader is ROADMAP item 9): MIBF-Net (served by its
-``image_text`` head, images not normalised) or the baseline family (its
-logits, ImageNet-normalised images). The model says which through its
-``normalize_input`` attribute and its ``input_dtype`` (its image tower's
-dtype: a bf16 baseline holds float32 parameters too). A serving process:
+``image_text`` head, images not normalised), the baseline family (its
+logits, ImageNet-normalised images) or ConNexT (the logits of its (logits,
+balance loss) pair, ImageNet-normalised images). The model says which
+through its ``normalize_input`` attribute and its ``input_dtype`` (its image
+tower's dtype: a bf16 baseline holds float32 parameters too). A serving
+process:
 
   - keeps the weights resident on the device;
   - runs a fixed static batch: a partial batch is zero-padded and the
@@ -22,10 +24,12 @@ A request is a dict of numpy arrays: ``image`` uint8 ``(n, H, W, 3)``,
 ``input_ids`` and ``attention_mask`` ``(n, L)``, with ``n <= batch_size``.
 
 ``MIBF_HAM_SERVING`` is the int8 serving preset of
-``configs/serving/mibf_ham_serving.yml``, and ``HAM_FUSION_SSM`` and
+``configs/serving/mibf_ham_serving.yml``, ``HAM_FUSION_SSM`` and
 ``HAM_HEAD_MOE`` the baseline configurations of
-``configs/ham/ham_fusion_ssm_v1.yml`` and ``ham_head_moe_v1.yml``, resolved
-(the card's machine has no yaml reader; tests hold each equal to its YAML).
+``configs/ham/ham_fusion_ssm_v1.yml`` and ``ham_head_moe_v1.yml``, and
+``CONNEXT_HAM`` the ConNexT configuration of
+``configs/connext/connext_ham.yml``, resolved (the card's machine has no
+yaml reader; tests hold each equal to its YAML).
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from torch import nn
 from .device import resolve_device
 from .models.baseline import BaselineConfig
 from .models.bert import BertConfig
+from .models.connext import ConNexTConfig
 from .ops.preprocess import eval_pipeline
 
 
@@ -67,6 +72,16 @@ MIBF_HAM_SERVING = ServingPreset(
 HAM_FUSION_SSM = BaselineConfig(dropout=0.3, fusion_type="mamba", classifier_type="mlp")
 HAM_HEAD_MOE = BaselineConfig(dropout=0.3, fusion_type="multiscale", classifier_type="moe")
 BASELINE_BATCH, BASELINE_SEQ = 64, 128
+
+# configs/connext/connext_ham.yml over configs/common/base.yml (the JAX Trainer's
+# build_model for family "connext"): ConvNeXt-base, BERT-base, fusion 768, the MoE head
+# (model.moe.enabled) of 4 KAN experts [768, 512, 128, 32, 7], top-2, 7 classes; batch 32
+# (training.batch_size, the batch run_predict takes), seq 512 (tokenizer.max_length),
+# canvas 256 cropped to 224 (data.canvas, data.image_size). model.moe.balance_weight
+# weighs the returned balance loss in training, on top of the MoE's own 1e-2 coefficient.
+CONNEXT_HAM = ConNexTConfig(head="moe", moe_num_experts=4, moe_k=2)
+CONNEXT_BATCH, CONNEXT_SEQ, CONNEXT_CANVAS, CONNEXT_CROP = 32, 512, 256, 224
+CONNEXT_BALANCE_WEIGHT = 0.01
 
 _INPUTS = {"image": torch.uint8, "input_ids": torch.int64, "attention_mask": torch.int64}
 
@@ -114,6 +129,8 @@ class ServingModel:
             logits = self.model(images, dev["input_ids"], dev["attention_mask"])
             if isinstance(logits, dict):  # MIBF-Net's three heads
                 logits = logits["image_text"]
+            elif isinstance(logits, tuple):  # ConNexT's (logits, balance loss)
+                logits = logits[0]
             if self.device.type != "cuda":
                 return logits, n
             host = torch.empty(logits.shape, dtype=logits.dtype, pin_memory=True)

@@ -1147,3 +1147,104 @@ def test_ablation_device_split_traces_every_launch(dev):
         assert sum("attention_ablate_kernel" in e.name for e in events) == chain.steps
     split = diag.device_split(chain, q, k, v, bias)
     assert split["kernel_device_ms"] > 0 and min(split["chain_device_ms_per_step"].values()) > 0
+
+
+# --------------------------------------------------------------------------- ConNexT's path
+from mdhs_tpu_torch.models.connext import ConNexTClassifier, ConNexTConfig  # noqa: E402
+from mdhs_tpu_torch.models.convnext import register_convnext_variant  # noqa: E402
+
+# ConNexT's MoE bank, [768, 512, 128, 32, 7] over 4 experts at batch 32: layer 0's x shared
+# (32 batch rows: half a 64-row tile), OUT 32 on the wide orientation (32 of 128 weight rows),
+# IN 32 a single stage, OUT 7 on narrow 8-column tiles
+_CONNEXT_BANK = [(4, 32, 768, 512, True), (4, 32, 512, 128, False), (4, 32, 128, 32, False), (4, 32, 32, 7, False)]
+
+
+@pytest.mark.parametrize("E, B, IN, OUT, shared", _CONNEXT_BANK)
+def test_kan_forward_connext_bank_shapes_match_plain(dev, E, B, IN, OUT, shared):
+    """Each layer of the bank at the served batch 32 and at batch 1."""
+    for b in (B, 1):
+        args = _kan_args(np.random.default_rng(b + IN + OUT), E, b, IN, OUT, dev, shared)
+        n = ks.kan_forward.launches
+        out = ks.kan_forward(*args)
+        torch.cuda.synchronize()
+        assert ks.kan_forward.launches == n + 1
+        _close_f32(out, ks.kan_forward_reference(*args))
+
+
+def test_connext_kernel_path_matches_plain_path(dev, monkeypatch):
+    """A bf16 ConNexT with one BERT-base layer at seq 512, a pico ConvNeXt and the
+    reference's bank [768, 512, 128, 32, 7]: a forward launches fused_attention and
+    ffn_block once and kan_forward four times, and nothing else. Against the same
+    weights on the plain path (attention_impl "xla", kan_forward's plain version):
+    BERT's CLS within the bf16 bound, the ConvNeXt map bit for bit (the same cuDNN
+    path), the head on equal inputs within 2^-6 of max |logit| (kan_forward's output
+    is cast to bf16), the logits within 2^-4 of max |logit| and mean 2^-7 of it
+    (chip_smoke.py's CONNEXT_LOGIT_MAX / _MEAN say why). As in chip_smoke.py's
+    connext phase, the layer scales are 0.5, the image-side query and key
+    convolutions are scaled by 768^-0.25 (the unscaled softmax off saturation), and
+    the gate reads the rows' principal directions, its logits of std 2."""
+    register_convnext_variant("cuda_pico", (1, 1, 1, 1), (32, 32, 32, 64))
+    bert = BertConfig(vocab_size=512, num_hidden_layers=1)
+    cfg = ConNexTConfig(convnext_variant="cuda_pico", head="moe", bert=bert)
+    g = torch.Generator(device=dev).manual_seed(0)
+    model = init_parameters(ConNexTClassifier(cfg, device=dev, dtype=torch.bfloat16), g).eval()
+    rng = np.random.default_rng(1)
+    n = 6
+    img = torch.tensor(rng.standard_normal((n, 3, 64, 64)), dtype=torch.bfloat16, device=dev)
+    ids = torch.tensor(rng.integers(0, 512, (n, 512)), device=dev)
+    mask = torch.ones((n, 512), dtype=torch.int64, device=dev)
+    mask[1, 300:] = 0
+    with torch.no_grad():
+        for conv in (model.imagbased_cross_attention.query_conv, model.imagbased_cross_attention.key_conv):
+            conv.weight.mul_(768 ** -0.25)
+        for stage in model.image_encoder.encoder.stages:
+            for layer in stage.layers:
+                layer.layer_scale_parameter.fill_(0.5)
+        feats = model.forward_features(img, ids, mask).float()
+        m = feats.mean(dim=0)
+        w = torch.linalg.svd(feats - m, full_matrices=False)[2][:4].T
+        w -= m[:, None] * (m @ w)[None, :] / (m @ m)
+        model.moe.w_gate.copy_(w / ((feats - m) @ w).std(dim=0) * 2.0)
+    plain = ConNexTClassifier(dataclasses.replace(cfg, bert=dataclasses.replace(bert, attention_impl="xla")),
+                              device=dev, dtype=torch.bfloat16).eval()
+    plain.load_state_dict(model.state_dict())
+    with torch.inference_mode():
+        before = _counts() + (ks.kan_forward.launches,)
+        logits, balance = model(img, ids, mask)
+        launched = [a - b for a, b in zip(_counts() + (ks.kan_forward.launches,), before)]
+        assert launched == [0, 1, 1, 0, 0, 4], launched
+        assert logits.dtype == torch.float32 and logits.shape == (n, 7) and torch.isfinite(logits).all()
+        cls, fmap = model.towers(img, ids, mask)
+        cls_plain, fmap_plain = plain.towers(img, ids, mask)
+        _close(cls, cls_plain)
+        assert torch.equal(fmap, fmap_plain)
+        fused = model.fuse(cls, fmap)
+        head, _ = model.classify(fused)
+        with monkeypatch.context() as mp:
+            mp.setattr(moe_mod._ks, "kan_forward", ks.kan_forward_reference)
+            head_plain, _ = model.classify(fused)
+            logits_plain, _ = plain(img, ids, mask)
+    scale = head_plain.abs().max().item()
+    assert (head - head_plain).abs().max().item() <= 2.0 ** -6 * scale
+    d, scale = (logits - logits_plain).abs(), logits_plain.abs().max().item()
+    assert d.max().item() <= 2.0 ** -4 * scale and d.mean().item() <= 2.0 ** -7 * scale, (d.max().item(), scale)
+
+
+@pytest.mark.parametrize("rows, C", [(32 * 56 * 56, 128), (32 * 7 * 7, 1024), (5, 768)])
+def test_bf16_layer_norm_takes_float32_statistics(dev, rows, C):
+    """ConvNeXt's LayerNorms (eps 1e-6) on bf16 activations, as flax computes them:
+    statistics in float32, the output rounded once to bf16. F.layer_norm on a bf16
+    CUDA tensor against the float32 plain path on the same values: within one bf16
+    step of each output, plus 1e-5 for the float32 rounding of terms of up to ~10
+    that cancel near 0 (the two differ only in float32 rounding before the last
+    one), on rows with a mean far from 0 (where a bf16 mean or variance would be
+    off by far more)."""
+    g = torch.Generator(device=dev).manual_seed(rows + C)
+    x = (torch.randn((rows, C), generator=g, device=dev) * 2.0 + 8.0).to(torch.bfloat16)
+    w = (1.0 + 0.1 * torch.randn(C, generator=g, device=dev)).to(torch.bfloat16)
+    b = (0.1 * torch.randn(C, generator=g, device=dev)).to(torch.bfloat16)
+    out = torch.nn.functional.layer_norm(x, (C,), w, b, 1e-6)
+    ref = torch.nn.functional.layer_norm(x.float(), (C,), w.float(), b.float(), 1e-6)
+    assert out.dtype == torch.bfloat16
+    bound = torch.finfo(torch.bfloat16).eps * ref.abs() + 1e-5
+    assert bool(((out.float() - ref).abs() <= bound).all())

@@ -141,8 +141,8 @@ def test_serving_runs_on_the_card_unless_asked_for_the_cpu(model):
 
 def test_package_imports_no_jax_and_runs_the_slice():
     """A fresh interpreter: the port's modules, a CPU run of the serving slice,
-    a training step, a forward of each served baseline configuration and a
-    BERT forward under attention_impl="flash" leave jax, flax and mdhs_tpu
+    a training step, a forward of each served baseline configuration, a
+    served ConNexT and a BERT forward under attention_impl="flash" leave jax, flax and mdhs_tpu
     out of sys.modules (this test process has them, because the suite's
     conftest imports jax)."""
     script = textwrap.dedent(f"""
@@ -150,13 +150,13 @@ def test_package_imports_no_jax_and_runs_the_slice():
         import numpy as np, torch
         import mdhs_tpu_torch
         from mdhs_tpu_torch.core import convert
-        from mdhs_tpu_torch.models import baseline, bert, encoders, init, mibf, resnet
+        from mdhs_tpu_torch.models import baseline, bert, connext, convnext, encoders, init, mibf, resnet
         from mdhs_tpu_torch.modules import attention, fusion, heads, kan, mamba, moe
         from mdhs_tpu_torch.models import norm
         from mdhs_tpu_torch.ops import (_build, attention_block, augment, bn_stats, ffn_block, flash_attention,
                                         fused_attention, gelu, kan_spline, preprocess, quant, quant_kernel,
                                         selective_scan, shear)
-        from mdhs_tpu_torch.serving import HAM_FUSION_SSM, HAM_HEAD_MOE, MIBF_HAM_SERVING, ServingModel
+        from mdhs_tpu_torch.serving import CONNEXT_HAM, HAM_FUSION_SSM, HAM_HEAD_MOE, MIBF_HAM_SERVING, ServingModel
         from mdhs_tpu_torch.train import losses, metrics, optim, trainer
         cfg = bert.BertConfig(vocab_size=64, num_hidden_layers=1, intermediate_size=64,
                               max_position_embeddings=16)
@@ -180,6 +180,12 @@ def test_package_imports_no_jax_and_runs_the_slice():
                 preset, hidden_dim=32, num_heads=4, text_feature_dim=768, bert=cfg)), torch.Generator().manual_seed(0))
             out = ServingModel(b, 2, "cpu", image_size=32).predict(req)
             assert out.shape == (2, 7) and np.isfinite(out).all()
+        convnext.register_convnext_variant("pico", (1, 1, 1, 1), (8, 8, 8, 16))
+        c = init.init_parameters(connext.ConNexTClassifier(dataclasses.replace(
+            CONNEXT_HAM, convnext_variant="pico", moe_expert_layers=(768, 16, 7), bert=cfg)),
+            torch.Generator().manual_seed(0))
+        out = ServingModel(c, 2, "cpu", image_size=32).predict(req)
+        assert out.shape == (2, 7) and np.isfinite(out).all()
         flash = bert.BertModel(dataclasses.replace(cfg, max_position_embeddings=128, attention_impl="flash"))
         mask = np.ones((2, 128), np.int64)
         mask[1, 50:] = 0

@@ -107,3 +107,24 @@ def test_whole_trace_checks_only_the_kernels_every_call_launches(traces):
                          [_event(n, t, 1.0) for t, n in enumerate("abcab")]])
     events, census = trace.whole_trace(traces.fn, 2)
     assert [e.name for e in events] == list("abcab") and census["irregular"] == {"c": [1, 1]}
+
+
+def test_whole_trace_takes_the_census_again_where_every_trace_failed(traces):
+    # the census finds a, b and c in every call; then c runs on one call in two, so every trace of
+    # 2 calls fails the check; a second census finds c irregular, and the next trace passes without it
+    def seq(names):
+        return [_event(n, t, 1.0) for t, n in enumerate(names)]
+
+    traces.queue.extend([seq("abc"), seq("abcabc")] + [seq("abcab")] * trace.TRIES
+                        + [seq("ab"), seq("abcab"), seq("abcab")])
+    events, census = trace.whole_trace(traces.fn, 2)
+    assert census["irregular"] == {"c": [0, 1]} and [e.name for e in events] == list("abcab")
+    assert not traces.queue
+
+
+def test_whole_trace_raises_where_the_second_census_does_not_help(traces):
+    lost = _calls("ab", 2)[:-1]
+    traces.queue.extend(([_calls("ab", 1), _calls("ab", 2)] + [lost] * trace.TRIES) * 2)
+    with pytest.raises(RuntimeError, match=f"each of {trace.TRIES} traces"):
+        trace.whole_trace(traces.fn, 2)
+    assert not traces.queue
