@@ -183,6 +183,39 @@ Phases, each printing JSON lines:
               max |logit|, the logits within CONNEXT_LOGIT_MAX / _MEAN of it;
               images/s at batch 32, p50 latency at batch 1, tower and forward
               times and the device breakdown
+ 13. cli     the inference entry points (mdhs_tpu_torch/cli) over a directory of
+              CLI_IMAGES seeded 600 x 450 PNGs (HAM10000's size, written by
+              data/png.py), a JSON of descriptions and a label CSV, each
+              config written resolved as JSON and seeded full-width weights as a
+              port checkpoint (float32; it reloads bit for bit); its inputs from
+              a generator of its own. MIBF-Net (configs/mibf/mibf_ham.yml:
+              ResNet50 + BERT-base, seq 256, batch 32, so 3 batches, the last of
+              16 rows): run_predict with TTA off, then on (hflip, vflip, rot90),
+              and run_evaluate, each launching attention_block and ffn_block 12
+              times a batch (one forward a batch under TTA too) and nothing else;
+              the logits with TTA off equal ServingModel.predict of the same
+              checkpoint on the same canvases bit for bit, and lie within
+              SLICE_ATOL / SLICE_MEAN of the plain path (attention_impl "xla");
+              the TTA logits within that bound of the mean of four separate
+              kernel forwards of the transformed crops; the CSV holds the rows in
+              the label CSV's order with the logits' argmax, and the evaluate
+              accuracy is the CSV's; the native resampler ran once an image in
+              every run (built before the first, its seconds printed), PIL
+              decoded where it imports, and run_evaluate decoded with
+              data/png.py, PIL set aside as on a machine without it, whose
+              canvases equal PIL's bit for bit. The int8 preset
+              (configs/serving/mibf_ham_serving.yml, batch 32 as the CLI takes
+              training.batch_size) on the same images: int8_attention_block and
+              int8_ffn_block 12 times a batch, the logits within INT8_ATOL /
+              INT8_MEAN of the int8 composite. run_ablation_eval on
+              ham_fusion_ssm_v1 (batch 64, 64 images): full_fusion, image_only,
+              text_off, with selective_scan launched 2 times (full_fusion and
+              text_off; image_only runs no text tower and no fusion). run_predict
+              --family connext on connext_ham.yml (32 images): fused_attention,
+              ffn_block and kan_forward 12 / 12 / 4 times. For each run, as
+              information: host-clock images/s, the host's decode, resize and
+              tokenize ms, and the forward's device ms (trace.whole_trace) with
+              the device's busy share of the run
 Every device breakdown (device_profile) comes from a trace checked to hold
 whole calls: a census of one call against two names the kernels every call
 launches, and a trace that lost a record of one is taken again; the census,
@@ -205,8 +238,10 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import importlib.util
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -218,9 +253,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mdhs_tpu_torch import resolve_device
+from mdhs_tpu_torch import native, resolve_device
+from mdhs_tpu_torch.cli import common as cli_common
+from mdhs_tpu_torch.cli import run_ablation_eval, run_evaluate, run_predict
+from mdhs_tpu_torch.core.checkpoint import load_torch_file, load_weights, save_checkpoint
+from mdhs_tpu_torch.core.config import load_config
+from mdhs_tpu_torch.data import datasets as cli_data
+from mdhs_tpu_torch.data import png
 from mdhs_tpu_torch.diagnostics import attention_ablate as diag
 from mdhs_tpu_torch.diagnostics import trace
+from mdhs_tpu_torch.models import build_model
 from mdhs_tpu_torch.models.baseline import MultimodalBaselineModel
 from mdhs_tpu_torch.models.bert import BertConfig, int8_composite
 from mdhs_tpu_torch.models.connext import ConNexTClassifier
@@ -243,6 +285,7 @@ from mdhs_tpu_torch.ops import selective_scan as ss
 from mdhs_tpu_torch.ops import shear as sh
 from mdhs_tpu_torch.ops.preprocess import eval_pipeline
 from mdhs_tpu_torch.ops.quant import quantize_weight
+from mdhs_tpu_torch.ops.tta import tta_variants
 from mdhs_tpu_torch.serving import (BASELINE_BATCH, BASELINE_SEQ, CONNEXT_BATCH, CONNEXT_CROP, CONNEXT_HAM,
                                     CONNEXT_SEQ, HAM_FUSION_SSM, HAM_HEAD_MOE, MIBF_HAM_SERVING, ServingModel)
 from mdhs_tpu_torch.train.trainer import MIBF_HAM_TRAIN, Trainer
@@ -315,6 +358,12 @@ CONNEXT_LOGIT_MAX, CONNEXT_LOGIT_MEAN = 2.0 ** -4, 2.0 ** -7
 # gate does not do that here)
 CONNEXT_GATE_STD = 2.0
 CONNEXT_BANK = (768, 512, 128, 32, 7)  # the MoE head's KAN experts (modules/moe.py's default stack)
+# The cli phase's inputs: HAM10000's 600 x 450 dermoscopy images, the batch's three TTA variants
+CLI_IMAGES, CLI_H, CLI_W = 80, 450, 600
+CLI_TTA = ("hflip", "vflip", "rot90")
+CLI_WORDS = ("lesion", "pigment", "network", "border", "irregular", "asymmetric", "nevus", "melanoma", "dermoscopy",
+             "globules", "streaks", "blue-white", "veil", "regression", "vascular", "keratosis", "benign", "atypical",
+             "papule", "macule", "patient", "reports", "itching", "growth", "months,", "colour;", "diameter", "mm.")
 # H100 SXM datasheet peaks at 700 W: bytes/s of HBM, dense ops/s (float32 outside the tensor cores)
 HBM_BPS, BF16_OPS, INT8_OPS, F32_OPS = 3.35e12, 989e12, 1979e12, 67e12
 TF32_OPS = 494.7e12  # dense TF32 on the tensor cores (kan_forward's 3xTF32 products)
@@ -2083,6 +2132,307 @@ def phase_connext(dev, seed: int) -> dict:
     return {"launches": launches, "kan_forward_by_layer": by_layer}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the inference entry points over an image directory and a checkpoint
+REPO = Path(__file__).resolve().parent
+CLI_DIR = REPO / "mdhs_tpu_torch" / "build" / "cli_smoke"  # git-ignored; removed when the phase ends
+
+
+def _cli_image(rng) -> np.ndarray:
+    """A seeded 450 x 600 RGB image: a skin-toned field, a darker blob, pixel noise."""
+    yy, xx = np.mgrid[0:CLI_H, 0:CLI_W].astype(np.float32)
+    cy, cx, r = rng.uniform(0.3, 0.7) * CLI_H, rng.uniform(0.3, 0.7) * CLI_W, rng.uniform(60, 160)
+    blob = np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * r * r))[..., None]
+    img = rng.uniform(150, 230, 3) * (1 - blob) + rng.uniform(30, 120, 3) * blob
+    return np.clip(img + rng.normal(0, 6, (CLI_H, CLI_W, 3)), 0, 255).astype(np.uint8)
+
+
+def _cli_inputs(rng) -> dict:
+    """CLI_IMAGES PNGs, a JSON of their descriptions (8-300 words: some past seq 256),
+    and label CSVs of the first 80, 64 and 32 rows of a shuffled order."""
+    img_dir = CLI_DIR / "images"
+    img_dir.mkdir(parents=True, exist_ok=True)
+    names = [f"ISIC_{i:07d}.png" for i in range(CLI_IMAGES)]
+    records = []
+    for name in names:
+        png.write_png(str(img_dir / name), _cli_image(rng))
+        records.append({"image_info": name, "description": " ".join(rng.choice(CLI_WORDS, int(rng.integers(8, 300))))})
+    (CLI_DIR / "descriptions.json").write_text(json.dumps(records))
+    order = [names[i] for i in rng.permutation(CLI_IMAGES)]
+    labels = {name: int(rng.integers(0, LABELS)) for name in names}
+    csvs = {}
+    for n in (CLI_IMAGES, 64, 32):
+        csvs[n] = str(CLI_DIR / f"labels_{n}.csv")
+        Path(csvs[n]).write_text("image_id,label\n" + "".join(f"{a},{labels[a]}\n" for a in order[:n]))
+    return {"image_dir": str(img_dir), "json_path": str(CLI_DIR / "descriptions.json"), "label_csv": csvs,
+            "order": order, "labels": labels}
+
+
+def _cli_config(name: str, inputs: dict, n: int) -> str:
+    """mdhs_tpu_torch/configs/<name>.json (a configs/*.yml resolved) with its test split at
+    the inputs' first n rows, written as JSON; its path."""
+    cfg = load_config(REPO / "mdhs_tpu_torch" / "configs" / f"{name}.json")
+    for key, val in (("data.test_image_dir", inputs["image_dir"]), ("data.test_json_path", inputs["json_path"]),
+                     ("data.test_label_csv", inputs["label_csv"][n]), ("output.log_dir", str(CLI_DIR / "runs"))):
+        cfg.set(key, val)
+    path = CLI_DIR / f"{name}_{n}.json"
+    cfg.save_json(path)
+    return str(path)
+
+
+def _cli_checkpoint(model: nn.Module, name: str) -> str:
+    """``model``'s seeded weights as a port checkpoint, checked to reload bit for bit; its path."""
+    path = str(CLI_DIR / f"{name}.pt")
+    save_checkpoint(path, model, {"name": name})
+    saved, state = load_torch_file(path), model.state_dict()
+    check(saved.keys() == state.keys() and all(torch.equal(saved[k], state[k].cpu()) for k in state),
+          f"{name}: the checkpoint does not reload bit for bit")
+    return path
+
+
+def _cli_run(fn, argv: list, n: int) -> tuple:
+    """One CLI call with every count at 0 just before it: (its result, the kernels'
+    launches, host-clock seconds and images/s, the host's decode / resize / tokenize ms,
+    the PNG reader's and the native resampler's calls)."""
+    zero_counts()
+    cli_data.reset_host_ms()
+    png.decode_png.calls = native.resize_center_square.calls = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = fn([*argv, "--device", "cuda"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return result, read_counts(), {"seconds": seconds, "images_per_s": n / seconds,
+                                   "host_ms": dict(cli_data.HOST_MS), "png_decodes": png.decode_png.calls,
+                                   "native_resizes": native.resize_center_square.calls}
+
+
+def _cli_check_run(what: str, launches: dict, want: dict, info: dict, n: int, png_reader: bool) -> None:
+    """The run's launches, and its n images each resized by the native resampler and, where
+    ``png_reader`` (PIL set aside, or absent), decoded by data/png.py."""
+    want = {**dict.fromkeys(KERNELS, 0), **want}
+    check(launches == want, f"cli {what}: launches {launches}, expected {want}")
+    check(info["native_resizes"] == n, f"cli {what}: the native resampler ran {info['native_resizes']} times, not {n}")
+    decodes = n if png_reader or cli_data._pil() is None else 0
+    check(info["png_decodes"] == decodes, f"cli {what}: the PNG reader ran {info['png_decodes']} times, not {decodes}")
+
+
+@contextlib.contextmanager
+def _without_pil():
+    """The dataset as on a machine without PIL: every PNG through data/png.py."""
+    pil = cli_data._pil
+    cli_data._pil = lambda: None
+    try:
+        yield
+    finally:
+        cli_data._pil = pil
+
+
+def _cli_device(model, batch, dev, image_size, normalize, tta=(), **forward_kwargs) -> dict:
+    """The forward of one loader batch (fused over the TTA variants where asked): its
+    CUDA-event ms and its device breakdown."""
+    with torch.inference_mode():
+        img = eval_pipeline(torch.from_numpy(batch["image"]).to(dev), image_size, normalize=normalize,
+                            dtype=model.input_dtype)
+        ids = torch.from_numpy(batch["input_ids"]).long().to(dev)
+        mask = torch.from_numpy(batch["attention_mask"]).long().to(dev)
+        if tta:
+            V = len(tta) + 1
+            img = tta_variants(img, tta).flatten(0, 1).contiguous(memory_format=torch.channels_last)
+            ids, mask = ids.repeat(V, 1), mask.repeat(V, 1)
+        fwd = lambda: model(img, ids, mask, **forward_kwargs)  # noqa: E731
+        ms = cuda_ms(fwd, reps=5)
+        return {"forward_ms": ms, "rows": int(img.shape[0]), "device": device_profile(fwd, ms)}
+
+
+def _cli_model(cfg: str, family: str, ckpt: str, dev):
+    """The model and the first loader batch of a CLI run, outside the CLI."""
+    predictor = cli_common.build_predictor(cfg, family, device=dev)
+    predictor.load_weights(ckpt)
+    return predictor.model.to(memory_format=torch.channels_last), next(iter(predictor.make_test_loader()))
+
+
+def _cli_busy(info: dict, device: dict, forwards: int) -> None:
+    """The device's busy share of the CLI call: its forwards' device ms over the call's host-clock ms."""
+    info["device_ms_per_forward"] = device["device"]["kernel_ms"]
+    info["busy_share"] = device["device"]["kernel_ms"] * forwards / (info["seconds"] * 1e3)
+
+
+def _logits_of(server, batches) -> np.ndarray:
+    return np.concatenate([server.predict(b)[: int(b["n_valid"])] for b in batches])
+
+
+def _judge_model(out, ref, atol, mean, what) -> dict:
+    mx, mn = diff(torch.from_numpy(out), torch.from_numpy(ref))
+    check(mx <= atol and mn < mean, f"cli {what}: max {mx} mean {mn} (bound {atol} / {mean})")
+    return {"max_abs": mx, "mean_abs": mn}
+
+
+def _cli_mibf(dev, inputs: dict, g) -> dict:
+    """run_predict (TTA off, then on) and run_evaluate on mibf_ham at full width, and the preset
+    on the same images and weights; returns the phase's MIBF lines and their launches."""
+    n = CLI_IMAGES
+    layers = BertConfig().num_hidden_layers
+    batches_n = -(-n // BATCH)
+    ckpt = _cli_checkpoint(init_parameters(MIBFNet(LABELS, BertConfig(), device=dev), g), "mibf_ham")
+    torch.cuda.empty_cache()
+    cfg = _cli_config("mibf_ham", inputs, n)
+    base = ["--config", cfg, "--model_path", ckpt, "--family", "mibf"]
+    csv_path = str(CLI_DIR / "submission.csv")
+    out = {}
+    want = {"attention_block": layers * batches_n, "ffn_block": layers * batches_n}
+
+    pred, launches, info = _cli_run(run_predict.main, [*base, "--output_path", csv_path], n)
+    _cli_check_run("mibf predict", launches, want, info, n, False)
+    logits = pred["logits"]
+    check(logits.shape == (n, LABELS) and bool(np.isfinite(logits).all()), f"cli mibf logits {logits.shape}")
+    rows = [line.split(",") for line in Path(csv_path).read_text().splitlines()]
+    check(rows[0] == ["image_id", "predicted_label"] and [r[0] for r in rows[1:]] == inputs["order"]
+          and [int(r[1]) for r in rows[1:]] == logits.argmax(-1).tolist(),
+          "cli mibf: the CSV is not the label CSV's rows in order with the logits' argmax")
+    csv_accuracy = 100.0 * float(np.mean([int(r[1]) == inputs["labels"][r[0]] for r in rows[1:]]))
+    out["predict"], out["launches"] = info, {"predict": launches}
+
+    tta_set = ["--set", "inference.tta.enabled=true", "--set", f"inference.tta.transforms=[{','.join(CLI_TTA)}]"]
+    tta_pred, launches, info = _cli_run(run_predict.main, [*base, "--output_path", csv_path, *tta_set], n)
+    _cli_check_run("mibf predict with TTA", launches, want, info, n, False)
+    out["predict_tta"], out["launches"]["predict_tta"] = info, launches
+
+    with _without_pil():  # this run decodes its PNGs with data/png.py, as a machine without PIL does
+        report, launches, info = _cli_run(run_evaluate.main, base, n)
+    _cli_check_run("mibf evaluate", launches, want, info, n, True)
+    check(report["num_samples"] == n and abs(report["accuracy"] - csv_accuracy) < 1e-4,  # a float32 fraction
+          f"cli mibf: evaluate accuracy {report['accuracy']} against the CSV's {csv_accuracy}")
+    out["evaluate"], out["launches"]["evaluate"] = info, launches
+    out["accuracy"] = report["accuracy"]
+
+    # --- the same checkpoint and canvases outside the CLI --------------------
+    predictor = cli_common.build_predictor(cfg, "mibf", device=dev)
+    predictor.load_weights(ckpt)
+    batches = list(predictor.make_test_loader())
+    with _without_pil():
+        png_batches = list(predictor.make_test_loader())
+    check(all(np.array_equal(a["image"], b["image"]) for a, b in zip(batches, png_batches)),
+          "cli mibf: the canvases of data/png.py's decode differ from PIL's")
+    server = ServingModel(predictor.model, BATCH, dev)
+    served = _logits_of(server, batches)
+    check(np.array_equal(served, logits), "cli mibf: the logits differ from ServingModel.predict's on the same "
+          f"checkpoint and canvases (max |d| {np.abs(served - logits).max()})")
+    plain = build_model(load_config(cfg, overrides=["model.text_encoder.attention_impl=xla"]), "mibf",
+                        predictor.tokenizer, device=dev)
+    load_weights(plain, ckpt, "mibf")
+    out["logits_vs_plain"] = _judge_model(logits, _logits_of(ServingModel(plain, BATCH, dev), batches),
+                                          SLICE_ATOL, SLICE_MEAN, "mibf logits against the plain path")
+    separate = []
+    with torch.inference_mode():
+        for b in batches:
+            img = eval_pipeline(torch.from_numpy(b["image"]).to(dev), 224, normalize=False, dtype=torch.bfloat16)
+            ids = torch.from_numpy(b["input_ids"]).long().to(dev)
+            mask = torch.from_numpy(b["attention_mask"]).long().to(dev)
+            variants = [predictor.model(v.contiguous(memory_format=torch.channels_last), ids, mask)["image_text"]
+                        for v in tta_variants(img, CLI_TTA)]
+            separate.append(torch.stack(variants).mean(dim=0)[: int(b["n_valid"])].cpu().numpy())
+    out["tta_vs_separate_forwards"] = _judge_model(tta_pred["logits"], np.concatenate(separate), SLICE_ATOL,
+                                                   SLICE_MEAN, "mibf TTA logits against four separate forwards")
+    t0 = time.perf_counter()
+    cli_common.run_prediction(predictor, predictor.make_test_loader())
+    torch.cuda.synchronize()
+    out["loop_images_per_s"] = n / (time.perf_counter() - t0)  # decode + resize + tokenize + forward, no model load
+    out["device_b32"] = _cli_device(predictor.model, batches[0], dev, 224, False)
+    out["device_b32_tta"] = _cli_device(predictor.model, batches[0], dev, 224, False, CLI_TTA)
+    for run in ("predict", "evaluate"):
+        _cli_busy(out[run], out["device_b32"], batches_n)
+    _cli_busy(out["predict_tta"], out["device_b32_tta"], batches_n)
+    del predictor, server, plain
+    torch.cuda.empty_cache()
+
+    # --- the int8 serving preset on the same images and weights --------------
+    cfg_q = _cli_config("mibf_ham_serving", inputs, n)
+    q_pred, launches, info = _cli_run(run_predict.main, ["--config", cfg_q, "--model_path", ckpt, "--family", "mibf",
+                                                         "--output_path", str(CLI_DIR / "preset.csv")], n)
+    _cli_check_run("preset predict", launches,
+                   {"int8_attention_block": layers * batches_n, "int8_ffn_block": layers * batches_n}, info, n, False)
+    predictor = cli_common.build_predictor(cfg_q, "mibf", device=dev)
+    predictor.load_weights(ckpt)
+    with int8_composite():
+        composite = _logits_of(ServingModel(predictor.model, BATCH, dev), batches)
+    preset = {"run": info, "launches": launches,
+              "logits_vs_int8_composite": _judge_model(q_pred["logits"], composite, INT8_ATOL, INT8_MEAN,
+                                                       "preset logits against the int8 composite"),
+              "device_b32": _cli_device(predictor.model, batches[0], dev, 224, False)}
+    _cli_busy(preset["run"], preset["device_b32"], batches_n)
+    del predictor
+    torch.cuda.empty_cache()
+    return {"mibf": out, "preset": preset}
+
+
+def phase_cli(dev, seed: int) -> dict:
+    """The three CLIs on the card over a PNG directory and port checkpoints; returns each
+    path's launches."""
+    rng = np.random.default_rng([seed, 30])  # inputs of its own: the other phases' stay as they were
+    g = torch.Generator(device=dev).manual_seed(seed + 30)
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    CLI_DIR.mkdir(parents=True)
+    try:
+        t0 = time.perf_counter()
+        check(native.available(), "the native library (native/*.cpp) did not build")
+        native_build_s = time.perf_counter() - t0
+        inputs = _cli_inputs(rng)
+        mibf = _cli_mibf(dev, inputs, g)
+        layers = BertConfig().num_hidden_layers
+
+        # --- run_ablation_eval on ham_fusion_ssm_v1: batch 64, one batch of 64 images
+        ckpt = _cli_checkpoint(init_parameters(MultimodalBaselineModel(HAM_FUSION_SSM, device=dev), g),
+                               "ham_fusion_ssm_v1")
+        torch.cuda.empty_cache()
+        results_path = str(CLI_DIR / "ablation.yml")
+        cfg = _cli_config("ham_fusion_ssm_v1", inputs, 64)
+        results, launches, info = _cli_run(run_ablation_eval.main, ["--config", cfg, "--model_path", ckpt,
+                                                                    "--output", results_path], 64)
+        # full_fusion and text_off run BERT and the fusion (one scan each); image_only neither
+        _cli_check_run("ablation", launches, {"attention_block": 2 * layers, "ffn_block": 2 * layers,
+                                              "selective_scan": 2}, info, 64, False)
+        text = Path(results_path).read_text()
+        check(list(results) == list(run_ablation_eval.MODES)
+              and all(f"  {k}: {v!r}" in text.splitlines() for k, v in results.items()),
+              f"cli ablation results {results} against the file:\n{text}")
+        model, batch = _cli_model(cfg, "baseline", ckpt, dev)
+        ablation = {"run": info, "launches": launches, "results": results,
+                    "device_b64": {mode or "full_fusion": _cli_device(model, batch, dev, 224, True, ablation_mode=mode)
+                                   for mode in run_ablation_eval.MODES.values()}}
+        info["device_ms_per_forward"] = {k: v["device"]["kernel_ms"] for k, v in ablation["device_b64"].items()}
+        info["busy_share"] = sum(info["device_ms_per_forward"].values()) / (info["seconds"] * 1e3)
+        del model
+        torch.cuda.empty_cache()
+
+        # --- run_predict --family connext on connext_ham: batch 32, seq 512, 32 images
+        ckpt = _cli_checkpoint(init_parameters(ConNexTClassifier(CONNEXT_HAM, device=dev), g), "connext_ham")
+        torch.cuda.empty_cache()
+        cfg = _cli_config("connext_ham", inputs, 32)
+        c_pred, launches, info = _cli_run(run_predict.main, ["--config", cfg, "--model_path", ckpt, "--family",
+                                                             "connext", "--output_path", str(CLI_DIR / "connext.csv")], 32)
+        n_bank = len(CONNEXT_BANK) - 1
+        _cli_check_run("connext predict", launches, {"fused_attention": layers, "ffn_block": layers,
+                                                     "kan_forward": n_bank}, info, 32, False)
+        check(c_pred["logits"].shape == (32, CONNEXT_HAM.num_labels) and bool(np.isfinite(c_pred["logits"]).all()),
+              f"cli connext logits {c_pred['logits'].shape}")
+        model, batch = _cli_model(cfg, "connext", ckpt, dev)
+        connext = {"run": info, "launches": launches, "device_b32": _cli_device(model, batch, dev, 224, True)}
+        _cli_busy(info, connext["device_b32"], 1)
+        del model
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(CLI_DIR, ignore_errors=True)
+    emit({"phase": "cli", "images": CLI_IMAGES, "image_hw": [CLI_H, CLI_W], "pil": cli_data._pil() is not None,
+          "native_build_s": native_build_s, "host_modules": {name: importlib.util.find_spec(name) is not None
+                                                             for name in ("PIL", "yaml", "msgpack")},
+          "mibf_ham": mibf["mibf"], "mibf_ham_serving": mibf["preset"], "ham_fusion_ssm_v1": ablation,
+          "connext_ham": connext})
+    return {"cli_mibf": {k: sum(run[k] for run in mibf["mibf"]["launches"].values()) for k in KERNELS},
+            "cli_preset": mibf["preset"]["launches"], "cli_ablation": ablation["launches"],
+            "cli_connext": connext["launches"]}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2104,6 +2454,7 @@ def main() -> int:
     train = phase_train(dev, rng, seed)
     train_flash = phase_train_flash(dev, rng, seed)
     connext = phase_connext(dev, seed)
+    cli = phase_cli(dev, seed)
     main_path = {"attention_block": slice_launches, "ffn_block": slice_launches,
                  "fused_attention": seq512_launches, "int8_ffn_block": preset_launches,
                  "int8_attention_block": preset_launches, "shear_sublane": train["launches"],
@@ -2115,7 +2466,7 @@ def main() -> int:
                "baseline_ssm": baseline["selective_scan"], "baseline_moe": baseline["kan_forward"],
                "train": train["launches"], "train_bn_stats": train["ab_launches"], "flash": flash_launches,
                "train_flash": train_flash, "ablate": {"attention_ablate": ablate_launches},
-               "connext": connext["launches"]}
+               "connext": connext["launches"], **cli}
     kan_by_layer = {**baseline["kan_forward_by_layer"], **connext["kan_forward_by_layer"]}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -15,15 +15,25 @@ module names so each counterpart is easy to find:
                               ``kan_forward``) with their plain PyTorch
                               versions
 - ``mdhs_tpu_torch.models``   ResNet, BERT, MIBF-Net, the baseline family
-                              (``MultimodalBaselineModel`` and its encoders)
-                              and BatchNorm as ``nn.Module``s with
-                              torchvision / HF / reference state_dict names
-- ``mdhs_tpu_torch.train``    losses, schedules and optimizers, metrics, and
+                              (``MultimodalBaselineModel`` and its encoders),
+                              ConNexT and BatchNorm as ``nn.Module``s with
+                              torchvision / HF / reference state_dict names;
+                              ``build_model`` of a config
+- ``mdhs_tpu_torch.train``    losses, schedules and optimizers, metrics (and the
+                              eval CLIs' classification report), and
                               the MIBF ``Trainer`` with ``MIBF_HAM_TRAIN``
 - ``mdhs_tpu_torch.modules``  attention (``JointKVCrossAttention``,
                               ``MultiHeadAttention``), the baseline's fusions
                               and heads, Mamba, KAN and the KAN-expert MoE
-- ``mdhs_tpu_torch.core``     weights carried across from the JAX trees
+- ``mdhs_tpu_torch.core``     weights carried across from the JAX trees; configs,
+                              the precision policy, checkpoints
+- ``mdhs_tpu_torch.data``     the host data path: tokenizer, PNG reading, the
+                              dataset join, the prefetching loader (with
+                              ``mdhs_tpu_torch.native``, the binding of the
+                              repository's native C++ resampler and WordPiece)
+- ``mdhs_tpu_torch.cli``      the inference entry points ``run_predict``,
+                              ``run_evaluate``, ``run_ablation_eval``
+                              (``configs/`` holds JSON configs for them)
 - ``mdhs_tpu_torch.diagnostics``  ``attention_ablate``: the attention core's
                               time split by stage on the card
 - ``mdhs_tpu_torch.serving``  ``ServingModel``: resident weights, static
@@ -33,7 +43,8 @@ module names so each counterpart is easy to find:
                               configurations ``HAM_FUSION_SSM``,
                               ``HAM_HEAD_MOE``
 
-The package imports torch and numpy only: never jax, flax or mdhs_tpu.
+The package imports torch and numpy (and PIL, yaml, msgpack or safetensors
+only where a file asks for them): never jax, flax or mdhs_tpu.
 """
 
 from .device import resolve_device

@@ -73,8 +73,9 @@ class ConNexTClassifier(nn.Module):
         self.text_encoder = TextEncoder(cfg.bert, **f)
         self.image_encoder = ConvNeXt(cfg.convnext_variant, **f)
         self.conv = nn.Conv2d(CONVNEXT_SPECS[cfg.convnext_variant][1][-1], D, 1, **f)
-        self.textbased_cross_attention = ConvCrossAttention2D(D, **f)
-        self.imagbased_cross_attention = ConvCrossAttention2D(D, **f)
+        text = cfg.bert.hidden_size  # BERT's CLS as a 1x1 map of this many channels
+        self.textbased_cross_attention = ConvCrossAttention2D(D, y_dim=text, **f)
+        self.imagbased_cross_attention = ConvCrossAttention2D(D, x_dim=text, **f)
         if cfg.head == "moe":
             self.moe = MoE(D, cfg.num_labels, cfg.moe_num_experts, cfg.moe_k, cfg.moe_expert_layers, **f)
         else:

@@ -48,8 +48,9 @@ class MIBFNet(nn.Module):
         f = dict(device=device, dtype=dtype)
         self.text_encoder = TextEncoder(bert, **f)
         self.image_encoder = ResNetClassifier("resnet50", num_outputs=768, bn_stats_kernel=bn_stats_kernel, **f)
-        self.textbased_cross_attention = JointKVCrossAttention(768, 1, **f)
-        self.imagbased_cross_attention = JointKVCrossAttention(768, 1, **f)
+        text = bert.hidden_size  # 768 for BERT-base; the cross-attentions project any width to 768
+        self.textbased_cross_attention = JointKVCrossAttention(768, 1, y_dim=text, **f)
+        self.imagbased_cross_attention = JointKVCrossAttention(768, 1, x_dim=text, **f)
         self.fc = nn.Linear(768 * 2, num_labels, **f)
         self.fc_image = _mlp_head(num_labels, **f)
         self.fc_text = _mlp_head(num_labels, **f)

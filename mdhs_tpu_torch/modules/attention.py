@@ -68,21 +68,26 @@ class MultiHeadAttention(nn.Module):
 
 
 class JointKVCrossAttention(nn.Module):
-    def __init__(self, dim: int, num_heads: int = 1, device=None, dtype=None):
+    """``x_dim`` and ``y_dim``, the widths of the two streams, default to ``dim``
+    (the flax module's Dense layers take any input width)."""
+
+    def __init__(self, dim: int, num_heads: int = 1, x_dim: Optional[int] = None, y_dim: Optional[int] = None,
+                 device=None, dtype=None):
         super().__init__()
         if dim % num_heads:
             raise ValueError("dim must be divisible by num_heads")
         f = dict(device=device, dtype=dtype)
+        x_dim, y_dim = x_dim or dim, y_dim or dim
         self.dim, self.num_heads = dim, num_heads
-        self.toQ_x = nn.Linear(dim, dim, **f)
-        self.toK_x = nn.Linear(dim, dim, **f)
-        self.toV_x = nn.Linear(dim, dim, **f)
-        self.toK_y = nn.Linear(dim, dim, **f)
-        self.toV_y = nn.Linear(dim, dim, **f)
+        self.toQ_x = nn.Linear(x_dim, dim, **f)
+        self.toK_x = nn.Linear(x_dim, dim, **f)
+        self.toV_x = nn.Linear(x_dim, dim, **f)
+        self.toK_y = nn.Linear(y_dim, dim, **f)
+        self.toV_y = nn.Linear(y_dim, dim, **f)
         self.to_out = nn.Linear(dim, dim, **f)
 
     def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        """x: (B, Lx, dim) queries; y: (B, Ly, dim). Returns (B, Lx, dim)."""
+        """x: (B, Lx, x_dim) queries; y: (B, Ly, y_dim). Returns (B, Lx, dim)."""
         h, D = self.num_heads, self.dim // self.num_heads
 
         def split(t):
@@ -98,12 +103,15 @@ class JointKVCrossAttention(nn.Module):
 
 
 class ConvCrossAttention2D(nn.Module):
-    def __init__(self, dim: int, device=None, dtype=None):
+    """``x_dim`` and ``y_dim``, the channels of the two maps, default to ``dim``."""
+
+    def __init__(self, dim: int, x_dim: Optional[int] = None, y_dim: Optional[int] = None, device=None,
+                 dtype=None):
         super().__init__()
         f = dict(device=device, dtype=dtype)
-        self.query_conv = nn.Conv2d(dim, dim, 1, **f)
-        self.key_conv = nn.Conv2d(dim, dim, 1, **f)
-        self.value_conv = nn.Conv2d(dim, dim, 1, **f)
+        self.query_conv = nn.Conv2d(x_dim or dim, dim, 1, **f)
+        self.key_conv = nn.Conv2d(y_dim or dim, dim, 1, **f)
+        self.value_conv = nn.Conv2d(y_dim or dim, dim, 1, **f)
 
     @staticmethod
     def conv1x1(conv: nn.Conv2d, t: torch.Tensor) -> torch.Tensor:

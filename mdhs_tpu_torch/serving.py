@@ -14,6 +14,10 @@ process:
     logits are sliced back;
   - ships requests as uint8 canvases (1 byte a pixel) and does the eval
     preprocessing on the device (``ops/preprocess.py::eval_pipeline``);
+  - with ``tta`` (a tuple of ``ops/tta.py``'s transforms), runs the original
+    and the variants as one batch and averages their logits; with
+    ``ablation_mode`` (the baseline family's ``image_only`` / ``text_off``),
+    passes it to the forward;
   - in ``predict_stream``, keeps up to ``depth`` requests in flight: the
     host copies each request into a pinned buffer, the host-to-device copy
     is ``non_blocking`` on the compute stream, the logits come back into a
@@ -36,6 +40,7 @@ from __future__ import annotations
 
 import dataclasses
 from collections import deque
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -46,6 +51,7 @@ from .models.baseline import BaselineConfig
 from .models.bert import BertConfig
 from .models.connext import ConNexTConfig
 from .ops.preprocess import eval_pipeline
+from .ops.tta import tta_logits
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,7 +94,7 @@ _INPUTS = {"image": torch.uint8, "input_ids": torch.int64, "attention_mask": tor
 
 class ServingModel:
     def __init__(self, model: nn.Module, batch_size: int, device: str | torch.device = "cuda",
-                 image_size: int = 224):
+                 image_size: int = 224, tta: Sequence[str] = (), ablation_mode: Optional[str] = None):
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
         self.device = resolve_device(device)
@@ -97,7 +103,18 @@ class ServingModel:
         self.model = model.to(device=self.device, memory_format=torch.channels_last).eval()
         self.dtype = model.input_dtype
         self.normalize = model.normalize_input
+        self.tta = tuple(tta)
+        self.forward_kwargs = {} if ablation_mode is None else {"ablation_mode": ablation_mode}
         self._slots: list[dict] = []  # host staging buffers, one per in-flight request
+
+    def _logits(self, images, input_ids, attention_mask) -> torch.Tensor:
+        """The model's float32 logits of a preprocessed batch."""
+        logits = self.model(images, input_ids, attention_mask, **self.forward_kwargs)
+        if isinstance(logits, dict):  # MIBF-Net's three heads
+            return logits["image_text"]
+        if isinstance(logits, tuple):  # ConNexT's (logits, balance loss)
+            return logits[0]
+        return logits
 
     # ------------------------------------------------------------------
     def _slot(self, i: int, batch: dict) -> dict:
@@ -126,11 +143,11 @@ class ServingModel:
         with torch.inference_mode():
             dev = {k: buf.to(self.device, non_blocking=True) for k, buf in bufs.items()}
             images = eval_pipeline(dev["image"], self.image_size, normalize=self.normalize, dtype=self.dtype)
-            logits = self.model(images, dev["input_ids"], dev["attention_mask"])
-            if isinstance(logits, dict):  # MIBF-Net's three heads
-                logits = logits["image_text"]
-            elif isinstance(logits, tuple):  # ConNexT's (logits, balance loss)
-                logits = logits[0]
+            if self.tta:
+                logits = tta_logits(self._logits, images, dev["input_ids"], dev["attention_mask"],
+                                    transforms=self.tta)
+            else:
+                logits = self._logits(images, dev["input_ids"], dev["attention_mask"])
             if self.device.type != "cuda":
                 return logits, n
             host = torch.empty(logits.shape, dtype=logits.dtype, pin_memory=True)

@@ -1248,3 +1248,60 @@ def test_bf16_layer_norm_takes_float32_statistics(dev, rows, C):
     assert out.dtype == torch.bfloat16
     bound = torch.finfo(torch.bfloat16).eps * ref.abs() + 1e-5
     assert bool(((out.float() - ref).abs() <= bound).all())
+
+
+# --- the inference entry points (mdhs_tpu_torch/cli) on the card -----------------------------
+import json  # noqa: E402
+from pathlib import Path  # noqa: E402
+
+from mdhs_tpu_torch.cli import run_predict  # noqa: E402
+from mdhs_tpu_torch.core.checkpoint import save_checkpoint  # noqa: E402
+from mdhs_tpu_torch.core.config import load_config  # noqa: E402
+from mdhs_tpu_torch.data import png  # noqa: E402
+from mdhs_tpu_torch.models import build_model  # noqa: E402
+from mdhs_tpu_torch.data.tokenizer import WordPieceTokenizer  # noqa: E402
+
+_CLI_CASES = {  # family: (resolved config, overrides): a few layers of width the kernels take
+    "mibf": ("mibf_ham.json", []),
+    "baseline": ("ham_fusion_ssm_v1.json", ["model.fusion_type=multiscale", "model.classifier_type=mlp"]),
+}
+
+
+@pytest.mark.parametrize("family", sorted(_CLI_CASES))
+def test_run_predict_on_the_card_matches_the_cpu_plain_path(dev, tmp_path, family):
+    """run_predict over 6 PNGs of three sizes at canvas 72 / crop 64, seq 128, batch 4 (two
+    batches, the last of 2 rows), with BERT-base in bf16 from a port checkpoint: on the card
+    each batch launches attention_block and ffn_block 12 times; the same call with
+    --device cpu runs the plain path. The logits agree within the MIBF model bound
+    (PERF.md section 2: max <= 0.15, mean < 0.01) and the CSVs list the same images."""
+    config, overrides = _CLI_CASES[family]
+    rng = np.random.default_rng(3)
+    img_dir = tmp_path / "images"
+    img_dir.mkdir()
+    names = [f"img_{i}.png" for i in range(6)]
+    for i, name in enumerate(names):
+        png.write_png(str(img_dir / name), rng.integers(0, 256, (60 + 20 * (i % 3), 80, 3), dtype=np.uint8))
+    (tmp_path / "d.json").write_text(json.dumps(
+        [{"image_info": n, "description": f"irregular pigment network {i} border"} for i, n in enumerate(names)]))
+    (tmp_path / "labels.csv").write_text("image_id,label\n" + "".join(f"{n},{i % 7}\n" for i, n in enumerate(names)))
+    cfg = load_config(Path(__file__).resolve().parent.parent / "mdhs_tpu_torch" / "configs" / config,
+                      overrides=overrides + ["data.canvas=72", "data.image_size=64", "training.batch_size=4",
+                                             "tokenizer.max_length=128", f"data.test_image_dir={img_dir}",
+                                             f"data.test_json_path={tmp_path / 'd.json'}",
+                                             f"data.test_label_csv={tmp_path / 'labels.csv'}"])
+    cfg.save_json(tmp_path / "cfg.json")
+    model = build_model(cfg, family, WordPieceTokenizer.synthetic(30522), dtype=torch.float32)
+    init_parameters(model, torch.Generator().manual_seed(0))
+    save_checkpoint(str(tmp_path / "w.pt"), model)
+    out = {}
+    for device in ("cuda", "cpu"):
+        before = _counts()
+        out[device] = run_predict.main(["--config", str(tmp_path / "cfg.json"), "--model_path", str(tmp_path / "w.pt"),
+                                        "--output_path", str(tmp_path / f"{device}.csv"), "--family", family,
+                                        "--device", device])
+        launched = [a - b for a, b in zip(_counts(), before)]
+        assert launched == ([24, 24, 0, 0, 0] if device == "cuda" else [0] * 5), (device, launched)
+    d = np.abs(out["cuda"]["logits"] - out["cpu"]["logits"])
+    assert np.isfinite(out["cuda"]["logits"]).all() and out["cuda"]["logits"].shape == (6, 7)
+    assert d.max() <= 0.15 and d.mean() < 0.01, (d.max(), d.mean())
+    assert out["cuda"]["image_ids"] == out["cpu"]["image_ids"] == names

@@ -142,9 +142,11 @@ def test_serving_runs_on_the_card_unless_asked_for_the_cpu(model):
 def test_package_imports_no_jax_and_runs_the_slice():
     """A fresh interpreter: the port's modules, a CPU run of the serving slice,
     a training step, a forward of each served baseline configuration, a
-    served ConNexT and a BERT forward under attention_impl="flash" leave jax, flax and mdhs_tpu
-    out of sys.modules (this test process has them, because the suite's
-    conftest imports jax)."""
+    served ConNexT, a BERT forward under attention_impl="flash" and run_predict
+    over PNGs with a JSON config and a port checkpoint leave jax, flax and
+    mdhs_tpu out of sys.modules (this test process has them, because the
+    suite's conftest imports jax), and the CLI run imports neither yaml nor
+    msgpack, which the card's machine does not have."""
     script = textwrap.dedent(f"""
         import dataclasses, sys
         import numpy as np, torch
@@ -158,6 +160,12 @@ def test_package_imports_no_jax_and_runs_the_slice():
                                         selective_scan, shear)
         from mdhs_tpu_torch.serving import CONNEXT_HAM, HAM_FUSION_SSM, HAM_HEAD_MOE, MIBF_HAM_SERVING, ServingModel
         from mdhs_tpu_torch.train import losses, metrics, optim, trainer
+        from mdhs_tpu_torch import native
+        from mdhs_tpu_torch.core import checkpoint, config, dtypes
+        from mdhs_tpu_torch.data import datasets, loader, png, tokenizer
+        from mdhs_tpu_torch.ops import tta
+        from mdhs_tpu_torch.cli import common, run_ablation_eval, run_evaluate, run_predict
+        from mdhs_tpu_torch.models import build_model
         cfg = bert.BertConfig(vocab_size=64, num_hidden_layers=1, intermediate_size=64,
                               max_position_embeddings=16)
         m = init.init_parameters(mibf.MIBFNet(3, cfg), torch.Generator().manual_seed(0))
@@ -192,6 +200,23 @@ def test_package_imports_no_jax_and_runs_the_slice():
         with torch.no_grad():
             last = flash(torch.from_numpy(rng.integers(0, 64, (2, 128))), torch.from_numpy(mask))[0]
         assert last.shape == (2, 128, 768) and torch.isfinite(last).all()
+        import json, pathlib, tempfile
+        root = pathlib.Path(tempfile.mkdtemp())
+        (root / "img").mkdir()
+        for i in range(3):
+            png.write_png(str(root / "img" / f"{{i}}.png"), rng.integers(0, 256, (30 + i, 40, 3), dtype=np.uint8))
+        (root / "d.json").write_text(json.dumps([{{"image_info": f"{{i}}.png", "description": "a lesion"}} for i in range(3)]))
+        (root / "l.csv").write_text("image_id,label\\n0.png,1\\n1.png,0\\n2.png,2\\n")
+        conf = config.Config({{"data": {{"test_image_dir": str(root / "img"), "test_json_path": str(root / "d.json"),
+                                       "test_label_csv": str(root / "l.csv"), "canvas": 40, "image_size": 32}},
+                              "model": {{"num_classes": 3, "text_encoder": {{"preset": "tiny"}}}},
+                              "training": {{"batch_size": 2, "precision": "fp32"}}, "tokenizer": {{"max_length": 8}}}})
+        conf.save_json(root / "c.json")
+        checkpoint.save_checkpoint(str(root / "w.pt"), build_model(conf, "mibf", tokenizer.load_tokenizer(None)))
+        out = run_predict.main(["--config", str(root / "c.json"), "--model_path", str(root / "w.pt"), "--family",
+                                "mibf", "--output_path", str(root / "s.csv"), "--device", "cpu"])
+        assert out["logits"].shape == (3, 3) and np.isfinite(out["logits"]).all()
+        print("CARD_ABSENT", sorted(k for k in sys.modules if k.split(".")[0] in ("yaml", "msgpack")))
         bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "flax", "mdhs_tpu"))
         print("LEAKED", bad)
     """)
@@ -201,3 +226,4 @@ def test_package_imports_no_jax_and_runs_the_slice():
                           cwd=REPO, env=env, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "LEAKED []" in proc.stdout, proc.stdout
+    assert "CARD_ABSENT []" in proc.stdout, proc.stdout  # a JSON config and a port checkpoint need neither
