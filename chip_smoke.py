@@ -28,8 +28,11 @@ Phases, each printing JSON lines:
               the 3xTF32 route, three TF32 products at 494.7 TFLOP/s);
               shear_sublane bit-exact;
               bn_stats within rtol 1e-5 and
-              atol 1e-6 * E|x| (mean) or * E[x^2] (variance), and its backward
-              within 1e-5 of the largest gradient; selective_scan (N 16, and
+              atol 1e-6 * E|x| (mean) or * E[x^2] (variance) at ResNet50's
+              12 BatchNorm inputs at batch 32, and its gradient
+              kernel (bn_stats_backward, no library call) at the same shapes
+              within one bf16 ulp of each element, and through autograd
+              within 1e-5 of the largest gradient (float32); selective_scan (N 16, and
               N 8 and 128) and kan_forward (both layers of the baseline MoE
               bank, and the four of ConNexT's at batch 32: 768 -> 512 with x
               shared, 512 -> 128, 128 -> 32, 32 -> 7)
@@ -141,9 +144,13 @@ Phases, each printing JSON lines:
               images/s at batch 32 (host clock, 8 steps), step ms split into
               augmentation, forward + backward and optimizer (CUDA events),
               the device breakdown and the step's share of 989 TFLOP/s; the
-              bn_stats A/B on the same weights and batch (one launch per
-              BatchNorm input the gate takes, none in eval, loss within 1e-2
-              relative of cuDNN BatchNorm, step ms of both in turns), the
+              bn_stats A/B on the same weights and batch (one launch of
+              bn_stats and one of bn_stats_backward per BatchNorm input the
+              gate takes, none in eval, loss within 1e-2 relative of cuDNN
+              BatchNorm, step ms of both in turns, each side's device forward
+              + backward by kernel family, the two kernels' device ms summed
+              over the step beside their summed bounds, and what the
+              BatchNorm apply costs), the
               kernel's side a trainer of MIBFNet(bn_stats_kernel=True); one step
               of the bf16 module against a float32 twin on the same weights
               and batch with dropout 0 (loss within 2e-2 relative, per-tower
@@ -364,6 +371,9 @@ CLI_TTA = ("hflip", "vflip", "rot90")
 CLI_WORDS = ("lesion", "pigment", "network", "border", "irregular", "asymmetric", "nevus", "melanoma", "dermoscopy",
              "globules", "streaks", "blue-white", "veil", "regression", "vascular", "keratosis", "benign", "atypical",
              "papule", "macule", "patient", "reports", "itching", "growth", "months,", "colour;", "diameter", "mm.")
+# ResNet50's BatchNorm inputs at training batch 32 as (rows, channels): 53 inputs of 12 shapes
+RESNET50_BN_B32 = ((401408, 64), (100352, 256), (1568, 2048), (100352, 64), (25088, 512), (100352, 128),
+                   (25088, 128), (6272, 1024), (25088, 256), (6272, 256), (6272, 512), (1568, 512))
 # H100 SXM datasheet peaks at 700 W: bytes/s of HBM, dense ops/s (float32 outside the tensor cores)
 HBM_BPS, BF16_OPS, INT8_OPS, F32_OPS = 3.35e12, 989e12, 1979e12, 67e12
 TF32_OPS = 494.7e12  # dense TF32 on the tensor cores (kan_forward's 3xTF32 products)
@@ -380,6 +390,8 @@ KERNELS = {  # name: (module, source, TPU kernel it replaces)
                              "mdhs_tpu/ops/quant_kernel.py:230"),
     "shear_sublane": (sh.shear_sublane, "mdhs_tpu_torch/csrc/shear.cu", "mdhs_tpu/ops/shear.py:93"),
     "bn_stats": (bns.bn_stats, "mdhs_tpu_torch/csrc/bn_stats.cu", "mdhs_tpu/ops/bn_stats.py:138"),
+    # the custom VJP's backward (XLA ops in the JAX package) as one hand-written pass
+    "bn_stats_backward": (bns.bn_stats_backward, "mdhs_tpu_torch/csrc/bn_stats.cu", "mdhs_tpu/ops/bn_stats.py:190"),
     "selective_scan": (ss.selective_scan, "mdhs_tpu_torch/csrc/selective_scan.cu",
                        "mdhs_tpu/ops/selective_scan.py:112"),
     "kan_forward": (ks.kan_forward, "mdhs_tpu_torch/csrc/kan_spline.cu", "mdhs_tpu/ops/kan_spline.py:114"),
@@ -453,7 +465,8 @@ _FAMILIES = {
     "selective_scan_kernel": ("selective_scan_kernel",),
     "kan_forward_kernel": ("kan_forward_kernel",),
     "shear_kernel": ("shear_sublane_kernel",),
-    "bn_stats_kernel": ("bn_stats_",),
+    "bn_stats_backward_kernel": ("bn_stats_backward_kernel",),
+    "bn_stats_kernel": ("bn_stats_kernel",),
     "row_quantize_kernel": ("row_quantize_kernel",),
     # the bf16 sublayers' own kernels (csrc/bf16_gemm.cu, csrc/attention_block.cu): the tile GEMM (QKV
     # product, FFN GEMM1) with its split row pass, the LayerNorm GEMM (both output products) with its,
@@ -650,6 +663,11 @@ def bound_bn_stats(R, C, itemsize):
     return _bound(R * C * itemsize + 8 * C, 5 * R * C / F32_OPS)
 
 
+def bound_bn_stats_backward(R, C, itemsize):
+    # x read, dx written, mean, dmean, dvar read; x - mean, the product, the division, the sum
+    return _bound(2 * R * C * itemsize + 12 * C, 4 * R * C / F32_OPS)
+
+
 def bound_selective_scan(B, L, D, N):
     # x, dt read and y written (B, L, D); A (D, N); B, C (B, L, N); D_skip. A step
     # of one state: dt * A, exp, the decay product and the drive (2), the C product and sum (2)
@@ -707,7 +725,8 @@ def _ptxas(log: str, fragments: tuple) -> dict:
     of ``fragments``, from the build's ``-Xptxas=-v`` log, and whether ptxas
     serialized its wgmma pipeline (C7515, "Potential Performance Loss").
     A kernel is named with its template arguments: attention_ablate_kernel<1,3>
-    is one 64-column chunk, mode 3 of ops/attention_ablate.py::MODES (nopv)."""
+    is one 64-column chunk, mode 3 of ops/attention_ablate.py::MODES (nopv);
+    bn_stats_kernel<bf16,8> reads bf16 in 16-byte vectors."""
     def short(mangled):
         # the kernel's name: the last length-prefixed identifier ending in "_kernel", then
         # its integer template arguments, if any
@@ -720,8 +739,10 @@ def _ptxas(log: str, fragments: tuple) -> dict:
         if found is None:
             return mangled
         start, name = found
-        k = re.match(r"I((?:Li\d+E)+)E", mangled[start + len(name):])
-        return f"{name}<{','.join(re.findall(r'Li(\d+)E', k.group(1)))}>" if k else name
+        k = re.match(r"I((?:Li\d+E|13__nv_bfloat16|f)+)E", mangled[start + len(name):])
+        args = {"13__nv_bfloat16": "bf16", "f": "float"}
+        return (f"{name}<{','.join(args.get(a, a[2:-1]) for a in re.findall(r'Li\d+E|13__nv_bfloat16|f', k.group(1)))}>"
+                if k else name)
 
     def wanted(mangled):
         return any(f in mangled for f in fragments)
@@ -762,7 +783,8 @@ def phase_build() -> None:
           "ptxas_bf16_sublayers": _ptxas(log, ("bf16_tile_gemm_kernel", "bf16_ln_gemm_kernel", "bf16_partial_gemm_kernel",
                                                "bias_act_rows_kernel", "ln_rows_kernel",
                                                "attention_block_core_kernel")),
-          "ptxas_kan_and_scan": _ptxas(log, ("kan_forward_kernel", "selective_scan_kernel"))})
+          "ptxas_kan_and_scan": _ptxas(log, ("kan_forward_kernel", "selective_scan_kernel")),
+          "ptxas_bn_stats": _ptxas(log, ("bn_stats_kernel", "bn_stats_backward_kernel"))})
 
 
 def _rand(rng, shape, scale, dev):
@@ -866,6 +888,15 @@ def judge_stats(x):
         return mx, mean, bound, ok
 
     return judge
+
+
+def judge_bf16_ulp(out, ref):
+    """Each element within one bf16 ulp of the larger of the two (bn_stats' gradient:
+    the same float32 arithmetic, one rounding to bf16)."""
+    a = torch.maximum(out.float().abs(), ref.float().abs()).clamp(min=torch.finfo(torch.float32).tiny)
+    ulp = torch.exp2(torch.floor(torch.log2(a)) - 7)
+    d = (out.float() - ref.float()).abs()
+    return d.max().item(), d.mean().item(), ulp.max().item(), bool((d <= ulp).all())
 
 
 def _shear_case(rng, B, pad, max_degrees, axis, dev):
@@ -988,13 +1019,21 @@ def _kernel_cases(dev, rng, seed):
         x = args[0]
         cases.append(("shear_sublane", f"x={tuple(x.shape)},pad={pad}", sh.shear_reference, args, pad == 17,
                       bound_shear(*x.shape, pad), library, judge_exact))
-    # ResNet50's BatchNorm inputs at batch 32, channels-last rows, bf16: stem, layer1 (bn3), layer4 (bn3)
-    for R, C in ((BATCH * 112 * 112, 64), (BATCH * 56 * 56, 256), (BATCH * 7 * 7, 2048)):
+    # ResNet50's 12 distinct BatchNorm inputs at batch 32, channels-last rows, bf16: the stem, layer1's
+    # bn3, layer4's bn3 first (the parent's three), then the rest
+    for R, C in RESNET50_BN_B32:
         x = (torch.randn((R, C), device=dev, generator=torch.Generator(device=dev).manual_seed(R + C)) * 2.0
              + 0.5).to(torch.bfloat16)
         library = lambda x=x: torch.var_mean(x, dim=0, unbiased=False)  # noqa: E731
-        cases.append(("bn_stats", f"R={R},C={C},bf16", bns.bn_stats_reference, (x,), C == 64,
+        stem = (R, C) == RESNET50_BN_B32[0]
+        cases.append(("bn_stats", f"R={R},C={C},bf16", bns.bn_stats_reference, (x,), stem,
                       bound_bn_stats(R, C, 2), library, judge_stats(x)))
+        # the gradient at x's own mean, the upstream gradients drawn (no one PyTorch call computes it)
+        g = torch.Generator(device=dev).manual_seed(C)
+        grads = [torch.randn(C, device=dev, generator=g) for _ in range(2)]
+        cases.append(("bn_stats_backward", f"R={R},C={C},bf16", bns.bn_stats_backward_reference,
+                      (x, bns.bn_stats_reference(x)[0], *grads), stem, bound_bn_stats_backward(R, C, 2), None,
+                      judge_bf16_ulp))
     # the Mamba fusion's scan at batch 64: 49 layer4 tokens, d_inner 512, N 16; and the
     # gate's other state sizes (MambaVision's N 8, the multimodal Mamba fusion's N 128)
     for B, L, D, N in ((BASELINE_BATCH, 49, 512, 16), (BASELINE_BATCH, 196, 320, 8), (16, 64, 512, 128)):
@@ -1769,6 +1808,28 @@ def _damp_residual_branches(model) -> nn.Module:
     return model
 
 
+def _bn_ab_split(ab_device: dict, bn_inputs: list) -> dict:
+    """The A/B's device forward + backward, each side's total, and its parts: the two
+    bn_stats kernels summed over the step beside the sum of their bounds, cuDNN's
+    BatchNorm kernels, and the BatchNorm apply the switch's side still runs in
+    PyTorch ((x - mean) * mul + bias and its autograd): everything else is the same
+    on both sides, so the apply is the switch side's time less its bn_stats kernels,
+    less what the cuDNN side spends outside cuDNN's BatchNorm."""
+    fam = {w: d["by_family_ms"] for w, d in ab_device.items()}
+    rows = [(s[0] * s[2] * s[3], s[1], torch.empty((), dtype=dt).element_size()) for s, dt in bn_inputs]
+    kernels = fam["bn_stats"]["bn_stats_kernel"] + fam["bn_stats"]["bn_stats_backward_kernel"]
+    return {"device_ms": {w: d["kernel_ms"] for w, d in ab_device.items()},
+            "bn_stats_kernel_ms": fam["bn_stats"]["bn_stats_kernel"],
+            "bn_stats_kernel_bound_ms": sum(bound_bn_stats(*r)[0] for r in rows),
+            "bn_stats_backward_kernel_ms": fam["bn_stats"]["bn_stats_backward_kernel"],
+            "bn_stats_backward_kernel_bound_ms": sum(bound_bn_stats_backward(*r)[0] for r in rows),
+            "cudnn_batch_norm_ms": fam["cudnn"]["batch_norm"],
+            "bn_apply_ms": ab_device["bn_stats"]["kernel_ms"] - kernels
+            - (ab_device["cudnn"]["kernel_ms"] - fam["cudnn"]["batch_norm"]),
+            "family_delta_ms": {k: fam["bn_stats"][k] - fam["cudnn"][k] for k in fam["cudnn"]
+                                if fam["bn_stats"][k] != fam["cudnn"][k]}}
+
+
 def phase_train(dev, rng, seed: int) -> dict:
     """MIBF-Net training at full width (MIBF_HAM_TRAIN): Trainer.fit, the
     launches of each path, augmentation kernel vs plain, rates and times, the
@@ -1853,8 +1914,8 @@ def phase_train(dev, rng, seed: int) -> dict:
     torch.manual_seed(seed)
     loss_kernel, _ = trainers["bn_stats"].forward_backward(images, dev_b, valid)
     ab_launches = read_counts()
-    check(ab_launches == {**dict.fromkeys(KERNELS, 0), "bn_stats": accepted},
-          f"bn_stats A/B launches {ab_launches}, expected {accepted} of {len(bn_inputs)} BatchNorm inputs")
+    check(ab_launches == {**dict.fromkeys(KERNELS, 0), "bn_stats": accepted, "bn_stats_backward": accepted},
+          f"bn_stats A/B launches {ab_launches}, expected {accepted} of {len(bn_inputs)} BatchNorm inputs each")
     rel = abs(loss_kernel.item() - loss_cudnn.item()) / abs(loss_cudnn.item())
     check(rel <= BN_AB_LOSS_REL, f"bn_stats A/B loss {loss_kernel.item()} vs {loss_cudnn.item()}")
     zero_counts()
@@ -1869,6 +1930,7 @@ def phase_train(dev, rng, seed: int) -> dict:
         fb_ms = statistics.median(p["forward_backward_ms"] for p in ab_parts[which])
         ab_device[which] = device_profile(lambda t=trainers[which]: t.forward_backward(images, dev_b, valid),
                                           fb_ms, reps=1)
+    ab_split = _bn_ab_split(ab_device, bn_inputs)
     del trainer, trainers, master, twin
     torch.cuda.empty_cache()
 
@@ -1907,7 +1969,7 @@ def phase_train(dev, rng, seed: int) -> dict:
           "step_tflop": step_flops / 1e12, "flop_share_of_989_tflops": flop_share,
           "bn_stats_ab": {"bn_inputs": len(bn_inputs), "accepted": accepted, "launches": ab_launches["bn_stats"],
                           "loss_cudnn": loss_cudnn.item(), "loss_bn_stats": loss_kernel.item(), "loss_rel": rel,
-                          "step_ms": ab_ms, "device_forward_backward": ab_device},
+                          "step_ms": ab_ms, "device_forward_backward": ab_device, **ab_split},
           "bf16_vs_f32": mixed})
     return {"launches": launches, "ab_launches": ab_launches}
 
@@ -2458,7 +2520,7 @@ def main() -> int:
     main_path = {"attention_block": slice_launches, "ffn_block": slice_launches,
                  "fused_attention": seq512_launches, "int8_ffn_block": preset_launches,
                  "int8_attention_block": preset_launches, "shear_sublane": train["launches"],
-                 "bn_stats": train["ab_launches"], **baseline, "flash_attention": flash_launches,
+                 "bn_stats": train["ab_launches"], "bn_stats_backward": train["ab_launches"], **baseline, "flash_attention": flash_launches,
                  "flash_attention_bwd_dkv": train_flash, "flash_attention_bwd_dq": train_flash,
                  "attention_ablate": {"attention_ablate": ablate_launches}}
     # every path's launches of each kernel, each counted from 0 just before that path ran

@@ -10,8 +10,8 @@ module names so each counterpart is easy to find:
                               its ablations ``attention_ablate``,
                               ``flash_attention``'s forward, dK/dV and dQ,
                               ``quant_kernel``'s int8 sublayers, ``shear``'s
-                              ``shear_sublane``, ``bn_stats``,
-                              ``selective_scan``, ``kan_spline``'s
+                              ``shear_sublane``, ``bn_stats`` and its
+                              gradient, ``selective_scan``, ``kan_spline``'s
                               ``kan_forward``) with their plain PyTorch
                               versions
 - ``mdhs_tpu_torch.models``   ResNet, BERT, MIBF-Net, the baseline family

@@ -59,8 +59,10 @@ _SIGNATURES = {
     "fused_attention_forward": [_P] * 5 + [_I] * 4 + [_F, _P],
     # x, d, out, B, C, S, L, pad, stream
     "shear_sublane_forward": [_P] * 3 + [_I] * 5 + [_P],
-    # x, dtype, pmean, pm2, mean, var, R, C, rows_per_group, groups, stream
-    "bn_stats_forward": [_P, _I] + [_P] * 4 + [_I] * 4 + [_P],
+    # x, dtype, ws, counters, out, R, C, the plan (vec, col_groups, cols, row_groups, rows), stream
+    "bn_stats_forward": [_P, _I] + [_P] * 3 + [_I] * 7 + [_P],
+    # x, dtype, mean, dmean, dvar, dx, R, C, sms, stream
+    "bn_stats_backward": [_P, _I] + [_P] * 4 + [_I] * 3 + [_P],
     # x, dt, A, B, C, D, y, batch, L, D, N, stream
     "selective_scan_forward": [_P] * 7 + [_I] * 4 + [_P],
     # x, grid, base_w, spline_w, y, ws, counters, E, B, IN, OUT, ldb, x_shared, bn, splits, per, stream

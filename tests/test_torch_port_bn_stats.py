@@ -207,3 +207,206 @@ def test_mibfnet_switch_reaches_every_batchnorm():
     for (name, a), b in zip(models[0].state_dict().items(), models[1].state_dict().values()):
         if "running" in name:
             torch.testing.assert_close(b, a, atol=1e-5, rtol=1e-4, msg=name)
+
+
+# --------------------------------------------------------------------------- the kernels' launch plan
+# ResNet50's 53 BatchNorm inputs at training batch 32 (224^2 crops), as channels-last
+# rows (N * H * W, C): 12 distinct shapes
+RESNET50_B32 = [(401408, 64), (100352, 256), (100352, 64), (25088, 512), (100352, 128), (25088, 128),
+                (6272, 1024), (25088, 256), (6272, 256), (1568, 2048), (6272, 512), (1568, 512)]
+EDGE_SHAPES = [(1, 5), (129, 3), (1000, 40), ((1 << 24) - 1, 8)]
+H100_SMS = 132
+
+
+def test_resnet50_batchnorm_inputs_are_the_planned_shapes():
+    from mdhs_tpu_torch.models.resnet import ResNetClassifier
+
+    model = ResNetClassifier("resnet50", num_outputs=768, device="meta").train()
+    seen = []
+    for m in model.modules():
+        if isinstance(m, BatchNorm2d):
+            m.register_forward_pre_hook(lambda _, i: seen.append((i[0].shape[0] * i[0].shape[2] * i[0].shape[3],
+                                                                  i[0].shape[1])))
+    with torch.no_grad():
+        model(torch.empty(32, 3, 224, 224, device="meta"))
+    assert len(seen) == 53 and list(dict.fromkeys(seen)) == RESNET50_B32
+
+
+def _spans(n, size, extent):
+    return [(i * size, min(extent, (i + 1) * size)) for i in range(n)]
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("shape", RESNET50_B32 + EDGE_SHAPES)
+def test_plan_covers_fits_and_fills(shape, itemsize):
+    R, C = shape
+    p = tbns.plan(R, C, itemsize, H100_SMS)
+    # every row and every channel in exactly one group, none empty
+    for n, size, extent in ((p.row_groups, p.rows, R), (p.col_groups, p.cols, C)):
+        spans = _spans(n, size, extent)
+        assert spans[0][0] == 0 and spans[-1][1] == extent
+        assert all(a < b for a, b in spans) and all(s[1] == t[0] for s, t in zip(spans, spans[1:]))
+    vector = (C * itemsize) % 16 == 0
+    assert p.vec == (16 // itemsize if vector else 1) and p.cols % p.vec == 0
+    assert 1 <= p.cols // p.vec <= tbns.THREADS  # a block's threads hold a group's vectors
+    assert p.col_groups == 1 or p.cols * itemsize >= tbns.MIN_SEGMENT  # a group reads 128 B of a row at least
+    assert -(-p.row_groups // p.lanes) <= tbns.MAX_PER_LANE  # partials a lane of the last block combines
+    assert p.blocks <= tbns.BLOCKS_PER_SM * H100_SMS + p.col_groups  # one wave
+    if R * C * itemsize >= H100_SMS * tbns.CHUNK * tbns.THREADS * 16:  # a step's bytes for every SM
+        assert p.blocks >= H100_SMS
+
+
+def test_plan_takes_plain_loads_off_16_byte_rows_or_alignment():
+    assert tbns.plan(1568, 2048, 2, H100_SMS, aligned=False).vec == 1
+    assert tbns.plan(1000, 36, 2, H100_SMS).vec == 1        # 72-byte rows
+    assert tbns.plan(1000, 36, 4, H100_SMS).vec == 4        # 144-byte rows
+
+
+def _chan(n_a, m_a, q_a, n_b, m_b, q_b):
+    """Chan's combine as csrc/bn_stats.cu::chan, elementwise over tensors; n_a or n_b may be 0."""
+    n = n_a + n_b
+    safe = torch.where(n > 0, n, torch.ones_like(n))
+    f = n_b * (1.0 / safe)
+    g = n_a * f
+    delta = m_b - m_a
+    m = torch.where(n_a == 0, m_b, torch.where(n_b == 0, m_a, m_a + delta * f))
+    q = torch.where(n_a == 0, q_b, torch.where(n_b == 0, q_a, q_a + q_b + delta * delta * g))
+    return n, m, q
+
+
+def _pairwise(n, m, q):
+    """Over dim 1 (U lanes): lane i takes in lane i + h, h the powers of two from the
+    largest below U down to 1; lane 0's result."""
+    U = n.shape[1]
+    h = 1
+    while 2 * h < U:
+        h *= 2
+    n, m, q = n.clone(), m.clone(), q.clone()
+    while h >= 1:
+        lo, hi = slice(0, min(h, U - h)), slice(h, min(2 * h, U))
+        n[:, lo], m[:, lo], q[:, lo] = _chan(n[:, lo], m[:, lo], q[:, lo], n[:, hi], m[:, hi], q[:, hi])
+        h //= 2
+    return n[:, 0], m[:, 0], q[:, 0]
+
+
+def _tree(n, m, q, vg):
+    """csrc/bn_stats.cu::tree over dim 1 (the Q row lanes): where a warp holds W = 32 / vg
+    of them, the W of each warp pairwise first (its shuffles), then the warps' results."""
+    G, Q = n.shape[:2]
+    W = 32 // vg if vg < 32 and 32 % vg == 0 else 1
+    if W > 1:
+        split = [t.reshape(G * (Q // W), W, *t.shape[2:]) for t in (n, m, q)]
+        n, m, q = (t.reshape(G, Q // W, *t.shape[1:]) for t in _pairwise(*split))
+    return _pairwise(n, m, q)
+
+
+def _emulate(x, p):
+    """The kernel's arithmetic in float32 on the CPU: each channel group's blocks
+    (rows in groups of p.rows), their lanes' chunks of up to 4 rows a step, each
+    chunk two-pass and merged with Chan's combine, the lanes in the tree order, then
+    the last block's slices of groups in group order and the tree again."""
+    x = x.float()
+    R, C = x.shape
+    mean, var = torch.empty(C), torch.empty(C)
+    G = p.row_groups
+    for c0 in range(0, C, p.cols):
+        cw = min(p.cols, C - c0)
+        Q = tbns.THREADS // (cw // p.vec)
+        S = tbns.CHUNK * Q
+        xb = torch.zeros(G * p.rows, cw)
+        xb[:R] = x[:, c0:c0 + cw]
+        xb = xb.view(G, p.rows, cw)
+        nr = torch.tensor([min(p.rows, R - g * p.rows) for g in range(G)])
+        n, m, q = torch.zeros(G, Q, 1), torch.zeros(G, Q, cw), torch.zeros(G, Q, cw)
+        lane = torch.arange(Q)[:, None] + Q * torch.arange(tbns.CHUNK)[None]  # (Q, CHUNK) rows in a stage
+        for it in range(-(-p.rows // S)):
+            rows = it * S + lane
+            valid = (rows[None] < nr[:, None, None]).float()[..., None]  # (G, Q, CHUNK, 1)
+            v = xb[:, rows.clamp(max=p.rows - 1)] * valid  # (G, Q, CHUNK, cw)
+            k = valid.sum(2)  # (G, Q, 1)
+            t = v[:, :, 0] * valid[:, :, 0]
+            for i in range(1, tbns.CHUNK):
+                t = t + v[:, :, i]
+            mb = t * (1.0 / k.clamp(min=1))
+            qb = torch.zeros_like(mb)
+            for i in range(tbns.CHUNK):
+                d = (v[:, :, i] - mb) * valid[:, :, i]
+                qb = qb + d * d
+            n, m, q = _chan(n, m, q, k, mb, qb)
+        bn, bm, bq = _tree(n, m, q, cw // p.vec)  # (G, 1), (G, cw): the blocks' partials
+        per = -(-G // Q)
+        sn, sm, sq = torch.zeros(1, Q, 1), torch.zeros(1, Q, cw), torch.zeros(1, Q, cw)
+        for i in range(per):  # slice s takes groups s * per + i, in order
+            h = torch.arange(Q) * per + i
+            ok = (h < torch.minimum(torch.arange(Q) * per + per, torch.tensor(G)))[None, :, None]
+            hc = h.clamp(max=G - 1)
+            sn, sm, sq = _chan(sn, sm, sq, (bn[hc] * ok[0])[None], bm[hc][None], bq[hc][None])
+        tn, tm, tq = _tree(sn, sm, sq, cw // p.vec)
+        mean[c0:c0 + cw], var[c0:c0 + cw] = tm[0], tq[0] / R
+    return mean, var
+
+
+@pytest.mark.parametrize("shape, dtype, sms", [((8, 56, 56, 64), np.float32, H100_SMS),
+                                               ((4, 28, 28, 64), "bf16", H100_SMS),
+                                               ((32, 7, 7, 256), np.float32, H100_SMS),
+                                               ((32, 14, 14, 512), "bf16", H100_SMS),
+                                               ((4, 14, 14, 128), np.float32, 8),
+                                               ((2, 4, 5, 40), "bf16", H100_SMS),
+                                               ((2, 4, 5, 36), "bf16", H100_SMS)])
+def test_kernel_emulation_matches_jax_kernel_and_reference(interpret, shape, dtype, sms):
+    """The kernel's chunking and fixed combine order, emulated in float32, against the
+    Pallas kernel (interpret mode) and the two-pass statistics of the same values in
+    float64: the warps' shuffles over 4 and 2 row lanes (C 64 in bf16 and float32) and
+    none, channel groups split for the fill (32, 14, 14, 512), ragged last steps,
+    one channel a thread (C 36 in bf16: 72-byte rows), a small card (8 SMs). The
+    two-pass reference of the JAX package sums in float32 and is held too where it
+    is itself within 1e-5 of float64: at (32, 14, 14, 512) its variance is 2.6e-5
+    from it (XLA's float32 sum over 6,272 rows on the CPU), the emulation's 1.7e-7."""
+    x = _x(shape, sum(shape))
+    jx = jnp.asarray(x).astype(jnp.bfloat16) if dtype == "bf16" else jnp.asarray(x)
+    tx = torch.from_numpy(np.array(jx.astype(jnp.float32)))
+    R, C = tx.numel() // shape[-1], shape[-1]
+    p = tbns.plan(R, C, 2 if dtype == "bf16" else 4, sms)
+    m, v = _emulate(tx.reshape(R, C), p)
+    x64 = tx.reshape(R, C).double()
+    truth = (x64.mean(0), x64.var(0, unbiased=False))
+    want = [truth, jax.jit(jbns.bn_stats)(jx)]  # the Pallas kernel, interpreted
+    ref = [torch.from_numpy(np.array(a)).double() for a in jbns.bn_stats_reference(jx)]
+    if all(torch.allclose(a, b, rtol=1e-5, atol=0) for a, b in zip(ref, truth)):
+        want.append(ref)
+    elif shape != (32, 14, 14, 512):
+        raise AssertionError(f"the JAX reference at {shape} is beyond 1e-5 of float64")
+    for wm, wv in want:
+        np.testing.assert_allclose(m.numpy(), np.asarray(wm), rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(v.numpy(), np.asarray(wv), rtol=1e-5, atol=1e-6)
+
+
+def _bf16_ulp(v):
+    """The spacing of bf16 at |v| (8 significant bits)."""
+    a = np.maximum(np.abs(v.astype(np.float64)), np.finfo(np.float32).tiny)
+    return 2.0 ** (np.floor(np.log2(a)) - 7)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_bn_stats_backward_reference_matches_jax_custom_vjp(interpret, dtype):
+    rng = np.random.default_rng(7)
+    x = _x((16, 14, 14, 64), 8)
+    jx = jnp.asarray(x).astype(jnp.bfloat16) if dtype == "bf16" else jnp.asarray(x)
+    dm = rng.normal(size=64).astype(np.float32)
+    dv = rng.normal(size=64).astype(np.float32)
+    (jm, _), vjp = jax.vjp(jbns.bn_stats, jx)  # the Pallas kernel, interpreted, and its custom VJP
+    (gj,) = vjp((jnp.asarray(dm), jnp.asarray(dv)))
+    gj = np.asarray(gj.astype(jnp.float32))
+    tx = torch.from_numpy(np.asarray(jx.astype(jnp.float32))).to(torch.bfloat16 if dtype == "bf16" else torch.float32)
+    got = tbns.bn_stats_backward_reference(tx, torch.from_numpy(np.array(jm)), torch.from_numpy(dm),
+                                           torch.from_numpy(dv))
+    assert got.dtype == tx.dtype and got.shape == tx.shape
+    got = got.float().numpy()
+    if dtype == "f32":
+        np.testing.assert_allclose(got, gj, atol=1e-5 * np.abs(gj).max(), rtol=0)
+    else:  # one bf16 ulp of the larger of the two
+        assert (np.abs(got - gj) <= _bf16_ulp(np.maximum(np.abs(got), np.abs(gj)))).all()
+    # the CPU wrapper is the plain version and launches nothing
+    n = tbns.bn_stats_backward.launches
+    same = tbns.bn_stats_backward(tx, torch.from_numpy(np.array(jm)), torch.from_numpy(dm), torch.from_numpy(dv))
+    assert torch.equal(same.float(), torch.from_numpy(got)) and tbns.bn_stats_backward.launches == n

@@ -481,7 +481,8 @@ def test_fused_impl_raises_where_no_kernel_takes_the_shape(dev):
 # sum, each rounded). bn_stats: float32 sums in another order than torch's
 # reduction: rtol 1e-5 on mean and variance, with atol 1e-6 * E|x| on the
 # mean and 1e-6 * E[x^2] on the variance (a mean near zero has no relative
-# precision); its backward within 1e-5 of the largest gradient.
+# precision); its backward within 1e-5 of the largest gradient in float32 and one
+# bf16 ulp in bf16 (both kernels' plans in tests/test_torch_port_bn_stats.py).
 from mdhs_tpu_torch.models.norm import BatchNorm2d  # noqa: E402
 from mdhs_tpu_torch.ops import augment as aug  # noqa: E402
 from mdhs_tpu_torch.ops import bn_stats as bns  # noqa: E402
@@ -529,17 +530,70 @@ def _close_stats(got, want, x):
     torch.testing.assert_close(v, vr, rtol=1e-5, atol=1e-6 * xf.square().mean().item())
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("shape", [(32 * 56 * 56, 64), (32 * 7 * 7, 2048), (1000, 40), (129, 3), (1, 5)])
-def test_bn_stats_kernel_matches_plain(dev, shape, dtype):
+# the first five as before; then the rest of ResNet50's 12 BatchNorm input shapes at batch
+# 32, C 36 (72-byte rows: the plain-load path in bf16) and R just under the 2^24 gate
+BN_SHAPES = [(32 * 56 * 56, 64), (32 * 7 * 7, 2048), (1000, 40), (129, 3), (1, 5), (401408, 64), (100352, 256),
+             (25088, 512), (100352, 128), (25088, 128), (6272, 1024), (25088, 256), (6272, 256), (6272, 512),
+             (1568, 512), (777, 36), ((1 << 24) - 1, 8)]
+
+
+def _stats_input(shape, dtype, dev):
     rng = np.random.default_rng(shape[0] + shape[1])
-    x = torch.from_numpy((rng.standard_normal(shape) * 3 + 5).astype(np.float32)).to(dev, dtype)
+    return torch.from_numpy((rng.standard_normal(shape) * 3 + 5).astype(np.float32)).to(dev, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", BN_SHAPES)
+def test_bn_stats_kernel_matches_plain(dev, shape, dtype):
+    x = _stats_input(shape, dtype, dev)
     n = bns.bn_stats.launches
     got = bns.bn_stats(x)
     torch.cuda.synchronize()
     assert bns.bn_stats.launches == n + 1
     assert got[0].dtype == got[1].dtype == torch.float32
     _close_stats(got, bns.bn_stats_reference(x), x)
+
+
+@pytest.mark.parametrize("shape", [(401408, 64), (100352, 256), (1568, 2048), (129, 3)])
+def test_bn_stats_kernel_gives_the_same_bits_twice(dev, shape):
+    """The blocks' partials are combined in a fixed order inside the launch: the
+    schedule does not reach the result, and the kept counters are back at zero."""
+    x = _stats_input(shape, torch.bfloat16, dev)
+    a, b = bns.bn_stats(x), bns.bn_stats(x)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    for _, counters in bns._workspaces.values():
+        assert int(counters.count_nonzero()) == 0
+
+
+def test_bn_stats_kernel_takes_plain_loads_off_alignment(dev):
+    base = _stats_input((4097, 64), torch.bfloat16, dev).reshape(-1)
+    x = base[4:4 + 4096 * 64].view(4096, 64)  # 8 bytes past a 16-byte boundary
+    assert x.data_ptr() % 16 == 8
+    _close_stats(bns.bn_stats(x), bns.bn_stats_reference(x), x)
+
+
+def _one_bf16_ulp(got, want):
+    a = torch.maximum(got.float().abs(), want.float().abs()).clamp(min=torch.finfo(torch.float32).tiny)
+    return bool(((got.float() - want.float()).abs() <= torch.exp2(torch.floor(torch.log2(a)) - 7)).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(401408, 64), (100352, 256), (1568, 2048), (1000, 40), (129, 3), (777, 36)])
+def test_bn_stats_backward_kernel_matches_plain(dev, shape, dtype):
+    x = _stats_input(shape, dtype, dev)
+    C = shape[1]
+    g = torch.Generator(device=dev).manual_seed(C)
+    mean, dmean, dvar = (torch.randn(C, device=dev, generator=g) for _ in range(3))
+    n = bns.bn_stats_backward.launches
+    got = bns.bn_stats_backward(x, mean, dmean, dvar)
+    torch.cuda.synchronize()
+    assert bns.bn_stats_backward.launches == n + 1
+    want = bns.bn_stats_backward_reference(x, mean, dmean, dvar)
+    assert got.dtype == want.dtype == dtype and got.shape == x.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-5 * want.abs().max().item(), rtol=0)
+    else:
+        assert _one_bf16_ulp(got, want)
 
 
 def test_bn_stats_kernel_backward_matches_plain_autograd(dev):
@@ -554,6 +608,17 @@ def test_bn_stats_kernel_backward_matches_plain_autograd(dev):
         grads.append(x.grad)
     scale = grads[1].abs().max().item()
     torch.testing.assert_close(grads[0], grads[1], atol=1e-5 * scale, rtol=1e-4)
+
+
+def test_bn_stats_autograd_launches_both_kernels_once(dev):
+    x = _stats_input((8 * 28 * 28, 128), torch.bfloat16, dev).requires_grad_()
+    n, nb = bns.bn_stats.launches, bns.bn_stats_backward.launches
+    m, v = bns.bn_stats(x.view(8, 28, 28, 128))
+    assert (bns.bn_stats.launches, bns.bn_stats_backward.launches) == (n + 1, nb)
+    v.sum().backward()  # dmean is zero, dvar an expanded scalar
+    assert (bns.bn_stats.launches, bns.bn_stats_backward.launches) == (n + 1, nb + 1)
+    want = bns.bn_stats_backward_reference(x.detach(), m.detach(), torch.zeros_like(m), torch.ones_like(v))
+    assert x.grad.dtype == torch.bfloat16 and _one_bf16_ulp(x.grad, want)
 
 
 def test_batchnorm_switch_launches_bn_stats_in_training_only(dev):
@@ -578,6 +643,13 @@ def test_training_kernel_wrappers_raise_instead_of_falling_back(dev):
         sh.shear_sublane(torch.zeros((2, 3, 16, 40), device=dev).transpose(2, 3), torch.zeros((2, 16), device=dev), 5)
     with pytest.raises(ValueError, match="unsupported"):
         bns.bn_stats(torch.zeros((64, 32), device=dev, dtype=torch.float16))
+    stats = [torch.zeros(32, device=dev) for _ in range(3)]
+    with pytest.raises(ValueError, match="unsupported"):
+        bns.bn_stats_backward(torch.zeros((64, 32), device=dev, dtype=torch.float16), *stats)
+    with pytest.raises(ValueError, match="unsupported"):
+        bns.bn_stats(torch.zeros((1 << 24, 1), device=dev, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="dmean must be float32"):
+        bns.bn_stats_backward(torch.zeros((64, 32), device=dev), stats[0], stats[1].double(), stats[2])
 
 
 def test_trainer_launches_the_shear_in_steps_and_the_sublayers_in_validation(dev):
