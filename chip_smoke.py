@@ -223,11 +223,35 @@ Phases, each printing JSON lines:
               information: host-clock images/s, the host's decode, resize and
               tokenize ms, and the forward's device ms (trace.whole_trace) with
               the device's busy share of the run
+ 14. export  the exported artifact (cli/export_serving.py -> serving.py::
+              ServingModel.load), from the cli phase's configs and checkpoints
+              (its directory is removed after this phase): the preset
+              (mibf_ham_serving, batch 512, seq 256), mibf_ham with --tta
+              (batch 32) and at a static batch of 1, mibf_ham under
+              attention_impl="flash" at seq 512 (batch 32), ham_fusion_ssm_v1
+              (batch 64) and connext_ham (batch 32, seq 512), all at full width
+              and depth. For each: export seconds, artifact bytes, load
+              seconds; its launches a forward, equal to the live
+              ServingModel's on the same checkpoint and to the path's own (the
+              eight torch.ops.mdhs ops among them); logits bit for bit equal to
+              the live ones on a full and a partial batch; sync_free; device ms
+              a forward (trace.whole_trace), live and artifact, and what the
+              host runs for one forward of each (host_ops: torch.profiler's CPU
+              op records); predict_stream images/s and the p50 of one-row
+              requests at the static batch, live and artifact in turns (live,
+              artifact, artifact, live), host clock. run_serve with the TTA
+              artifact over the cli phase's PNGs writes run_predict's TTA CSV
+              byte for byte. Then dispatch_cost_b1: host us a call of the
+              ffn_block and attention_block ops against their CUDA
+              implementations called directly, at BERT-base's batch-1 shapes,
+              and the live batch-1 p50 of the exact MIBF model and the two
+              baseline configurations with the wrappers calling the ops and
+              calling the launches directly, four turns of each
 Every device breakdown (device_profile) comes from a trace checked to hold
 whole calls: a census of one call against two names the kernels every call
 launches, and a trace that lost a record of one is taken again; the census,
 the records and the wrappers' launches of one call print beside it.
-Every served phase (slice, preset, seq512, flash, baseline, connext) runs one warm
+Every served phase (slice, preset, seq512, flash, baseline, connext, export) runs one warm
 forward from device-resident inputs under torch.cuda.set_sync_debug_mode(
 "error") ("sync_free"): a call that makes the host wait on the device fails
 the script.
@@ -244,9 +268,12 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import cProfile
 import dataclasses
+import gc
 import importlib.util
 import json
+import pstats
 import re
 import shutil
 import statistics
@@ -262,7 +289,7 @@ from torch import nn
 
 from mdhs_tpu_torch import native, resolve_device
 from mdhs_tpu_torch.cli import common as cli_common
-from mdhs_tpu_torch.cli import run_ablation_eval, run_evaluate, run_predict
+from mdhs_tpu_torch.cli import export_serving, run_ablation_eval, run_evaluate, run_predict, run_serve
 from mdhs_tpu_torch.core.checkpoint import load_torch_file, load_weights, save_checkpoint
 from mdhs_tpu_torch.core.config import load_config
 from mdhs_tpu_torch.data import datasets as cli_data
@@ -293,8 +320,9 @@ from mdhs_tpu_torch.ops import shear as sh
 from mdhs_tpu_torch.ops.preprocess import eval_pipeline
 from mdhs_tpu_torch.ops.quant import quantize_weight
 from mdhs_tpu_torch.ops.tta import tta_variants
-from mdhs_tpu_torch.serving import (BASELINE_BATCH, BASELINE_SEQ, CONNEXT_BATCH, CONNEXT_CROP, CONNEXT_HAM,
-                                    CONNEXT_SEQ, HAM_FUSION_SSM, HAM_HEAD_MOE, MIBF_HAM_SERVING, ServingModel)
+from mdhs_tpu_torch.presets import (BASELINE_BATCH, BASELINE_SEQ, CONNEXT_BATCH, CONNEXT_CROP, CONNEXT_HAM,
+                                    CONNEXT_SEQ, HAM_FUSION_SSM, HAM_HEAD_MOE, MIBF_HAM_SERVING)
+from mdhs_tpu_torch.serving import ServingModel
 from mdhs_tpu_torch.train.trainer import MIBF_HAM_TRAIN, Trainer
 
 MAX_ABS, MEAN_ABS = 6e-2, 5e-3           # bf16 kernel vs plain version
@@ -1273,6 +1301,11 @@ def sync_free(model, request, dev) -> bool:
         images = eval_pipeline(inputs[0], 224, normalize=model.normalize_input, dtype=model.input_dtype)
         return model(images, inputs[1], inputs[2])
 
+    return sync_free_call(forward)
+
+
+def sync_free_call(forward) -> bool:
+    """``forward()`` once warm, then again under torch.cuda.set_sync_debug_mode("error")."""
     with torch.inference_mode():
         forward()
         torch.cuda.synchronize()
@@ -2356,7 +2389,8 @@ def _cli_mibf(dev, inputs: dict, g) -> dict:
     out["predict"], out["launches"] = info, {"predict": launches}
 
     tta_set = ["--set", "inference.tta.enabled=true", "--set", f"inference.tta.transforms=[{','.join(CLI_TTA)}]"]
-    tta_pred, launches, info = _cli_run(run_predict.main, [*base, "--output_path", csv_path, *tta_set], n)
+    csv_tta = str(CLI_DIR / "submission_tta.csv")
+    tta_pred, launches, info = _cli_run(run_predict.main, [*base, "--output_path", csv_tta, *tta_set], n)
     _cli_check_run("mibf predict with TTA", launches, want, info, n, False)
     out["predict_tta"], out["launches"]["predict_tta"] = info, launches
 
@@ -2425,66 +2459,67 @@ def _cli_mibf(dev, inputs: dict, g) -> dict:
     _cli_busy(preset["run"], preset["device_b32"], batches_n)
     del predictor
     torch.cuda.empty_cache()
-    return {"mibf": out, "preset": preset}
+    return {"mibf": out, "preset": preset, "made": {"mibf_ham": (cfg, ckpt), "mibf_ham_serving": (cfg_q, ckpt),
+                                                      "mibf_ham_tta_csv": csv_tta}}
 
 
-def phase_cli(dev, seed: int) -> dict:
+def phase_cli(dev, seed: int) -> tuple[dict, dict]:
     """The three CLIs on the card over a PNG directory and port checkpoints; returns each
-    path's launches."""
+    path's launches, and the configs and checkpoints it made (in CLI_DIR, which the caller
+    removes) for phase_export."""
     rng = np.random.default_rng([seed, 30])  # inputs of its own: the other phases' stay as they were
     g = torch.Generator(device=dev).manual_seed(seed + 30)
     shutil.rmtree(CLI_DIR, ignore_errors=True)
     CLI_DIR.mkdir(parents=True)
-    try:
-        t0 = time.perf_counter()
-        check(native.available(), "the native library (native/*.cpp) did not build")
-        native_build_s = time.perf_counter() - t0
-        inputs = _cli_inputs(rng)
-        mibf = _cli_mibf(dev, inputs, g)
-        layers = BertConfig().num_hidden_layers
+    t0 = time.perf_counter()
+    check(native.available(), "the native library (native/*.cpp) did not build")
+    native_build_s = time.perf_counter() - t0
+    inputs = _cli_inputs(rng)
+    mibf = _cli_mibf(dev, inputs, g)
+    layers = BertConfig().num_hidden_layers
 
-        # --- run_ablation_eval on ham_fusion_ssm_v1: batch 64, one batch of 64 images
-        ckpt = _cli_checkpoint(init_parameters(MultimodalBaselineModel(HAM_FUSION_SSM, device=dev), g),
-                               "ham_fusion_ssm_v1")
-        torch.cuda.empty_cache()
-        results_path = str(CLI_DIR / "ablation.yml")
-        cfg = _cli_config("ham_fusion_ssm_v1", inputs, 64)
-        results, launches, info = _cli_run(run_ablation_eval.main, ["--config", cfg, "--model_path", ckpt,
-                                                                    "--output", results_path], 64)
-        # full_fusion and text_off run BERT and the fusion (one scan each); image_only neither
-        _cli_check_run("ablation", launches, {"attention_block": 2 * layers, "ffn_block": 2 * layers,
-                                              "selective_scan": 2}, info, 64, False)
-        text = Path(results_path).read_text()
-        check(list(results) == list(run_ablation_eval.MODES)
-              and all(f"  {k}: {v!r}" in text.splitlines() for k, v in results.items()),
-              f"cli ablation results {results} against the file:\n{text}")
-        model, batch = _cli_model(cfg, "baseline", ckpt, dev)
-        ablation = {"run": info, "launches": launches, "results": results,
-                    "device_b64": {mode or "full_fusion": _cli_device(model, batch, dev, 224, True, ablation_mode=mode)
-                                   for mode in run_ablation_eval.MODES.values()}}
-        info["device_ms_per_forward"] = {k: v["device"]["kernel_ms"] for k, v in ablation["device_b64"].items()}
-        info["busy_share"] = sum(info["device_ms_per_forward"].values()) / (info["seconds"] * 1e3)
-        del model
-        torch.cuda.empty_cache()
+    # --- run_ablation_eval on ham_fusion_ssm_v1: batch 64, one batch of 64 images
+    ckpt = _cli_checkpoint(init_parameters(MultimodalBaselineModel(HAM_FUSION_SSM, device=dev), g),
+                           "ham_fusion_ssm_v1")
+    torch.cuda.empty_cache()
+    results_path = str(CLI_DIR / "ablation.yml")
+    cfg = _cli_config("ham_fusion_ssm_v1", inputs, 64)
+    results, launches, info = _cli_run(run_ablation_eval.main, ["--config", cfg, "--model_path", ckpt,
+                                                                "--output", results_path], 64)
+    # full_fusion and text_off run BERT and the fusion (one scan each); image_only neither
+    _cli_check_run("ablation", launches, {"attention_block": 2 * layers, "ffn_block": 2 * layers,
+                                          "selective_scan": 2}, info, 64, False)
+    text = Path(results_path).read_text()
+    check(list(results) == list(run_ablation_eval.MODES)
+          and all(f"  {k}: {v!r}" in text.splitlines() for k, v in results.items()),
+          f"cli ablation results {results} against the file:\n{text}")
+    model, batch = _cli_model(cfg, "baseline", ckpt, dev)
+    ablation = {"run": info, "launches": launches, "results": results,
+                "device_b64": {mode or "full_fusion": _cli_device(model, batch, dev, 224, True, ablation_mode=mode)
+                               for mode in run_ablation_eval.MODES.values()}}
+    info["device_ms_per_forward"] = {k: v["device"]["kernel_ms"] for k, v in ablation["device_b64"].items()}
+    info["busy_share"] = sum(info["device_ms_per_forward"].values()) / (info["seconds"] * 1e3)
+    made = {**mibf["made"], "ham_fusion_ssm_v1": (cfg, ckpt)}
+    del model
+    torch.cuda.empty_cache()
 
-        # --- run_predict --family connext on connext_ham: batch 32, seq 512, 32 images
-        ckpt = _cli_checkpoint(init_parameters(ConNexTClassifier(CONNEXT_HAM, device=dev), g), "connext_ham")
-        torch.cuda.empty_cache()
-        cfg = _cli_config("connext_ham", inputs, 32)
-        c_pred, launches, info = _cli_run(run_predict.main, ["--config", cfg, "--model_path", ckpt, "--family",
-                                                             "connext", "--output_path", str(CLI_DIR / "connext.csv")], 32)
-        n_bank = len(CONNEXT_BANK) - 1
-        _cli_check_run("connext predict", launches, {"fused_attention": layers, "ffn_block": layers,
-                                                     "kan_forward": n_bank}, info, 32, False)
-        check(c_pred["logits"].shape == (32, CONNEXT_HAM.num_labels) and bool(np.isfinite(c_pred["logits"]).all()),
-              f"cli connext logits {c_pred['logits'].shape}")
-        model, batch = _cli_model(cfg, "connext", ckpt, dev)
-        connext = {"run": info, "launches": launches, "device_b32": _cli_device(model, batch, dev, 224, True)}
-        _cli_busy(info, connext["device_b32"], 1)
-        del model
-        torch.cuda.empty_cache()
-    finally:
-        shutil.rmtree(CLI_DIR, ignore_errors=True)
+    # --- run_predict --family connext on connext_ham: batch 32, seq 512, 32 images
+    ckpt = _cli_checkpoint(init_parameters(ConNexTClassifier(CONNEXT_HAM, device=dev), g), "connext_ham")
+    torch.cuda.empty_cache()
+    cfg = _cli_config("connext_ham", inputs, 32)
+    c_pred, launches, info = _cli_run(run_predict.main, ["--config", cfg, "--model_path", ckpt, "--family",
+                                                         "connext", "--output_path", str(CLI_DIR / "connext.csv")], 32)
+    n_bank = len(CONNEXT_BANK) - 1
+    _cli_check_run("connext predict", launches, {"fused_attention": layers, "ffn_block": layers,
+                                                 "kan_forward": n_bank}, info, 32, False)
+    check(c_pred["logits"].shape == (32, CONNEXT_HAM.num_labels) and bool(np.isfinite(c_pred["logits"]).all()),
+          f"cli connext logits {c_pred['logits'].shape}")
+    model, batch = _cli_model(cfg, "connext", ckpt, dev)
+    connext = {"run": info, "launches": launches, "device_b32": _cli_device(model, batch, dev, 224, True)}
+    _cli_busy(info, connext["device_b32"], 1)
+    made["connext_ham"] = (cfg, ckpt)
+    del model
+    torch.cuda.empty_cache()
     emit({"phase": "cli", "images": CLI_IMAGES, "image_hw": [CLI_H, CLI_W], "pil": cli_data._pil() is not None,
           "native_build_s": native_build_s, "host_modules": {name: importlib.util.find_spec(name) is not None
                                                              for name in ("PIL", "yaml", "msgpack")},
@@ -2492,7 +2527,246 @@ def phase_cli(dev, seed: int) -> dict:
           "connext_ham": connext})
     return {"cli_mibf": {k: sum(run[k] for run in mibf["mibf"]["launches"].values()) for k in KERNELS},
             "cli_preset": mibf["preset"]["launches"], "cli_ablation": ablation["launches"],
-            "cli_connext": connext["launches"]}
+            "cli_connext": connext["launches"]}, made
+
+
+EXPORT_DIR = REPO / "mdhs_tpu_torch" / "build" / "export_smoke"  # git-ignored; removed when the phase ends
+# the artifacts: (CLI config made by phase_cli, family, static batch, export_serving's extra flags,
+# launches a forward). Full width and depth.
+EXPORT_CASES = {
+    "preset": ("mibf_ham_serving", "mibf", 512, [], {"int8_attention_block": 12, "int8_ffn_block": 12}),
+    "mibf_tta": ("mibf_ham", "mibf", 32, ["--tta"], {"attention_block": 12, "ffn_block": 12}),
+    # the batch-1 p50 of section 2 of PERF.md, live and artifact: the exact model at a static batch of 1
+    "mibf_b1": ("mibf_ham", "mibf", 1, [], {"attention_block": 12, "ffn_block": 12}),
+    "flash": ("mibf_ham", "mibf", 32, ["--set", "model.text_encoder.attention_impl=flash",
+                                       "--set", "tokenizer.max_length=512"], {"flash_attention": 12}),
+    "baseline_ssm": ("ham_fusion_ssm_v1", "baseline", 64, [],
+                     {"attention_block": 12, "ffn_block": 12, "selective_scan": 1}),
+    "connext": ("connext_ham", "connext", 32, [], {"fused_attention": 12, "ffn_block": 12, "kan_forward": 4}),
+}
+
+
+def _p50_one_row(server, request, reps: int = 20) -> float:
+    """Median host-clock ms of ``server.predict`` of one-row requests (padded to its static batch)."""
+    single = [{k: v[i:i + 1] for k, v in request.items()} for i in range(min(8, len(request["image"])))]
+    for r in single[:3]:
+        server.predict(r)
+    lat = []
+    for i in range(reps):
+        t0 = time.perf_counter()
+        server.predict(single[i % len(single)])
+        lat.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(lat)
+
+
+def host_ops(fn, reps: int = 3) -> dict:
+    """What the host runs for one call of ``fn`` (torch.profiler, CPU records): the op
+    calls a call, their summed self time, and the eight ops of most self time."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.key_averages() if e.key.startswith(("aten::", "mdhs::"))]
+    top = sorted(ops, key=lambda e: -e.self_cpu_time_total)[:8]
+    return {"op_calls_a_call": sum(e.count for e in ops) / reps,
+            "op_self_ms_a_call": sum(e.self_cpu_time_total for e in ops) / reps / 1e3,
+            "top": [{"name": e.key, "calls": e.count / reps, "self_ms": e.self_cpu_time_total / reps / 1e3}
+                    for e in top]}
+
+
+def _export_case(dev, rng, name: str, made: dict) -> tuple[dict, dict]:
+    """Export one configuration through cli/export_serving.py, load it with
+    ServingModel.load and hold it against the live ServingModel of the same
+    checkpoint; (its line, the artifact's launches a forward)."""
+    config, family, batch, flags, want = EXPORT_CASES[name]
+    cfg, ckpt = made[config]
+    path = str(EXPORT_DIR / f"{name}.pt2")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    info = export_serving.main(["--config", cfg, "--model_path", ckpt, "--family", family, "--batch_size",
+                                str(batch), "--output", path, "--device", "cuda", *flags])
+    export_wall_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    art = ServingModel.load(path)
+    load_s = time.perf_counter() - t0
+    predictor = cli_common.build_predictor(cfg, family, overrides=flags[1::2] if "--set" in flags else [],
+                                           device=dev)
+    predictor.load_weights(ckpt)
+    live = ServingModel(predictor.model, batch, dev, image_size=predictor.image_size, tta=art.tta)
+    seq, canvas = art.input_spec["input_ids"][0][1], art.input_spec["image"][0][1]
+    check(canvas == CANVAS and art.batch_size == batch and art.tta == (export_serving.TTA if "--tta" in flags else ()),
+          f"export {name}: artifact spec {art.input_spec}, tta {art.tta}")
+    full, full2, part = _request(rng, batch, seq), _request(rng, batch, seq), _request(rng, max(1, batch // 3), seq)
+
+    # --- launches a forward and the logits, artifact against live -------------
+    launches, outs = {}, {}
+    for side, server in (("artifact", art), ("live", live)):
+        zero_counts()
+        outs[side] = server.predict(full)
+        launches[side] = read_counts()
+    want = {**dict.fromkeys(KERNELS, 0), **want}
+    check(launches["artifact"] == launches["live"] == want,
+          f"export {name}: launches artifact {launches['artifact']}, live {launches['live']}, expected {want}")
+    check(outs["artifact"].shape == (batch, 7) and bool(np.isfinite(outs["artifact"]).all()),
+          f"export {name}: logits {outs['artifact'].shape}")
+    for what, req in (("full", full), ("partial", part)):
+        a, b = (outs["artifact"], outs["live"]) if req is full else (art.predict(req), live.predict(req))
+        check(np.array_equal(a, b), f"export {name}: {what}-batch logits differ from the live model's "
+              f"(max |d| {np.abs(a - b).max()})")
+
+    # --- the device forward, host syncs, rates in turns -----------------------
+    with torch.inference_mode():
+        inputs = [torch.from_numpy(full[k]).to(dev) for k in ("image", "input_ids", "attention_mask")]
+    fwd = {"artifact": lambda: art.fn(*inputs), "live": lambda: live.fn(*inputs)}
+    device = {}
+    with torch.inference_mode():
+        for side in ("live", "artifact"):
+            ms = cuda_ms(fwd[side], reps=5)
+            prof = device_profile(fwd[side], ms, reps=2)
+            device[side] = {"forward_ms": ms, "device_ms": prof["kernel_ms"], "busy_share": prof["busy_share"],
+                            "launches_a_call": prof["launches_a_call"], "host": host_ops(fwd[side])}
+    rates, p50 = {"live": [], "artifact": []}, {"live": [], "artifact": []}
+    servers = {"live": live, "artifact": art}
+    for side in ("live", "artifact", "artifact", "live"):
+        rates[side].append(_stream_rate(servers[side], [full, full2], 6 if batch > 64 else 12))
+        p50[side].append(_p50_one_row(servers[side], full))
+    line = {"config": config, "family": family, "batch": batch, "seq": seq, "flags": flags,
+            "export_s": info["seconds"], "export_cli_wall_s": export_wall_s, "load_s": load_s,
+            "bytes": info["bytes"], "weight_bytes": info["weight_bytes"], "launches_a_forward": launches["artifact"],
+            "logits_equal_live": True, "sync_free": sync_free_call(fwd["artifact"]), "device": device,
+            "images_per_s_stream": rates, "p50_ms_one_row": p50,
+            "images_per_s_median": {k: statistics.median(v) for k, v in rates.items()},
+            "p50_ms_one_row_median": {k: statistics.median(v) for k, v in p50.items()}}
+    if name == "mibf_tta":  # run_serve over phase_cli's PNGs, against run_predict's CSV of the same checkpoint
+        csv = str(CLI_DIR / "served_tta.csv")
+        zero_counts()
+        ids, _ = run_serve.main(["--artifact", path, "--config", cfg, "--output_path", csv, "--family", "mibf",
+                                 "--device", "cuda"])
+        forwards = -(-len(ids) // batch)
+        served = read_counts()
+        check(served == {**dict.fromkeys(KERNELS, 0), **{k: v * forwards for k, v in EXPORT_CASES[name][4].items()}},
+              f"run_serve launches {served} over {forwards} batches")
+        check(Path(csv).read_bytes() == Path(made["mibf_ham_tta_csv"]).read_bytes(),
+              "run_serve's CSV differs from run_predict's on the same checkpoint and images")
+        line["run_serve"] = {"images": len(ids), "launches": served, "csv_equals_run_predict": True}
+    del art, live, predictor, servers, fwd
+    Path(path).unlink()
+    gc.collect()  # the exported program's graph is cyclic: free it before the next case is timed
+    torch.cuda.empty_cache()
+    return line, launches["artifact"]
+
+
+def python_profile(fn, calls: int = 20, top: int = 12) -> list:
+    """The Python functions of most own time over ``calls`` calls of ``fn`` (cProfile; the
+    profiler's own cost inflates every time): name, calls a call, own ms a call."""
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(calls):
+        fn()
+    prof.disable()
+    stats = pstats.Stats(prof).stats
+    rows = sorted(stats.items(), key=lambda kv: -kv[1][2])[:top]
+    return [{"fn": f"{Path(f).name}:{line}({name})", "calls": nc / calls, "own_ms": tt / calls * 1e3}
+            for (f, line, name), (_, nc, tt, _, _) in rows]
+
+
+@contextlib.contextmanager
+def _direct_launches():
+    """Each served op's public wrapper routed past the dispatcher to its CUDA implementation,
+    as the wrappers called it before the ops were registered (comparison only; the launches
+    in it are counted on stand-ins and dropped)."""
+    routes = {(ab, "attention_block"): ab.launch_attention_block, (fb, "ffn_block"): fb.launch_ffn_block,
+              (fa, "fused_attention"): fa.launch_fused_attention, (ss, "selective_scan"): ss.launch_selective_scan,
+              (ks, "kan_forward"): ks.launch_kan_forward,
+              (qk, "int8_ffn_block"): lambda *a: qk.launch_int8_ffn_block(*a)[0],
+              (qk, "int8_attention_block"): lambda *a: qk.launch_int8_attention_block(*a)[0]}
+    saved = {key: getattr(*key) for key in routes}
+    for (module, name), launch in routes.items():
+        def direct(*args, _launch=launch):
+            return _launch(*args)
+        direct.launches, direct.launches_by_layer = 0, {}
+        setattr(module, name, direct)
+    try:
+        yield
+    finally:
+        for (module, name), wrapper in saved.items():
+            setattr(module, name, wrapper)
+
+
+def dispatch_cost(dev, rng, seed: int) -> dict:
+    """What the dispatcher adds at batch 1. Host time a call of the ffn_block and attention_block
+    ops (BERT-base, seq 128) against their CUDA implementations called directly: 200 calls back
+    to back (the device finishes each in under 0.03 ms, so the host bounds the loop), op and
+    direct in turns. Then the live batch-1 p50 (40 one-row requests through ServingModel(batch
+    1), host clock) of the exact MIBF model and of ham_fusion_ssm_v1, full width, with the
+    wrappers calling the ops and calling the launches directly (_direct_launches), in turns."""
+    H, Di, L = 768, 3072, 128
+    ffn = (_rand(rng, (L, H), 1.0, dev), _rand(rng, (Di, H), 0.03, dev), _rand(rng, (Di,), 0.01, dev),
+           _rand(rng, (H, Di), 0.03, dev), _rand(rng, (H,), 0.01, dev), _rand(rng, (H,), 0.1, dev) + 1,
+           _rand(rng, (H,), 0.1, dev), 1e-12, "erf")
+    attn = (_rand(rng, (1, L, H), 1.0, dev), _rand(rng, (3 * H, H), 0.03, dev), _rand(rng, (3 * H,), 0.01, dev),
+            _rand(rng, (H, H), 0.03, dev), _rand(rng, (H,), 0.01, dev), _rand(rng, (H,), 0.1, dev) + 1,
+            _rand(rng, (H,), 0.1, dev), _key_bias(1, L, 20, dev), 12, 0.125, 1e-12)
+    calls = {"ffn_block": (torch.ops.mdhs.ffn_block.default, fb.launch_ffn_block, ffn),
+             "attention_block": (torch.ops.mdhs.attention_block.default, ab.launch_attention_block, attn)}
+    out = {}
+    with torch.inference_mode():
+        for name, (op, direct, args) in calls.items():
+            us = {"op": [], "direct": []}
+            for side in ("op", "direct", "direct", "op"):
+                fn = op if side == "op" else direct
+                for _ in range(20):
+                    fn(*args)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(200):
+                    fn(*args)
+                torch.cuda.synchronize()
+                us[side].append((time.perf_counter() - t0) / 200 * 1e6)
+            out[name] = {"op_us": us["op"], "direct_us": us["direct"],
+                         "dispatch_us": statistics.median(us["op"]) - statistics.median(us["direct"])}
+    out["per_exact_forward_ms"] = 12 * (out["ffn_block"]["dispatch_us"] + out["attention_block"]["dispatch_us"]) / 1e3
+    return {**out, **p50_op_and_direct(dev, rng, seed)}
+
+
+def p50_op_and_direct(dev, rng, seed: int) -> dict:
+    """The live batch-1 p50 of three served models, the wrappers calling the ops and calling
+    the launches directly in turns (four of each), each with a Python profile of 20 requests."""
+    out = {}
+    g = torch.Generator(device=dev).manual_seed(seed + 40)
+    models = {"mibf_exact": lambda: MIBFNet(LABELS, BertConfig(), device=dev, dtype=torch.bfloat16),
+              "ham_fusion_ssm_v1": lambda: MultimodalBaselineModel(HAM_FUSION_SSM, device=dev, dtype=torch.bfloat16),
+              "ham_head_moe_v1": lambda: MultimodalBaselineModel(HAM_HEAD_MOE, device=dev, dtype=torch.bfloat16)}
+    for name, make in models.items():
+        server = ServingModel(init_parameters(make(), g), 1, dev)
+        request = _request(rng, 8, SEQ)
+        one = {k: v[:1] for k, v in request.items()}
+        p50, python = {"op": [], "direct": []}, {}
+        for side in ("op", "direct", "direct", "op") * 2:
+            with _direct_launches() if side == "direct" else contextlib.nullcontext():
+                p50[side].append(_p50_one_row(server, request, reps=40))
+                python[side] = python_profile(lambda: server.predict(one))
+        out[f"p50_b1_{name}"] = {**p50, "op_over_direct": statistics.median(p50["op"]) / statistics.median(p50["direct"]),
+                                 "python_profile": python}
+        del server
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_export(dev, seed: int, made: dict) -> dict:
+    """The artifacts (EXPORT_CASES) exported, loaded and served beside their live models;
+    returns each artifact's launches a forward."""
+    rng = np.random.default_rng([seed, 40])
+    EXPORT_DIR.mkdir(parents=True, exist_ok=True)
+    lines, by_path = {}, {}
+    try:
+        for name in EXPORT_CASES:
+            lines[name], by_path[f"export_{name}"] = _export_case(dev, rng, name, made)
+    finally:
+        shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+    emit({"phase": "export", "artifacts": lines, "dispatch_cost_b1": dispatch_cost(dev, rng, seed)})
+    return by_path
 
 
 def main() -> int:
@@ -2516,7 +2790,11 @@ def main() -> int:
     train = phase_train(dev, rng, seed)
     train_flash = phase_train_flash(dev, rng, seed)
     connext = phase_connext(dev, seed)
-    cli = phase_cli(dev, seed)
+    try:
+        cli, made = phase_cli(dev, seed)
+        export = phase_export(dev, seed, made)
+    finally:
+        shutil.rmtree(CLI_DIR, ignore_errors=True)
     main_path = {"attention_block": slice_launches, "ffn_block": slice_launches,
                  "fused_attention": seq512_launches, "int8_ffn_block": preset_launches,
                  "int8_attention_block": preset_launches, "shear_sublane": train["launches"],
@@ -2528,7 +2806,7 @@ def main() -> int:
                "baseline_ssm": baseline["selective_scan"], "baseline_moe": baseline["kan_forward"],
                "train": train["launches"], "train_bn_stats": train["ab_launches"], "flash": flash_launches,
                "train_flash": train_flash, "ablate": {"attention_ablate": ablate_launches},
-               "connext": connext["launches"], **cli}
+               "connext": connext["launches"], **cli, **export}
     kan_by_layer = {**baseline["kan_forward_by_layer"], **connext["kan_forward_by_layer"]}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

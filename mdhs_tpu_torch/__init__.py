@@ -13,7 +13,8 @@ module names so each counterpart is easy to find:
                               ``shear_sublane``, ``bn_stats`` and its
                               gradient, ``selective_scan``, ``kan_spline``'s
                               ``kan_forward``) with their plain PyTorch
-                              versions
+                              versions; the eight on a served path are the
+                              ``torch.ops.mdhs`` custom ops (``_library``)
 - ``mdhs_tpu_torch.models``   ResNet, BERT, MIBF-Net, the baseline family
                               (``MultimodalBaselineModel`` and its encoders),
                               ConNexT and BatchNorm as ``nn.Module``s with
@@ -33,15 +34,22 @@ module names so each counterpart is easy to find:
                               repository's native C++ resampler and WordPiece)
 - ``mdhs_tpu_torch.cli``      the inference entry points ``run_predict``,
                               ``run_evaluate``, ``run_ablation_eval``
-                              (``configs/`` holds JSON configs for them)
+                              (``configs/`` holds JSON configs for them),
+                              and the deployment pair ``export_serving``
+                              (the served step through ``torch.export``)
+                              and ``run_serve`` (an artifact alone -> CSV)
 - ``mdhs_tpu_torch.diagnostics``  ``attention_ablate``: the attention core's
                               time split by stage on the card
 - ``mdhs_tpu_torch.serving``  ``ServingModel``: resident weights, static
-                              batch, pipelined request loop, for either
-                              family; the int8 serving preset
-                              ``MIBF_HAM_SERVING`` and the baseline
+                              batch, pipelined request loop, for any
+                              family, around a live model or loaded from an
+                              exported artifact with no model code
+                              (``ServingModel.load``); ``ServeFunction``,
+                              the served step both run
+- ``mdhs_tpu_torch.presets``  the served configurations: the int8 serving
+                              preset ``MIBF_HAM_SERVING``, the baseline
                               configurations ``HAM_FUSION_SSM``,
-                              ``HAM_HEAD_MOE``
+                              ``HAM_HEAD_MOE``, ConNexT's ``CONNEXT_HAM``
 
 The package imports torch and numpy (and PIL, yaml, msgpack or safetensors
 only where a file asks for them): never jax, flax or mdhs_tpu.

@@ -15,7 +15,6 @@ host. ``run_prediction`` keeps the first ``n_valid`` rows of each batch.
 
 from __future__ import annotations
 
-import csv
 import os
 from datetime import datetime
 from typing import Optional
@@ -139,20 +138,3 @@ def run_prediction(predictor: Predictor, loader, *, tta_cfg=None, ablation_mode=
         preds.extend(logits.argmax(-1).tolist())
         all_logits.append(logits)
     return ids, preds, np.concatenate(all_logits, axis=0)
-
-
-def write_submission(path: str, image_ids, predictions) -> None:
-    """The submission CSV, ``image_id,predicted_label``."""
-    out_dir = os.path.dirname(path)
-    if out_dir:
-        os.makedirs(out_dir, exist_ok=True)
-    with open(path, "w", newline="") as f:
-        w = csv.writer(f)
-        w.writerow(["image_id", "predicted_label"])
-        for i, p in zip(image_ids, predictions):
-            w.writerow([i, int(p)])
-
-
-def add_device_argument(parser) -> None:
-    parser.add_argument("--device", type=str, default="cuda",
-                        help="cuda (the default; raises where there is no card) or cpu")

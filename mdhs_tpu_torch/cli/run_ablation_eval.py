@@ -23,7 +23,8 @@ from datetime import datetime
 
 import numpy as np
 
-from .common import add_device_argument, build_predictor, run_prediction
+from ..device import add_device_argument
+from .common import build_predictor, run_prediction
 
 MODES = {"full_fusion": None, "image_only": "image_only", "text_off": "text_off"}
 

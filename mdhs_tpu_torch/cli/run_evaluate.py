@@ -15,8 +15,9 @@ import json
 import numpy as np
 import torch
 
+from ..device import add_device_argument
 from ..train.metrics import classification_report
-from .common import add_device_argument, build_predictor, run_prediction
+from .common import build_predictor, run_prediction
 
 
 def main(argv=None):

@@ -18,8 +18,10 @@ import csv
 import numpy as np
 import torch
 
+from ..device import add_device_argument
 from ..train.metrics import auroc_ovr_macro
-from .common import add_device_argument, build_predictor, run_prediction, write_submission
+from .common import build_predictor, run_prediction
+from .submission import write_submission
 
 
 def main(argv=None, family: str = "baseline"):

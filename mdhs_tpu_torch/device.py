@@ -29,3 +29,9 @@ def resolve_device(device: str | torch.device) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}: expected 'cpu' or 'cuda'")
     return dev
+
+
+def add_device_argument(parser) -> None:
+    """The entry points' ``--device`` flag."""
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="cuda (the default; raises where there is no card) or cpu")

@@ -305,7 +305,17 @@ class BertLayer(nn.Module):
     def int8_weights(self) -> _Int8Weights:
         """The quantized weights, made again whenever a parameter has changed
         since they were made: load_state_dict drops them, and a move or an
-        in-place update changes a parameter's storage or version counter."""
+        in-place update changes a parameter's storage or version counter.
+
+        While ``torch.export`` traces, the kept weights are returned as they
+        are (the trace's parameters have no storage to compare): the exported
+        program holds them as constants, made by an eager forward before the
+        trace, and no request quantizes."""
+        if torch.compiler.is_exporting():
+            if self._int8 is None:
+                raise RuntimeError("BertLayer.int8_weights: no int8 weights kept to export; run one eager "
+                                   "forward before torch.export")
+            return self._int8
         if self._int8 is None or self._int8_version() != self._int8_key:
             a, s, o = self.attention, self.attention.self, self.output
             with torch.inference_mode(False), torch.no_grad():

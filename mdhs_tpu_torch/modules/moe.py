@@ -89,7 +89,15 @@ class MoE(nn.Module):
         ``base_weight`` and ``scaled_spline_weight()``, bit for bit. Stacked anew
         on each call where a kept stack would be wrong: with gradients on for a
         tensor that takes them (so that they reach the parameters), and where a
-        tensor is an inference tensor (no version counter shows its updates)."""
+        tensor is an inference tensor (no version counter shows its updates).
+        While ``torch.export`` traces, the kept stack is returned as it is (the
+        trace's parameters have no storage to compare): the exported program
+        holds it as constants, made by an eager forward before the trace."""
+        if torch.compiler.is_exporting():
+            if self._bank is None:
+                raise RuntimeError("MoE.stacked_layers: no stacked bank kept to export; run one eager forward "
+                                   "before torch.export")
+            return self._bank
         tensors = [t for e in self.experts for layer in e.layers
                    for t in (layer.grid, layer.base_weight, layer.spline_weight, layer.spline_scaler)]
         if any(t.is_inference() or (t.requires_grad and torch.is_grad_enabled()) for t in tensors):

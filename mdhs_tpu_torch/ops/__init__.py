@@ -7,4 +7,8 @@ flash-attention forward and backward in ``flash_attention``, the rotation's
 ``bn_stats_backward``, Mamba's ``selective_scan``, the KAN layer's
 ``kan_forward``) with their plain PyTorch versions; ``bf16_gemm``
 plans the bf16 sublayers' products. CUDA sources live in
-``mdhs_tpu_torch/csrc``; ``_build`` compiles them at first use."""
+``mdhs_tpu_torch/csrc``; ``_build`` compiles them at first use. ``_library``
+registers the eight kernels on a served path as the ``torch.ops.mdhs`` custom
+ops, on this package's import."""
+
+from . import _library  # noqa: F401  (registers the mdhs ops)

@@ -10,8 +10,10 @@ core on ``fused_attention``'s Hopper mainloop over the packed qkv. Weights are
 in nn.Linear layout: ``wqkv`` is ``(3*HD, HD)`` = [Wq; Wk; Wv], ``wo`` is
 ``(HD, HD)``.
 
-``attention_block`` launches the kernel for a CUDA tensor and raises if it
-cannot; for a CPU tensor it returns ``attention_block_reference``. Its
+``attention_block`` calls the ``mdhs::attention_block`` custom op
+(``ops/_library.py``), so ``torch.export`` keeps it as one node: for a CUDA
+tensor the op launches the kernel (``launch_attention_block``) and raises if
+it cannot; for a CPU tensor it returns ``attention_block_reference``. Its
 ``launches`` attribute counts calls that launched the kernel.
 """
 
@@ -23,7 +25,7 @@ from . import _build
 from . import bf16_gemm
 from .bf16_gemm import layer_norm_f32
 
-__all__ = ["attention_block", "attention_block_reference", "supports", "plans"]
+__all__ = ["attention_block", "attention_block_reference", "launch_attention_block", "supports", "plans"]
 
 # The longest L the block takes at each head_dim, by ceil(head_dim / 16): the
 # lengths whose score tile fit the 227 KB of shared memory of the block's first
@@ -88,16 +90,22 @@ def attention_block_reference(x, wqkv, bqkv, wo, bo, gamma, beta, bias,
 def attention_block(x, wqkv, bqkv, wo, bo, gamma, beta, bias,
                     num_heads: int, sm_scale: float, ln_eps: float) -> torch.Tensor:
     """Attention sublayer. x: (B, L, HD); bias: (B, L) float32 additive key bias."""
-    if x.device.type == "cpu":
-        return attention_block_reference(x, wqkv, bqkv, wo, bo, gamma, beta, bias,
-                                         num_heads, sm_scale, ln_eps)
-    if x.device.type != "cuda":
+    if x.device.type == "cuda":
+        B, L, HD = x.shape
+        if not supports(x.dtype, L, HD, num_heads):
+            raise ValueError(
+                f"attention_block: unsupported dtype={x.dtype}, L={L}, hidden={HD}, heads={num_heads}"
+            )
+    elif x.device.type != "cpu":
         raise ValueError(f"attention_block: unsupported device {x.device}")
+    return torch.ops.mdhs.attention_block.default(x, wqkv, bqkv, wo, bo, gamma, beta, bias, int(num_heads),
+                                                  float(sm_scale), float(ln_eps))
+
+
+def launch_attention_block(x, wqkv, bqkv, wo, bo, gamma, beta, bias,
+                           num_heads: int, sm_scale: float, ln_eps: float) -> torch.Tensor:
+    """The kernel on CUDA tensors: the op's CUDA implementation."""
     B, L, HD = x.shape
-    if not supports(x.dtype, L, HD, num_heads):
-        raise ValueError(
-            f"attention_block: unsupported dtype={x.dtype}, L={L}, hidden={HD}, heads={num_heads}"
-        )
     dev, dt = x.device, x.dtype
     for t, name, shape in ((x, "x", (B, L, HD)), (wqkv, "wqkv", (3 * HD, HD)),
                            (bqkv, "bqkv", (3 * HD,)), (wo, "wo", (HD, HD)), (bo, "bo", (HD,)),

@@ -9,9 +9,11 @@ GELU and GEMM2 + residual + LayerNorm on the bf16 wgmma mainloop
 ``(Di, H)``, ``w2`` is ``(H, Di)``. ``act`` is "erf" (exact GELU) or "tanh"
 (the ``fast_math`` preset).
 
-``ffn_block`` launches the kernel for a CUDA tensor and raises if it cannot;
-for a CPU tensor it returns ``ffn_block_reference``. Its ``launches``
-attribute counts calls that launched the kernel.
+``ffn_block`` calls the ``mdhs::ffn_block`` custom op (``ops/_library.py``),
+so ``torch.export`` keeps it as one node: for a CUDA tensor the op launches
+the kernel (``launch_ffn_block``) and raises if it cannot; for a CPU tensor it
+returns ``ffn_block_reference``. Its ``launches`` attribute counts calls that
+launched the kernel.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from . import bf16_gemm
 from .bf16_gemm import layer_norm_f32
 from .gelu import gelu
 
-__all__ = ["ffn_block", "ffn_block_reference", "supports", "plans"]
+__all__ = ["ffn_block", "ffn_block_reference", "launch_ffn_block", "supports", "plans"]
 
 _ACT_CODES = {"erf": 0, "tanh": 1}
 
@@ -64,14 +66,20 @@ def ffn_block(x2d, w1, b1, w2, b2, gamma, beta, ln_eps: float, act: str = "erf")
     """FFN sublayer on (N, H) rows."""
     if act not in _ACT_CODES:
         raise ValueError(f"act={act!r}: expected 'erf' or 'tanh'")
-    if x2d.device.type == "cpu":
-        return ffn_block_reference(x2d, w1, b1, w2, b2, gamma, beta, ln_eps, act)
-    if x2d.device.type != "cuda":
+    if x2d.device.type == "cuda":
+        N, H = x2d.shape
+        Di = w1.shape[0]
+        if not supports(x2d.dtype, N, H, Di):
+            raise ValueError(f"ffn_block: unsupported dtype={x2d.dtype}, N={N}, H={H}, Di={Di}")
+    elif x2d.device.type != "cpu":
         raise ValueError(f"ffn_block: unsupported device {x2d.device}")
+    return torch.ops.mdhs.ffn_block.default(x2d, w1, b1, w2, b2, gamma, beta, float(ln_eps), act)
+
+
+def launch_ffn_block(x2d, w1, b1, w2, b2, gamma, beta, ln_eps: float, act: str) -> torch.Tensor:
+    """The kernel on CUDA tensors: the op's CUDA implementation."""
     N, H = x2d.shape
     Di = w1.shape[0]
-    if not supports(x2d.dtype, N, H, Di):
-        raise ValueError(f"ffn_block: unsupported dtype={x2d.dtype}, N={N}, H={H}, Di={Di}")
     dev, dt = x2d.device, x2d.dtype
     for t, name, shape in ((x2d, "x2d", (N, H)), (w1, "w1", (Di, H)), (b1, "b1", (Di,)),
                            (w2, "w2", (H, Di)), (b2, "b2", (H,)), (gamma, "gamma", (H,)),

@@ -32,10 +32,14 @@ in float32 and rounds ``p`` (for ``dv = p^T do``) and ``ds = (do v^T - di) *
 p * sm_scale`` (for ``dk = ds^T q`` and ``dq = ds k``) to the input dtype
 before their products, as the library kernels do.
 
-``flash_attention_forward``, ``flash_attention_bwd_dkv`` and
-``flash_attention_bwd_dq`` launch their kernel for a CUDA tensor and raise if
-they cannot; for a CPU tensor they return their plain version. Each has its
-own ``launches`` counter. ``FlashAttention`` is the autograd function over
+``flash_attention_forward`` calls the ``mdhs::flash_attention_forward``
+custom op (``ops/_library.py``), so ``torch.export`` keeps it as one node:
+for a CUDA tensor the op launches the kernel
+(``launch_flash_attention_forward``), for a CPU tensor it returns the plain
+version. ``flash_attention_bwd_dkv`` and ``flash_attention_bwd_dq`` (on no
+served path) launch their kernel for a CUDA tensor and return their plain
+version for a CPU tensor. A CUDA tensor the kernels do not take raises. Each
+has its own ``launches`` counter. ``FlashAttention`` is the autograd function over
 the three (its backward: dQ, which returns di, then dK/dV); ``flash_attention``
 is the op BERT calls.
 """
@@ -48,7 +52,8 @@ from . import _build
 
 __all__ = ["FlashAttention", "MASK_VALUE", "attention_di", "flash_attention", "flash_attention_backward_reference",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dkv_reference", "flash_attention_bwd_dq",
-           "flash_attention_bwd_dq_reference", "flash_attention_forward", "flash_attention_reference", "supports"]
+           "flash_attention_bwd_dq_reference", "flash_attention_forward", "flash_attention_reference",
+           "launch_flash_attention_forward", "supports"]
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)  # the library's DEFAULT_MASK_VALUE
 
@@ -155,15 +160,27 @@ def _require_stats(q, num_heads: int, **stats) -> None:
 
 def flash_attention_forward(q, k, v, seg, num_heads: int, sm_scale: float, save_stats: bool = False):
     """o (B, L, HD), or (o, m, l) with ``save_stats``; seg (B, L) int32."""
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, seg, num_heads, sm_scale, save_stats)
+    if q.device.type == "cuda":
+        B, L, HD = q.shape
+        if not supports(q.dtype, L, HD, num_heads):
+            raise ValueError(f"flash_attention_forward: unsupported dtype={q.dtype}, L={L}, hidden={HD}, "
+                             f"heads={num_heads}")
+    elif q.device.type != "cpu":
+        raise ValueError(f"flash_attention_forward: unsupported device {q.device}")
+    o, m, l = torch.ops.mdhs.flash_attention_forward.default(q, k, v, seg, int(num_heads), float(sm_scale),
+                                                             bool(save_stats))
+    return (o, m, l) if save_stats else o
+
+
+def launch_flash_attention_forward(q, k, v, seg, num_heads: int, sm_scale: float, save_stats: bool):
+    """The kernel on CUDA tensors, the op's CUDA implementation: (o, m, l), m and
+    l empty without ``save_stats``."""
     B, L, HD = _require("flash_attention_forward", q, k, v, seg, num_heads)
     dev = q.device
     out = torch.empty_like(q)
-    m = l = None
-    if save_stats:
-        m = torch.empty((B, num_heads, L), dtype=torch.float32, device=dev)
-        l = torch.empty_like(m)
+    stats = (B, num_heads, L) if save_stats else (0,)
+    m = torch.empty(stats, dtype=torch.float32, device=dev)
+    l = torch.empty_like(m)
     lib = _build.load_library()
     with torch.cuda.device(dev):
         err = lib.flash_attention_forward(
@@ -173,7 +190,7 @@ def flash_attention_forward(q, k, v, seg, num_heads: int, sm_scale: float, save_
         )
     _build.check_launch(lib, err, "flash_attention_forward")
     flash_attention_forward.launches += 1
-    return (out, m, l) if save_stats else out
+    return out, m, l
 
 
 def flash_attention_bwd_dkv(q, k, v, seg, m, l, do, di, num_heads: int, sm_scale: float):

@@ -7,8 +7,10 @@ on q, k, v in the JAX layout ``(B, L, num_heads * head_dim)``. Counterpart of
 (its header comment has the design). BERT uses it for the sequences that
 ``attention_block``'s shared-memory gate rejects, seq 512 among them.
 
-``fused_attention`` launches the kernel for a CUDA tensor and raises if it
-cannot; for a CPU tensor it returns ``attention_reference``. Its
+``fused_attention`` calls the ``mdhs::fused_attention`` custom op
+(``ops/_library.py``), so ``torch.export`` keeps it as one node: for a CUDA
+tensor the op launches the kernel (``launch_fused_attention``) and raises if
+it cannot; for a CPU tensor it returns ``attention_reference``. Its
 ``launches`` attribute counts calls that launched the kernel.
 """
 
@@ -18,7 +20,7 @@ import torch
 
 from . import _build
 
-__all__ = ["fused_attention", "attention_reference", "supports"]
+__all__ = ["fused_attention", "attention_reference", "launch_fused_attention", "supports"]
 
 # the Hopper mainloop's plan (csrc/attention_sm90.cuh: sm90::QT, KT, CHUNK, stages(), plan())
 _QT = _KT = 128  # query rows of a block, keys of a streamed tile
@@ -83,13 +85,18 @@ def attention_reference(q, k, v, bias, num_heads: int, sm_scale: float) -> torch
 
 def fused_attention(q, k, v, bias, num_heads: int, sm_scale: float) -> torch.Tensor:
     """Attention core. q, k, v: (B, L, HD); bias: (B, L) float32 additive key bias."""
-    if q.device.type == "cpu":
-        return attention_reference(q, k, v, bias, num_heads, sm_scale)
-    if q.device.type != "cuda":
+    if q.device.type == "cuda":
+        B, L, HD = q.shape
+        if not supports(q.dtype, L, HD, num_heads):
+            raise ValueError(f"fused_attention: unsupported dtype={q.dtype}, L={L}, hidden={HD}, heads={num_heads}")
+    elif q.device.type != "cpu":
         raise ValueError(f"fused_attention: unsupported device {q.device}")
+    return torch.ops.mdhs.fused_attention.default(q, k, v, bias, int(num_heads), float(sm_scale))
+
+
+def launch_fused_attention(q, k, v, bias, num_heads: int, sm_scale: float) -> torch.Tensor:
+    """The kernel on CUDA tensors: the op's CUDA implementation."""
     B, L, HD = q.shape
-    if not supports(q.dtype, L, HD, num_heads):
-        raise ValueError(f"fused_attention: unsupported dtype={q.dtype}, L={L}, hidden={HD}, heads={num_heads}")
     dev = q.device
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         _build.require(t, name, (B, L, HD), q.dtype, dev)

@@ -19,7 +19,9 @@ giving (E, B, OUT), where ``x`` is (E, B, IN) or one (B, IN) that every
 expert reads (layer 0 of the MoE bank, ``nn.vmap(in_axes=None)`` in the JAX
 package).
 
-``kan_forward`` launches the kernel for a CUDA tensor and raises if it
+``kan_forward`` calls the ``mdhs::kan_forward`` custom op
+(``ops/_library.py``), so ``torch.export`` keeps it as one node: for a CUDA
+tensor the op launches the kernel (``launch_kan_forward``) and raises if it
 cannot; for a CPU tensor it returns ``kan_forward_reference``
 (``kan_forward_ref``'s math). Its ``launches`` attribute counts calls that
 launched the kernel, and ``launches_by_layer`` the same calls by the layer's
@@ -36,7 +38,7 @@ import torch.nn.functional as F
 
 from . import _build
 
-__all__ = ["Plan", "b_splines", "kan_forward", "kan_forward_reference", "plan", "supports"]
+__all__ = ["Plan", "b_splines", "kan_forward", "kan_forward_reference", "launch_kan_forward", "plan", "supports"]
 
 N_PTS, ORDER = 12, 3  # the kernel's knots per input and spline order (grid_size 5)
 STAGE_INPUTS = 32  # inputs of one silu stage of K (32 floats of Wb): splits hold whole ones
@@ -137,13 +139,17 @@ def kan_forward_reference(x, grid, base_w, spline_w, spline_order: int = ORDER) 
 
 def kan_forward(x, grid, base_w, spline_w, spline_order: int = ORDER) -> torch.Tensor:
     """y (B, OUT), or (E, B, OUT) for a bank; see the module docstring."""
-    if x.device.type == "cpu":
-        return kan_forward_reference(x, grid, base_w, spline_w, spline_order)
-    if x.device.type != "cuda":
+    if x.device.type == "cuda":
+        if not supports(tuple(x.shape), tuple(grid.shape), tuple(base_w.shape), spline_order, x.dtype):
+            raise ValueError(f"kan_forward: unsupported shapes x {tuple(x.shape)}, grid {tuple(grid.shape)}, "
+                             f"base_w {tuple(base_w.shape)}, order {spline_order}, dtype {x.dtype}")
+    elif x.device.type != "cpu":
         raise ValueError(f"kan_forward: unsupported device {x.device}")
-    if not supports(tuple(x.shape), tuple(grid.shape), tuple(base_w.shape), spline_order, x.dtype):
-        raise ValueError(f"kan_forward: unsupported shapes x {tuple(x.shape)}, grid {tuple(grid.shape)}, "
-                         f"base_w {tuple(base_w.shape)}, order {spline_order}, dtype {x.dtype}")
+    return torch.ops.mdhs.kan_forward.default(x, grid, base_w, spline_w, int(spline_order))
+
+
+def launch_kan_forward(x, grid, base_w, spline_w, spline_order: int) -> torch.Tensor:
+    """The kernel on CUDA tensors: the op's CUDA implementation."""
     bank = base_w.dim() == 3
     E = base_w.shape[0] if bank else 1
     OUT, IN = base_w.shape[-2:]

@@ -8,21 +8,30 @@ contiguous NHWC result (no copy).
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
-@functools.cache
+_STATS: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
+
+
 def imagenet_stats(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
     """(mean, std) float32 on ``device``, made once: a tensor made from Python
-    numbers on each call is a synchronous host-to-device copy on the card."""
-    with torch.inference_mode(False):  # usable outside inference mode too
-        return (torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=device),
-                torch.tensor(IMAGENET_STD, dtype=torch.float32, device=device))
+    numbers on each call is a synchronous host-to-device copy on the card.
+
+    While ``torch.export`` traces, the pair kept for the device is read as two
+    constants of the program, and a pair made inside the trace is not kept, so
+    no traced tensor reaches a later eager call."""
+    stats = _STATS.get(device)
+    if stats is None:
+        with torch.inference_mode(False):  # usable outside inference mode too
+            stats = (torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=device),
+                     torch.tensor(IMAGENET_STD, dtype=torch.float32, device=device))
+        if not torch.compiler.is_exporting():
+            _STATS[device] = stats
+    return stats
 
 
 def normalize_imagenet(x: torch.Tensor, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:

@@ -20,9 +20,13 @@ params on every call): ``w1_i8`` is ``(Di, H)``, ``w2_i8`` ``(H, Di)``,
 ``wqkv_i8`` ``(3*HD, HD)`` = [Wq; Wk; Wv] and ``wo_i8`` ``(HD, HD)`` int8, with
 float32 scales. Biases and LayerNorm parameters are float32 for the kernels.
 
-Each wrapper launches its kernel for a CUDA tensor and raises if it cannot;
-for a CPU tensor it returns its ``*_reference``. Its ``launches`` attribute
-counts calls that launched the kernel.
+Each wrapper calls its custom op (``mdhs::int8_ffn_block``,
+``mdhs::int8_attention_block``: ``ops/_library.py``), so ``torch.export``
+keeps it as one node: for a CUDA tensor the op launches the kernel (the first
+output of ``launch_int8_ffn_block`` / ``launch_int8_attention_block``, which
+return its scratch too) and raises if it cannot; for a CPU tensor it returns
+its ``*_reference``. Its ``launches`` attribute counts calls that launched the
+kernel.
 """
 
 from __future__ import annotations
@@ -141,9 +145,14 @@ def int8_ffn_block(x2d, w1_i8, s1, b1, w2_i8, s2, b2, gamma, beta, ln_eps: float
     """int8 FFN sublayer on (N, H) rows."""
     if act not in _ACT_CODES:
         raise ValueError(f"act={act!r}: expected 'erf' or 'tanh'")
-    if x2d.device.type == "cpu":
-        return int8_ffn_block_reference(x2d, w1_i8, s1, b1, w2_i8, s2, b2, gamma, beta, ln_eps, act)
-    return launch_int8_ffn_block(x2d, w1_i8, s1, b1, w2_i8, s2, b2, gamma, beta, ln_eps, act)[0]
+    if x2d.device.type == "cuda":
+        N, H = x2d.shape
+        Di = w1_i8.shape[0]
+        if not supports(x2d.dtype, N, H, Di):
+            raise ValueError(f"int8_ffn_block: unsupported dtype={x2d.dtype}, N={N}, H={H}, Di={Di}")
+    elif x2d.device.type != "cpu":
+        raise ValueError(f"int8_ffn_block: unsupported device {x2d.device}")
+    return torch.ops.mdhs.int8_ffn_block.default(x2d, w1_i8, s1, b1, w2_i8, s2, b2, gamma, beta, float(ln_eps), act)
 
 
 def launch_int8_ffn_block(x2d, w1_i8, s1, b1, w2_i8, s2, b2, gamma, beta, ln_eps: float, act: str):
@@ -223,11 +232,16 @@ def int8_attention_block_reference(x, wqkv_i8, sqkv, bqkv, wo_i8, so, bo, gamma,
 def int8_attention_block(x, wqkv_i8, sqkv, bqkv, wo_i8, so, bo, gamma, beta, bias,
                          num_heads: int, sm_scale: float, ln_eps: float) -> torch.Tensor:
     """int8 attention sublayer. x: (B, L, HD); bias: (B, L) float32 additive key bias."""
-    if x.device.type == "cpu":
-        return int8_attention_block_reference(x, wqkv_i8, sqkv, bqkv, wo_i8, so, bo, gamma, beta, bias,
-                                              num_heads, sm_scale, ln_eps)
-    return launch_int8_attention_block(x, wqkv_i8, sqkv, bqkv, wo_i8, so, bo, gamma, beta, bias,
-                                       num_heads, sm_scale, ln_eps)[0]
+    if x.device.type == "cuda":
+        B, L, HD = x.shape
+        if not attn_supports(x.dtype, L, HD, num_heads):
+            raise ValueError(
+                f"int8_attention_block: unsupported dtype={x.dtype}, L={L}, hidden={HD}, heads={num_heads}"
+            )
+    elif x.device.type != "cpu":
+        raise ValueError(f"int8_attention_block: unsupported device {x.device}")
+    return torch.ops.mdhs.int8_attention_block.default(x, wqkv_i8, sqkv, bqkv, wo_i8, so, bo, gamma, beta, bias,
+                                                       int(num_heads), float(sm_scale), float(ln_eps))
 
 
 def launch_int8_attention_block(x, wqkv_i8, sqkv, bqkv, wo_i8, so, bo, gamma, beta, bias,

@@ -15,8 +15,10 @@ over 2 to 8 threads a chain, and read x, dt, B and C from shared memory,
 where asynchronous copies bring the next chunk of time steps in under the
 current one.
 
-``selective_scan`` launches the kernel for a CUDA tensor and raises if it
-cannot; for a CPU tensor it returns ``selective_scan_reference``, the
+``selective_scan`` calls the ``mdhs::selective_scan`` custom op
+(``ops/_library.py``), so ``torch.export`` keeps it as one node: for a CUDA
+tensor the op launches the kernel (``launch_selective_scan``) and raises if
+it cannot; for a CPU tensor it returns ``selective_scan_reference``, the
 sequential loop in the kernel's order (not the JAX package's associative
 scan). Its ``launches`` attribute counts calls that launched the kernel.
 Eval only: no backward (the training path adds one).
@@ -28,7 +30,7 @@ import torch
 
 from . import _build
 
-__all__ = ["selective_scan", "selective_scan_reference", "supports"]
+__all__ = ["launch_selective_scan", "selective_scan", "selective_scan_reference", "supports"]
 
 MAX_STATE = 128  # a group of 8 threads, 16 states each (csrc/selective_scan.cu)
 
@@ -58,13 +60,18 @@ def selective_scan_reference(x, dt, A, B, C, D_skip) -> torch.Tensor:
 
 def selective_scan(x, dt, A, B, C, D_skip) -> torch.Tensor:
     """y (batch, L, D) of the recurrence; see the module docstring."""
-    if x.device.type == "cpu":
-        return selective_scan_reference(x, dt, A, B, C, D_skip)
-    if x.device.type != "cuda":
+    if x.device.type == "cuda":
+        N = A.shape[-1]
+        if not supports(tuple(x.shape), N, x.dtype):
+            raise ValueError(f"selective_scan: unsupported shape {tuple(x.shape)}, N {N}, dtype {x.dtype}")
+    elif x.device.type != "cpu":
         raise ValueError(f"selective_scan: unsupported device {x.device}")
+    return torch.ops.mdhs.selective_scan.default(x, dt, A, B, C, D_skip)
+
+
+def launch_selective_scan(x, dt, A, B, C, D_skip) -> torch.Tensor:
+    """The kernel on CUDA tensors: the op's CUDA implementation."""
     N = A.shape[-1]
-    if not supports(tuple(x.shape), N, x.dtype):
-        raise ValueError(f"selective_scan: unsupported shape {tuple(x.shape)}, N {N}, dtype {x.dtype}")
     batch, L, D = x.shape
     dev = x.device
     for t, name, shape in ((x, "x", (batch, L, D)), (dt, "dt", (batch, L, D)), (A, "A", (D, N)),

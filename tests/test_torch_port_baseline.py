@@ -35,7 +35,7 @@ from mdhs_tpu_torch.models import baseline as tbase
 from mdhs_tpu_torch.models import bert as tbert
 from mdhs_tpu_torch.models import encoders as tenc
 from mdhs_tpu_torch.modules import attention as tattn
-from mdhs_tpu_torch.serving import BASELINE_BATCH, BASELINE_SEQ, HAM_FUSION_SSM, HAM_HEAD_MOE
+from mdhs_tpu_torch.presets import BASELINE_BATCH, BASELINE_SEQ, HAM_FUSION_SSM, HAM_HEAD_MOE
 
 torch.set_num_threads(2)
 REPO = Path(__file__).resolve().parent.parent

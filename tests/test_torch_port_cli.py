@@ -287,7 +287,7 @@ def test_cuda_without_a_card_raises_and_builds_nothing(tmp_path, monkeypatch):
 def test_build_model_resolves_the_served_presets():
     from mdhs_tpu_torch.core.config import load_config
     from mdhs_tpu_torch.models import model_config
-    from mdhs_tpu_torch.serving import CONNEXT_HAM, HAM_FUSION_SSM, HAM_HEAD_MOE, MIBF_HAM_SERVING
+    from mdhs_tpu_torch.presets import CONNEXT_HAM, HAM_FUSION_SSM, HAM_HEAD_MOE, MIBF_HAM_SERVING
 
     root = os.path.join(os.path.dirname(__file__), "..", "configs")
     assert model_config(load_config(f"{root}/serving/mibf_ham_serving.yml"), "mibf", 30522) == {

@@ -45,8 +45,9 @@ from mdhs_tpu_torch.models.init import init_parameters
 from mdhs_tpu_torch.modules import attention as tattn
 from mdhs_tpu_torch.modules import moe as tmoe
 from mdhs_tpu_torch.ops.preprocess import eval_pipeline
-from mdhs_tpu_torch.serving import (CONNEXT_BALANCE_WEIGHT, CONNEXT_BATCH, CONNEXT_CANVAS, CONNEXT_CROP, CONNEXT_HAM,
-                                    CONNEXT_SEQ, ServingModel)
+from mdhs_tpu_torch.presets import (CONNEXT_BALANCE_WEIGHT, CONNEXT_BATCH, CONNEXT_CANVAS, CONNEXT_CROP, CONNEXT_HAM,
+                                    CONNEXT_SEQ)
+from mdhs_tpu_torch.serving import ServingModel
 
 torch.set_num_threads(2)
 T = torch.from_numpy

@@ -25,11 +25,15 @@ import torch
 
 from mdhs_tpu_torch.models.bert import BertConfig, BertModel, int8_composite
 from mdhs_tpu_torch.models.init import init_parameters
+from mdhs_tpu_torch.ops import _library
 from mdhs_tpu_torch.ops import attention_block as ab
 from mdhs_tpu_torch.ops import bf16_gemm as bg
 from mdhs_tpu_torch.ops import ffn_block as fb
+from mdhs_tpu_torch.ops import flash_attention as fl
 from mdhs_tpu_torch.ops import fused_attention as fa
+from mdhs_tpu_torch.ops import kan_spline as ks
 from mdhs_tpu_torch.ops import quant_kernel as qk
+from mdhs_tpu_torch.ops import selective_scan as ss
 from mdhs_tpu_torch.ops.quant import int_matmul, quantize_weight
 
 pytestmark = pytest.mark.cuda
@@ -86,6 +90,81 @@ def test_ffn_block_kernel_matches_plain(dev, N, H, Di, act):
     torch.cuda.synchronize()
     assert fb.ffn_block.launches == n + 1
     _close(out, fb.ffn_block_reference(*args))
+
+
+# --- the torch.ops.mdhs custom ops: small inputs inside every kernel's gate (bf16 for the attention
+# and FFN sublayers and cores, float32 for the scan and the KAN layer; a padded key tail and a
+# second segment where the op masks), each op's plain version and the wrapper whose ``launches``
+# its CUDA implementation counts. test_torch_port_export.py runs the same ops on the CPU.
+OPS = tuple(_library.OPS)
+
+# each op's plain version and the public wrapper whose ``launches`` its CUDA implementation counts
+PLAIN = {"attention_block": ab.attention_block_reference, "ffn_block": fb.ffn_block_reference,
+         "fused_attention": fa.attention_reference,
+         "flash_attention_forward": lambda *a: fl.flash_attention_reference(*a[:6], save_stats=a[6]),
+         "int8_ffn_block": qk.int8_ffn_block_reference, "int8_attention_block": qk.int8_attention_block_reference,
+         "selective_scan": ss.selective_scan_reference, "kan_forward": ks.kan_forward_reference}
+WRAPPER = {"attention_block": ab.attention_block, "ffn_block": fb.ffn_block, "fused_attention": fa.fused_attention,
+           "flash_attention_forward": fl.flash_attention_forward, "int8_ffn_block": qk.int8_ffn_block,
+           "int8_attention_block": qk.int8_attention_block, "selective_scan": ss.selective_scan,
+           "kan_forward": ks.kan_forward}
+
+
+def op_args(name: str, device, seed: int = 0) -> tuple:
+    """The op's arguments, made from ``seed`` with numpy."""
+    rng = np.random.default_rng(seed)
+
+    def t(shape, scale=1.0, dtype=torch.bfloat16, offset=0.0):
+        return torch.tensor(offset + rng.standard_normal(shape) * scale, dtype=dtype, device=device)
+
+    def i8(shape):
+        return torch.tensor(rng.integers(-127, 128, shape), dtype=torch.int8, device=device)
+
+    f32 = torch.float32
+    B, L, HD, heads, Di = 2, 24, 128, 2, 256
+    bias = torch.zeros((B, L), dtype=f32, device=device)
+    bias[1, L - 5:] = -1e9
+    if name == "attention_block":
+        return (t((B, L, HD)), t((3 * HD, HD), 0.03), t((3 * HD,), 0.01), t((HD, HD), 0.03), t((HD,), 0.01),
+                t((HD,), 0.1, offset=1.0), t((HD,), 0.1), bias, heads, 0.125, 1e-12)
+    if name == "ffn_block":
+        return (t((37, HD)), t((Di, HD), 0.03), t((Di,), 0.01), t((HD, Di), 0.03), t((HD,), 0.01),
+                t((HD,), 0.1, offset=1.0), t((HD,), 0.1), 1e-12, "erf")
+    if name == "fused_attention":
+        return (t((B, L, HD)), t((B, L, HD)), t((B, L, HD)), bias, heads, 0.125)
+    if name == "flash_attention_forward":
+        seg = torch.ones((B, L), dtype=torch.int32, device=device)
+        seg[1, L - 5:] = 0
+        return (t((B, L, HD)), t((B, L, HD)), t((B, L, HD)), seg, heads, 0.125, True)
+    if name == "int8_ffn_block":
+        return (t((37, HD)), i8((Di, HD)), t((Di,), 1e-3, f32, 2e-3), t((Di,), 0.01, f32), i8((HD, Di)),
+                t((HD,), 1e-3, f32, 2e-3), t((HD,), 0.01, f32), t((HD,), 0.1, f32, 1.0), t((HD,), 0.1, f32),
+                1e-12, "tanh")
+    if name == "int8_attention_block":
+        return (t((B, L, HD)), i8((3 * HD, HD)), t((3 * HD,), 1e-4, f32, 3e-4), t((3 * HD,), 0.01, f32),
+                i8((HD, HD)), t((HD,), 1e-4, f32, 3e-4), t((HD,), 0.01, f32), t((HD,), 0.1, f32, 1.0),
+                t((HD,), 0.1, f32), bias, heads, 0.125, 1e-12)
+    if name == "selective_scan":
+        Bn, Ln, D, N = 2, 9, 16, 8
+        return (t((Bn, Ln, D), 1.0, f32), t((Bn, Ln, D), 0.1, f32).abs() + 0.01, -t((D, N), 1.0, f32).abs(),
+                t((Bn, Ln, N), 1.0, f32), t((Bn, Ln, N), 1.0, f32), t((D,), 1.0, f32))
+    if name == "kan_forward":
+        E, Bk, IN, OUT = 2, 5, 8, 24
+        grid = torch.linspace(-2.2, 2.2, ks.N_PTS, dtype=f32, device=device).expand(E, IN, ks.N_PTS).contiguous()
+        coefs = ks.N_PTS - 1 - ks.ORDER
+        return t((Bk, IN), 0.7, f32), grid, t((E, OUT, IN), 0.3, f32), t((E, OUT, IN, coefs), 0.3, f32), ks.ORDER
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("name", OPS)
+def test_op_passes_opcheck_on_the_card(dev, name):
+    """Each torch.ops.mdhs op on CUDA tensors: torch.library.opcheck (the schema, the fake
+    against the launch's outputs, the autograd registration, a trace with dynamic shapes),
+    which launches the kernel."""
+    n = WRAPPER[name].launches
+    torch.library.opcheck(getattr(torch.ops.mdhs, name).default, op_args(name, dev))
+    torch.cuda.synchronize()
+    assert WRAPPER[name].launches > n
 
 
 def test_wrappers_raise_instead_of_falling_back(dev):
@@ -705,8 +784,6 @@ def test_trainer_validates_before_its_first_step(dev):
 from mdhs_tpu_torch.models.baseline import BaselineConfig, MultimodalBaselineModel  # noqa: E402
 from mdhs_tpu_torch.modules import mamba as mamba_mod  # noqa: E402
 from mdhs_tpu_torch.modules import moe as moe_mod  # noqa: E402
-from mdhs_tpu_torch.ops import kan_spline as ks  # noqa: E402
-from mdhs_tpu_torch.ops import selective_scan as ss  # noqa: E402
 
 
 def _close_f32(out, ref):
@@ -901,7 +978,6 @@ def test_baseline_models_launch_the_new_kernels(dev, monkeypatch):
 # 0.02 * max |plain| and mean |d| <= 2e-3 * max |plain| (bf16 p and ds are
 # rounded relative to the kernel's own float32 scores, so a rounding apart
 # moves a gradient by a bf16 step of its largest term).
-from mdhs_tpu_torch.ops import flash_attention as fl  # noqa: E402
 
 _FLASH_SHAPES = [(2, 128, 768, 12), (4, 512, 768, 12), (32, 256, 768, 12), (3, 200, 256, 8), (2, 384, 512, 4),
                  (1, 1, 64, 2)]

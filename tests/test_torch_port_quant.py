@@ -27,7 +27,7 @@ from mdhs_tpu_torch.models import bert as tbert
 from mdhs_tpu_torch.models.init import init_parameters
 from mdhs_tpu_torch.ops import quant as tquant
 from mdhs_tpu_torch.ops import quant_kernel as tqk
-from mdhs_tpu_torch.serving import MIBF_HAM_SERVING
+from mdhs_tpu_torch.presets import MIBF_HAM_SERVING
 
 torch.set_num_threads(2)
 

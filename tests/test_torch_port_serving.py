@@ -158,13 +158,15 @@ def test_package_imports_no_jax_and_runs_the_slice():
         from mdhs_tpu_torch.ops import (_build, attention_block, augment, bn_stats, ffn_block, flash_attention,
                                         fused_attention, gelu, kan_spline, preprocess, quant, quant_kernel,
                                         selective_scan, shear)
-        from mdhs_tpu_torch.serving import CONNEXT_HAM, HAM_FUSION_SSM, HAM_HEAD_MOE, MIBF_HAM_SERVING, ServingModel
+        from mdhs_tpu_torch.presets import CONNEXT_HAM, HAM_FUSION_SSM, HAM_HEAD_MOE, MIBF_HAM_SERVING
+        from mdhs_tpu_torch.serving import ServingModel
         from mdhs_tpu_torch.train import losses, metrics, optim, trainer
         from mdhs_tpu_torch import native
         from mdhs_tpu_torch.core import checkpoint, config, dtypes
         from mdhs_tpu_torch.data import datasets, loader, png, tokenizer
         from mdhs_tpu_torch.ops import tta
-        from mdhs_tpu_torch.cli import common, run_ablation_eval, run_evaluate, run_predict
+        from mdhs_tpu_torch.cli import common, export_serving, run_ablation_eval, run_evaluate, run_predict, run_serve
+        from mdhs_tpu_torch.ops import _library
         from mdhs_tpu_torch.models import build_model
         cfg = bert.BertConfig(vocab_size=64, num_hidden_layers=1, intermediate_size=64,
                               max_position_embeddings=16)
