@@ -190,6 +190,25 @@ Phases, each printing JSON lines:
               max |logit|, the logits within CONNEXT_LOGIT_MAX / _MEAN of it;
               images/s at batch 32, p50 latency at batch 1, tower and forward
               times and the device breakdown
+ 12b. train_connext  ConNexT trained at full width through the config-driven
+              Trainer (mdhs_tpu_torch/configs/connext_ham.json: batch 32, seq
+              512, canvas 256 -> 224, degrees 45, vflip, colour jitter, ImageNet
+              normalisation, Adam, CE + balance_weight x the MoE balance loss),
+              a bf16 module with float32 masters on phase_connext's stated
+              weights: fit over 2 epochs x 2 steps (the second batch short) with
+              a validation batch an epoch into a run directory (training.log,
+              metrics.jsonl with JAX's tags and the per-class report,
+              checkpoints.json, last.pt; removed after); shear_sublane 3 and
+              kan_forward 4 a step (its backward the plain VJP), fused_attention
+              and ffn_block 12 and kan_forward 4 a validation forward, nothing
+              else; finite losses, masters moved; the 45-degree shears (pads 49,
+              82) and the jitter bit-exact against the plain shear on the same
+              sampled values; one step against the same step on kan_forward's
+              plain version (same augmented batch, dropout masks and gating
+              noise: loss within CONNEXT_TRAIN_LOSS_REL, the MoE's and BERT's
+              gradient cosines >= CONNEXT_TRAIN_GRAD_COS); images/s, step ms
+              split into augmentation, forward + backward and optimizer, the
+              device breakdown, peak memory (torch.cuda.max_memory_allocated)
  13. cli     the inference entry points (mdhs_tpu_torch/cli) over a directory of
               CLI_IMAGES seeded 600 x 450 PNGs (HAM10000's size, written by
               data/png.py), a JSON of descriptions and a label CSV, each
@@ -247,6 +266,18 @@ Phases, each printing JSON lines:
               and the live batch-1 p50 of the exact MIBF model and the two
               baseline configurations with the wrappers calling the ops and
               calling the launches directly, four turns of each
+ 13b. train_cli  (between cli and export, on the cli phase's PNGs) python3 -m
+              mdhs_tpu_torch.cli.run_train --family mibf on mibf_ham.json (batch
+              32, seq 256) over 64 train and 16 val images for 2 epochs from a
+              seeded full-width start (model.pretrained_path, residual-branch
+              BatchNorm damped): the run directory's files, finite losses, at
+              most 3 checkpoints best first and last.pt; shear_sublane 3 a step,
+              attention_block and ffn_block 12 a validation batch, nothing else;
+              the best checkpoint bit for bit the trainer's state at its epoch,
+              in the file and in a fresh model; run_predict over it within
+              SLICE_ATOL / SLICE_MEAN of the trainer's eval forward on the same
+              images (bit-equal reported); a resume from last.pt for a third
+              epoch starts at the saved step and schedule position
 Every device breakdown (device_profile) comes from a trace checked to hold
 whole calls: a census of one call against two names the kernels every call
 launches, and a trace that lost a record of one is taken again; the census,
@@ -289,8 +320,8 @@ from torch import nn
 
 from mdhs_tpu_torch import native, resolve_device
 from mdhs_tpu_torch.cli import common as cli_common
-from mdhs_tpu_torch.cli import export_serving, run_ablation_eval, run_evaluate, run_predict, run_serve
-from mdhs_tpu_torch.core.checkpoint import load_torch_file, load_weights, save_checkpoint
+from mdhs_tpu_torch.cli import export_serving, run_ablation_eval, run_evaluate, run_predict, run_serve, run_train
+from mdhs_tpu_torch.core.checkpoint import TopKCheckpointManager, load_torch_file, load_weights, save_checkpoint
 from mdhs_tpu_torch.core.config import load_config
 from mdhs_tpu_torch.data import datasets as cli_data
 from mdhs_tpu_torch.data import png
@@ -393,6 +424,12 @@ CONNEXT_LOGIT_MAX, CONNEXT_LOGIT_MEAN = 2.0 ** -4, 2.0 ** -7
 # gate does not do that here)
 CONNEXT_GATE_STD = 2.0
 CONNEXT_BANK = (768, 512, 128, 32, 7)  # the MoE head's KAN experts (modules/moe.py's default stack)
+# A ConNexT training step with kan_forward's kernel against the same step on its plain version (the
+# same weights, augmented batch, dropout masks and gating noise): the kernel's 3xTF32 products sit
+# ~1e-6 relative from float32, which a bf16 cast after each bank layer turns into a bf16 step now and
+# then; the loss within 1e-2 relative and the MoE bank's and BERT's gradient cosines >= 0.99, the
+# bounds of the flash and bf16 steps above
+CONNEXT_TRAIN_LOSS_REL, CONNEXT_TRAIN_GRAD_COS = 1e-2, 0.99
 # The cli phase's inputs: HAM10000's 600 x 450 dermoscopy images, the batch's three TTA variants
 CLI_IMAGES, CLI_H, CLI_W = 80, 450, 600
 CLI_TTA = ("hflip", "vflip", "rot90")
@@ -1040,9 +1077,10 @@ def _kernel_cases(dev, rng, seed):
                 cases.append(("flash_attention_bwd_dq", f"B={B},L={L}", fl.flash_attention_bwd_dq_reference,
                               dq_args, (B, L) == (BATCH, LONG_SEQ), bound_flash_dq(B, L), sdpa_backward,
                               judge_dq(o, do)))
-    # the training step's rotation: pads 17 (W shears) and 31 (H shear) at 15 degrees, batch 32;
-    # the baseline family's 45 degrees (pads 49 / 82) on a smaller batch
-    for B, pad, deg, axis in ((BATCH, 17, 15.0, "w"), (BATCH, 31, 15.0, "h"), (8, 49, 45.0, "w"), (8, 82, 45.0, "h")):
+    # the training step's rotation: pads 17 (W shears) and 31 (H shear) at MIBF's 15 degrees, and
+    # 49 / 82 at ConNexT's 45 degrees, batch 32
+    for B, pad, deg, axis in ((BATCH, 17, 15.0, "w"), (BATCH, 31, 15.0, "h"), (BATCH, 49, 45.0, "w"),
+                              (BATCH, 82, 45.0, "h")):
         args, library = _shear_case(rng, B, pad, deg, axis, dev)
         x = args[0]
         cases.append(("shear_sublane", f"x={tuple(x.shape)},pad={pad}", sh.shear_reference, args, pad == 17,
@@ -2227,6 +2265,148 @@ def phase_connext(dev, seed: int) -> dict:
     return {"launches": launches, "kan_forward_by_layer": by_layer}
 
 
+def _connext_train_batch(rng, n_valid: int) -> dict:
+    """A loader-shaped ConNexT batch: uint8 canvases, seq-512 tokens, labels and n_valid."""
+    b = _request(rng, CONNEXT_BATCH, CONNEXT_SEQ)
+    b["label"] = rng.integers(0, CONNEXT_HAM.num_labels, CONNEXT_BATCH).astype(np.int64)
+    b["n_valid"] = np.int32(n_valid)
+    return b
+
+
+def _run_files(out: str) -> dict:
+    """What a training run wrote: the metric tags, finite values, the checkpoint index."""
+    recs = [json.loads(line) for line in Path(out, "metrics.jsonl").read_text().splitlines()]
+    index = json.loads(Path(out, "checkpoints.json").read_text())
+    check(Path(out, "training.log").stat().st_size > 0 and Path(out, "last.pt").exists()
+          and Path(out, "config.json").exists(), f"{out}: training.log, last.pt or config.json missing")
+    check(all(np.isfinite(r["value"]) for r in recs), f"{out}: non-finite metric records")
+    check(1 <= len(index) <= 3 and index == sorted(index, key=lambda e: -e["metric"])
+          and all(Path(out, e["path"]).exists() for e in index), f"{out}: checkpoints.json {index}")
+    tags = sorted({r["tag"] for r in recs})
+    for tag in ("Loss/Train_Batch", "Loss/Train_Epoch", "Loss/Validation", "Accuracy/Validation", "LearningRate"):
+        check(tag in tags, f"{out}: no {tag} record")
+    return {"tags": tags, "records": len(recs), "checkpoints": index}
+
+
+def phase_train_connext(dev, seed: int) -> dict:
+    """ConNexT trained at full width (connext_ham.json: ConvNeXt-base + BERT-base at seq 512, batch 32,
+    the four-layer KAN bank, colour jitter and 45-degree rotation) through the config-driven Trainer:
+    fit over 2 epochs of 2 steps with validation, the launches of each path, the 45-degree shears
+    against the plain shear, one step against the plain kan_forward, rates, the device breakdown and
+    peak memory; returns the launches of the fit."""
+    rng = np.random.default_rng([seed, 25])  # inputs of its own
+    g = torch.Generator(device=dev).manual_seed(seed + 25)
+    run_dir = REPO / "mdhs_tpu_torch" / "build" / "train_connext_smoke"  # git-ignored; removed at the end
+    shutil.rmtree(run_dir, ignore_errors=True)
+    cfg = load_config(REPO / "mdhs_tpu_torch" / "configs" / "connext_ham.json",
+                      overrides=["training.log_every=1", "training.log_per_class=true"])
+    # float32 masters with phase_connext's stated weights: layer scales, the image-side query and key
+    model = init_parameters(ConNexTClassifier(CONNEXT_HAM, device=dev), g)
+    with torch.no_grad():
+        for p in _layer_scales(model):
+            p.fill_(LAYER_SCALE)
+        for conv in (model.imagbased_cross_attention.query_conv, model.imagbased_cross_attention.key_conv):
+            conv.weight.mul_(CONNEXT_QK_SCALE)
+    torch.cuda.reset_peak_memory_stats(dev)
+    trainer = Trainer(cfg, "connext", output_dir=str(run_dir), device=dev, setup_data=False, model=model)
+    B, layers, n_bank = CONNEXT_BATCH, CONNEXT_HAM.bert.num_hidden_layers, len(CONNEXT_BANK) - 1
+    train = [_connext_train_batch(rng, B), _connext_train_batch(rng, 23)]  # the second one short: 9 padded rows
+    val = [_connext_train_batch(rng, B)]
+    trainer.model.eval()
+    _gate_along_row_spread(trainer.model, train[0], dev, CONNEXT_GATE_STD)  # w_gate is its own float32 master
+    trainer.model.train()
+    check(aug.shear_pads(CONNEXT_CROP, trainer.preset.degrees) == (49, 82) and trainer.preset.vflip
+          and trainer.preset.color_jitter and trainer.preset.normalize, f"connext augmentation {trainer.preset}")
+    masters = dict(zip((n for n, _ in trainer.model.named_parameters()), trainer.master_parameters()))
+    watch = {n: masters[n].detach().clone() for n in ("moe.experts.0.layers.0.base_weight", "moe.w_gate",
+                                                      "image_encoder.embeddings.patch_embeddings.weight",
+                                                      "text_encoder.bert.encoder.layer.0.attention.self.query.weight")}
+
+    # --- the main path: Trainer.fit, 2 epochs x 2 steps, validation on one batch an epoch
+    zero_counts()
+    t0 = time.perf_counter()
+    history = trainer.fit(train, val, num_epochs=2, steps_per_epoch=2)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    want = {**dict.fromkeys(KERNELS, 0), "shear_sublane": 3 * 4, "kan_forward": n_bank * (4 + 2),
+            "fused_attention": layers * 2, "ffn_block": layers * 2}
+    check(launches == want, f"connext fit launches {launches}, expected {want}")
+    losses = [x for h in history for x in h["train_losses"]] + [h["val_loss"] for h in history]
+    check(all(np.isfinite(losses)), f"non-finite connext losses {losses}")
+    check(all(not torch.equal(p, masters[n]) for n, p in watch.items()), "connext parameters unchanged")
+    files = _run_files(str(run_dir))
+    check("per_class/f1_class_6" in files["tags"] and "val/auroc_macro" in files["tags"], "no per-class report")
+
+    # --- each path alone: a step launches the three shears and the four bank layers; a validation
+    # --- forward BERT's two kernels 12 times and the bank's 4
+    zero_counts()
+    trainer.train_step(train[0])
+    step_launches = read_counts()
+    check(step_launches == {**dict.fromkeys(KERNELS, 0), "shear_sublane": 3, "kan_forward": n_bank},
+          f"connext train_step launches {step_launches}")
+    zero_counts()
+    trainer.validate(val)
+    val_launches = read_counts()
+    check(val_launches == {**dict.fromkeys(KERNELS, 0), "fused_attention": layers, "ffn_block": layers,
+                           "kan_forward": n_bank}, f"connext validation launches {val_launches}")
+
+    # --- the 45-degree shears (pads 49, 82) and the jitter: kernel against plain on the same sampled values
+    canv = trainer.to_device(train[1])["image"]
+    p = aug.sample_crop_flip_rotate(B, CANVAS, trainer.generator, vflip=True, degrees=45.0)
+    j = aug.sample_color_jitter(B, trainer.generator)
+    x_kernel = trainer.augment(canv, params=p, jitter=j)
+    with _plain_op(aug, "shear_sublane", sh.shear_reference):
+        x_plain = trainer.augment(canv, params=p, jitter=j)
+    aug_d = diff(x_kernel, x_plain)
+    check(aug_d[0] == 0.0 and x_kernel.shape == (B, 3, CONNEXT_CROP, CONNEXT_CROP),
+          f"connext augmentation kernel vs plain: {aug_d}, shape {tuple(x_kernel.shape)}")
+
+    # --- one step with the kernel against the same step on kan_forward's plain version
+    dev_b = trainer.to_device(train[1])
+    valid = trainer.valid_mask(train[1], B)
+    with torch.no_grad():
+        images = trainer.augment(dev_b["image"])
+    noise = torch.randn((B, CONNEXT_HAM.moe_num_experts), generator=g, device=dev)
+    groups = {"moe": [p for n, p in trainer.model.named_parameters() if n.startswith("moe.")],
+              "text_encoder": list(trainer.model.text_encoder.parameters())}
+    step = {}
+    for which in ("kernel", "plain"):
+        with contextlib.ExitStack() as stack:
+            if which == "plain":
+                stack.enter_context(_plain_op(ks, "kan_forward", ks.kan_forward_reference))
+            torch.manual_seed(seed)
+            loss, out = trainer.forward_backward(images, dev_b, valid, noise=noise)
+        step[which] = (loss.item(), {k: torch.cat([p.grad.double().flatten() for p in ps]) for k, ps in groups.items()})
+    (loss_k, gk), (loss_p, gp) = step["kernel"], step["plain"]
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    cos = {k: (gk[k] @ gp[k] / (gk[k].norm() * gp[k].norm() + 1e-30)).item() for k in groups}
+    check(rel <= CONNEXT_TRAIN_LOSS_REL and all(c >= CONNEXT_TRAIN_GRAD_COS for c in cos.values()),
+          f"connext step vs plain kan_forward: loss {loss_k} vs {loss_p}, gradient cosines {cos}")
+    del step, gk, gp
+
+    # --- rates, step parts, the device breakdown
+    images_per_s = _images_per_s(trainer, train)
+    parts = _step_parts_ms(trainer, train[0])
+    device = device_profile(lambda: trainer.train_step(train[0]), parts["step_ms"], reps=2, top=15)
+    peak_all_gb = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    emit({"phase": "train_connext", "config": "connext_ham", "model": "ConNexTClassifier: ConvNeXt-base + BERT-base, "
+          f"fusion 768, MoE head 4 KAN experts {list(CONNEXT_BANK)} top-2; bf16 module, float32 masters, Adam, "
+          f"batch {B}, seq {CONNEXT_SEQ}, canvas 256 -> 224, degrees 45, vflip, colour jitter, ImageNet "
+          f"normalisation, layer scales {LAYER_SCALE}", "history": history, "fit_s": fit_s,
+          "launches_fit": launches, "launches_train_step": step_launches, "launches_validation_forward": val_launches,
+          "run_files": files, "augment_kernel_vs_plain_max_abs": aug_d[0], "shear_pads": [49, 82],
+          "step_vs_plain_kan_forward": {"loss_kernel": loss_k, "loss_plain": loss_p, "loss_rel": rel,
+                                        "grad_cosine": cos},
+          "images_per_s_b32": images_per_s, "step_parts_ms": parts, "device": device,
+          "peak_memory_gib_fit": peak_gb, "peak_memory_gib_phase": peak_all_gb})
+    del trainer, model, masters
+    shutil.rmtree(run_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
 # ---------------------------------------------------------------------------
 # phase 13: the inference entry points over an image directory and a checkpoint
 REPO = Path(__file__).resolve().parent
@@ -2518,6 +2698,7 @@ def phase_cli(dev, seed: int) -> tuple[dict, dict]:
     connext = {"run": info, "launches": launches, "device_b32": _cli_device(model, batch, dev, 224, True)}
     _cli_busy(info, connext["device_b32"], 1)
     made["connext_ham"] = (cfg, ckpt)
+    made["inputs"] = inputs
     del model
     torch.cuda.empty_cache()
     emit({"phase": "cli", "images": CLI_IMAGES, "image_hw": [CLI_H, CLI_W], "pil": cli_data._pil() is not None,
@@ -2528,6 +2709,114 @@ def phase_cli(dev, seed: int) -> tuple[dict, dict]:
     return {"cli_mibf": {k: sum(run[k] for run in mibf["mibf"]["launches"].values()) for k in KERNELS},
             "cli_preset": mibf["preset"]["launches"], "cli_ablation": ablation["launches"],
             "cli_connext": connext["launches"]}, made
+
+
+@contextlib.contextmanager
+def _saved_checkpoints(into: dict):
+    """Every TopKCheckpointManager.maybe_save's state, kept by epoch (their tensors are host copies)."""
+    real = TopKCheckpointManager.maybe_save
+
+    def spy(self, epoch, metric, state):
+        into[epoch] = state["state_dict"]
+        return real(self, epoch, metric, state)
+
+    TopKCheckpointManager.maybe_save = spy
+    try:
+        yield into
+    finally:
+        TopKCheckpointManager.maybe_save = real
+
+
+def phase_train_cli(dev, inputs: dict, g) -> dict:
+    """python3 -m mdhs_tpu_torch.cli.run_train --family mibf on mibf_ham (batch 32, seq 256) over
+    phase_cli's PNGs: 64 train images, 16 val images, 2 epochs from a seeded full-width start
+    (model.pretrained_path); the run directory, the launches of the run, the best checkpoint
+    against the trainer's state at its epoch and through run_predict, and a resume for one more
+    epoch; returns the launches of the two runs."""
+    layers = BertConfig().num_hidden_layers
+    order = inputs["order"]
+    val_csv = CLI_DIR / "labels_val16.csv"
+    val_csv.write_text("image_id,label\n" + "".join(f"{a},{inputs['labels'][a]}\n" for a in order[64:80]))
+    init = _cli_checkpoint(_damp_residual_branches(init_parameters(MIBFNet(LABELS, BertConfig(), device=dev), g)),
+                           "mibf_train_init")
+    cfg = load_config(REPO / "mdhs_tpu_torch" / "configs" / "mibf_ham.json")
+    for key, val in (("data.train_image_dir", inputs["image_dir"]), ("data.train_json_path", inputs["json_path"]),
+                     ("data.train_label_csv", inputs["label_csv"][64]), ("data.val_image_dir", inputs["image_dir"]),
+                     ("data.val_json_path", inputs["json_path"]), ("data.val_label_csv", str(val_csv)),
+                     ("data.test_image_dir", inputs["image_dir"]), ("data.test_json_path", inputs["json_path"]),
+                     ("data.test_label_csv", str(val_csv)), ("output.log_dir", str(CLI_DIR / "train_runs")),
+                     ("output.run_name", "mibf_ham"), ("model.pretrained_path", init), ("training.num_epochs", 2),
+                     ("training.log_every", 1)):
+        cfg.set(key, val)
+    cfg_path = str(CLI_DIR / "mibf_ham_train.json")
+    cfg.save_json(cfg_path)
+    argv = ["--config", cfg_path, "--family", "mibf"]
+
+    saved = {}
+    with _saved_checkpoints(saved):
+        trainer, launches, info = _cli_run(run_train.main, argv, 64 * 2)
+    steps, val_batches = 2 * 2, 2
+    want = {"shear_sublane": 3 * steps, "attention_block": layers * val_batches, "ffn_block": layers * val_batches}
+    check(launches == {**dict.fromkeys(KERNELS, 0), **want}, f"train cli launches {launches}, expected {want}")
+    out = trainer.output_dir
+    files = _run_files(out)
+    check(trainer.step == steps and trainer.epoch == 2, f"train cli: step {trainer.step}, epoch {trainer.epoch}")
+    losses = [r["value"] for r in map(json.loads, Path(out, "metrics.jsonl").read_text().splitlines())
+              if r["tag"].startswith("Loss/")]
+
+    # --- the best checkpoint: the trainer's state at its epoch, bit for bit, in the file and in a fresh model
+    best = Path(out, files["checkpoints"][0]["path"])
+    epoch = int(re.match(r"epoch_(\d+)_", best.name).group(1))
+    on_disk = load_torch_file(str(best))
+    check(on_disk.keys() == saved[epoch].keys() and all(torch.equal(on_disk[k], saved[epoch][k]) for k in on_disk),
+          f"train cli: {best.name} differs from the trainer's state at epoch {epoch}")
+    fresh = MIBFNet(LABELS, BertConfig(), device=dev)
+    load_weights(fresh, str(best), "mibf")
+    check(all(torch.equal(v.cpu(), on_disk[k]) for k, v in fresh.state_dict().items()),
+          "train cli: the best checkpoint does not reload bit for bit")
+    del fresh
+
+    # --- run_predict over the val images with the best checkpoint against the trainer's eval forward on them
+    pred, p_launches, p_info = _cli_run(run_predict.main, ["--config", cfg_path, "--model_path", str(best),
+                                                           "--family", "mibf",
+                                                           "--output_path", str(CLI_DIR / "train_best.csv")], 16)
+    check(p_launches == {**dict.fromkeys(KERNELS, 0), "attention_block": layers, "ffn_block": layers},
+          f"train cli predict launches {p_launches}")
+    trainer.load_weights(str(best))
+    trainer.model.eval()
+    ref = []
+    with torch.inference_mode():
+        for b in trainer.val_loader:
+            d = trainer.to_device(b)
+            img = eval_pipeline(d["image"], 224, normalize=False, dtype=trainer.dtype)
+            ref.append(trainer.model(img, d["input_ids"], d["attention_mask"])["image_text"][: int(b["n_valid"])])
+    ref = torch.cat(ref).float().cpu().numpy()
+    predict_vs_trainer = _judge_model(pred["logits"], ref, SLICE_ATOL, SLICE_MEAN,
+                                      "run_predict over the best checkpoint against the trainer's eval forward")
+    predict_vs_trainer["bit_equal"] = bool(np.array_equal(pred["logits"], ref))
+    last_state = torch.load(str(Path(out, "last.pt")), map_location="cpu", weights_only=True)["resume"]
+    del trainer
+    torch.cuda.empty_cache()
+
+    # --- a resume from last.pt for one more epoch: it starts at the saved step and schedule position
+    resumed, r_launches, r_info = _cli_run(run_train.main, [*argv, "--set", f"training.resume_from={out}/last.pt",
+                                                            "--set", "training.num_epochs=3"], 64)
+    check(r_launches == {**dict.fromkeys(KERNELS, 0), "shear_sublane": 3 * 2, "attention_block": layers,
+                         "ffn_block": layers}, f"train cli resume launches {r_launches}")
+    check(last_state["step"] == steps and resumed.step == steps + 2 and resumed.epoch == 3,
+          f"train cli resume: saved step {last_state['step']}, now {resumed.step}, epoch {resumed.epoch}")
+    r_recs = [json.loads(line) for line in Path(resumed.output_dir, "metrics.jsonl").read_text().splitlines()]
+    lr = [r["value"] for r in r_recs if r["tag"] == "LearningRate"]
+    check([r["step"] for r in r_recs if r["tag"] == "Loss/Train_Epoch"] == [3]
+          and lr == [resumed.lr_schedule(steps + 2)], f"train cli resume records {r_recs}")
+    del resumed
+    torch.cuda.empty_cache()
+    emit({"phase": "train_cli", "config": "mibf_ham", "train_images": 64, "val_images": 16,
+          "run": info, "launches": launches, "run_files": files, "losses": losses, "best": best.name,
+          "best_epoch": epoch, "predict": p_info, "predict_vs_trainer_eval": predict_vs_trainer,
+          "resume": {"run": r_info, "launches": r_launches, "saved_step": last_state["step"],
+                     "learning_rate_epoch_3": lr}})
+    return {"train_cli": {k: launches[k] + r_launches[k] for k in KERNELS}}
 
 
 EXPORT_DIR = REPO / "mdhs_tpu_torch" / "build" / "export_smoke"  # git-ignored; removed when the phase ends
@@ -2790,8 +3079,10 @@ def main() -> int:
     train = phase_train(dev, rng, seed)
     train_flash = phase_train_flash(dev, rng, seed)
     connext = phase_connext(dev, seed)
+    train_connext = phase_train_connext(dev, seed)
     try:
         cli, made = phase_cli(dev, seed)
+        cli.update(phase_train_cli(dev, made["inputs"], torch.Generator(device=dev).manual_seed(seed + 35)))
         export = phase_export(dev, seed, made)
     finally:
         shutil.rmtree(CLI_DIR, ignore_errors=True)
@@ -2806,7 +3097,7 @@ def main() -> int:
                "baseline_ssm": baseline["selective_scan"], "baseline_moe": baseline["kan_forward"],
                "train": train["launches"], "train_bn_stats": train["ab_launches"], "flash": flash_launches,
                "train_flash": train_flash, "ablate": {"attention_ablate": ablate_launches},
-               "connext": connext["launches"], **cli, **export}
+               "connext": connext["launches"], "train_connext": train_connext, **cli, **export}
     kan_by_layer = {**baseline["kan_forward_by_layer"], **connext["kan_forward_by_layer"]}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

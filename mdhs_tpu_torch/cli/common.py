@@ -1,6 +1,8 @@
-"""Shared plumbing of the eval CLIs: config, model and weights, test loader, prediction loop.
+"""Shared plumbing of the CLIs: the trainer of a config; for eval, config, model and
+weights, test loader, prediction loop.
 
-Counterpart of ``mdhs_tpu/cli/common.py``. ``Predictor`` takes the JAX
+Counterpart of ``mdhs_tpu/cli/common.py``. ``build_trainer`` is its
+``build_trainer`` (:15-18) on ``train/trainer.py::Trainer``. ``Predictor`` takes the JAX
 ``Trainer``'s place for eval: ``build_model``, ``load_weights`` (any
 checkpoint ``core/checkpoint.py`` reads), ``make_test_loader``
 (``mdhs_tpu/train/trainer.py:345-373``: batches of ``training.batch_size``,
@@ -24,14 +26,14 @@ import torch
 
 from ..core.checkpoint import load_weights
 from ..core.config import Config, load_config
+from ..core.pretrained import load_pretrained
 from ..data.datasets import DatasetOptions, MultimodalDataset
 from ..data.loader import DataLoader
 from ..data.tokenizer import load_tokenizer
 from ..device import resolve_device
 from ..models import FAMILIES, build_model
 from ..serving import ServingModel
-
-_PRETRAINED = ("model.pretrained_path", "model.image_encoder.pretrained_path", "model.text_encoder.pretrained_path")
+from ..train.trainer import Trainer
 
 
 class Predictor:
@@ -42,10 +44,6 @@ class Predictor:
                  output_dir: Optional[str] = None):
         if family not in FAMILIES:
             raise ValueError(f"unknown model family: {family}")
-        for key in _PRETRAINED:
-            if cfg.get(key):
-                raise NotImplementedError(f"{key}: pretrained weights named in the config are not loaded yet "
-                                          "(ROADMAP Queue 1 item 8); give the checkpoint as --model_path")
         self.cfg, self.family = cfg, family
         self.device = resolve_device(device)
         self.image_size = int(cfg.get("data.image_size", 224))
@@ -54,6 +52,7 @@ class Predictor:
         self.tokenizer = load_tokenizer(cfg.get("model.text_encoder.model_name"),
                                         vocab_size=cfg.get("model.text_encoder.vocab_size", 30522))
         self.model = build_model(cfg, family, self.tokenizer, device=self.device).eval()
+        load_pretrained(self.model, cfg, family)  # the config's weights; --model_path loads after them
         self._output_dir = output_dir
         self._servers: dict = {}
 
@@ -109,6 +108,15 @@ def build_predictor(config_path: str, family: str = "baseline", overrides=None,
     device = resolve_device(device)
     return Predictor(load_config(config_path, overrides=overrides), family=family, device=device,
                      output_dir=output_dir)
+
+
+def build_trainer(config_path: str, family: str = "baseline", overrides=None, setup_data: bool = True,
+                  output_dir: Optional[str] = None, device: str | torch.device = "cuda"):
+    """The Trainer of a config file; the device is resolved first, so a missing card
+    raises before anything is read or built."""
+    device = resolve_device(device)
+    return Trainer(load_config(config_path, overrides=overrides), family=family, output_dir=output_dir,
+                   device=device, setup_data=setup_data)
 
 
 def tta_transforms(tta_cfg) -> tuple:

@@ -22,10 +22,18 @@ Counterpart of ``mdhs_tpu/core/checkpoint.py`` (``save_checkpoint``,
   the target's dtype, and warns about unexpected, shape-mismatched and
   missing names with ``mdhs_tpu``'s messages and key sets.
   ``load_weights(model, path)`` loads a file into a model through it.
+- ``TopKCheckpointManager`` (``mdhs_tpu/core/checkpoint.py:79-136``) keeps
+  the k best of a run's epoch checkpoints by a metric, higher being better,
+  as ``{prefix}_{epoch}_val_acc_{metric:.2f}.pt`` beside an atomically
+  written ``checkpoints.json`` index, and ``last.pt``. Each is a
+  ``save_state`` file, which ``load_torch_file`` (so ``run_predict
+  --model_path``) reads as any port checkpoint; ``last.pt`` also carries
+  what a resume needs under ``resume`` (``train/trainer.py``).
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 from typing import Mapping, Optional
@@ -42,15 +50,26 @@ def _host_tensor(t: torch.Tensor) -> torch.Tensor:
     return (t.float() if t.is_floating_point() else t).contiguous().clone()
 
 
+CHECKPOINT_EXT = ".pt"
+
+
+def host_state_dict(state_dict: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """Every tensor on the CPU, the floating ones as float32."""
+    return {k: _host_tensor(v) for k, v in state_dict.items()}
+
+
+def save_state(path: str, state: Mapping) -> None:
+    """``torch.save(state)`` to a temporary file renamed into place."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = path + ".tmp"
+    torch.save(dict(state), tmp)
+    os.replace(tmp, path)
+
+
 def save_checkpoint(path: str, model: nn.Module, metadata: Optional[Mapping] = None) -> None:
     """``torch.save({"state_dict": float32 CPU tensors, "metadata": ...})``, written
     to a temporary file renamed into place."""
-    state = {"state_dict": {k: _host_tensor(v) for k, v in model.state_dict().items()},
-             "metadata": dict(metadata or {})}
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    tmp = path + ".tmp"
-    torch.save(state, tmp)
-    os.replace(tmp, path)
+    save_state(path, {"state_dict": host_state_dict(model.state_dict()), "metadata": dict(metadata or {})})
 
 
 def is_flax_msgpack(path: str) -> bool:
@@ -173,3 +192,57 @@ def load_weights(model: nn.Module, path: str, family: str) -> None:
     merged = merge_tolerant(target, load_state_dict_file(path, family, model))
     model.load_state_dict(merged, strict=True)
     log.info("loaded weights from %s", path)
+
+
+class TopKCheckpointManager:
+    """Keeps the k best checkpoints of a run by a scalar metric (higher is better)."""
+
+    def __init__(self, output_dir: str, k: int = 3, prefix: str = "epoch"):
+        self.output_dir, self.k, self.prefix = output_dir, k, prefix
+        self.entries: list[tuple[float, str]] = []  # (metric, path), best first
+        os.makedirs(output_dir, exist_ok=True)
+        # a resume into the same run directory reloads the index, so that retention goes on
+        # evicting across restarts and best_path() sees the saves made before
+        idx = os.path.join(output_dir, "checkpoints.json")
+        if os.path.exists(idx):
+            try:
+                with open(idx) as f:
+                    for e in json.load(f):
+                        p = os.path.join(output_dir, e["path"])
+                        if os.path.exists(p):
+                            self.entries.append((float(e["metric"]), p))
+                self.entries.sort(key=lambda e: e[0], reverse=True)
+            except (ValueError, KeyError, TypeError) as exc:  # TypeError: a null metric, a non-list document
+                log.warning("ignoring unreadable checkpoints.json: %s", exc)
+
+    def maybe_save(self, epoch: int, metric: float, state: Mapping) -> Optional[str]:
+        """Save ``state`` when ``metric`` is among the k best so far, evicting the worst; its path."""
+        if len(self.entries) >= self.k and not metric > min(e[0] for e in self.entries):
+            return None
+        path = os.path.join(self.output_dir, f"{self.prefix}_{epoch}_val_acc_{metric:.2f}{CHECKPOINT_EXT}")
+        save_state(path, state)
+        while len(self.entries) >= self.k:
+            worst = min(self.entries, key=lambda e: e[0])
+            if os.path.exists(worst[1]):
+                os.remove(worst[1])
+            self.entries.remove(worst)
+        self.entries.append((metric, path))
+        self.entries.sort(key=lambda e: e[0], reverse=True)
+        self._write_index()
+        return path
+
+    def save_last(self, state: Mapping) -> str:
+        path = os.path.join(self.output_dir, "last" + CHECKPOINT_EXT)
+        save_state(path, state)
+        return path
+
+    def best_path(self) -> Optional[str]:
+        return self.entries[0][1] if self.entries else None
+
+    def _write_index(self) -> None:
+        index = [{"metric": m, "path": os.path.basename(p)} for m, p in self.entries]
+        path = os.path.join(self.output_dir, "checkpoints.json")
+        tmp = path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(index, f, indent=2)
+        os.replace(tmp, path)

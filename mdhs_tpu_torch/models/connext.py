@@ -1,5 +1,5 @@
 """ConNexT: ConvNeXt + BERT with bidirectional 1x1-conv cross-attention and a
-linear or KAN-expert MoE head, eval forward.
+linear or KAN-expert MoE head.
 
 Counterpart of ``mdhs_tpu/models/connext.py::ConNexTClassifier``: the
 ConvNeXt map (B, 7, 7, C) is reduced to ``fusion_dim`` by a 1x1 convolution;
@@ -15,9 +15,12 @@ Submodule names are the reference's, which
 ``mdhs_tpu.core.convert.convert_connext_full`` reads: ``text_encoder.bert.*``
 (HF BertModel), ``image_encoder.*`` (HF ConvNextModel), ``conv`` (the 1x1
 reduction), ``{textbased,imagbased}_cross_attention.{query,key,value}_conv``
-and ``fc`` or ``moe.*``. The multimodal-Mamba fusion and training (the noisy
-gating and the balance loss's gradient) are not ported: ROADMAP Queue 1
-item 11.
+and ``fc`` or ``moe.*``. ``forward(..., train=True, generator=g)`` is the
+training forward of ``mdhs_tpu/models/connext.py:85-120``: the MoE gates with
+noise drawn from ``g`` and returns its balance loss; BERT's dropout is live
+where the module is in training mode (``model.train()``), drawing from
+torch's default generator. The multimodal-Mamba fusion is not ported:
+ROADMAP Queue 1 item 11.
 """
 
 from __future__ import annotations
@@ -103,12 +106,16 @@ class ConNexTClassifier(nn.Module):
                          attention_mask: torch.Tensor) -> torch.Tensor:
         return self.fuse(*self.towers(images, input_ids, attention_mask))
 
-    def classify(self, fused: torch.Tensor):
-        """(logits (B, num_labels) float32, balance loss)."""
+    def classify(self, fused: torch.Tensor, train: bool = False, generator: Optional[torch.Generator] = None,
+                 noise: Optional[torch.Tensor] = None):
+        """(logits (B, num_labels) float32, balance loss); ``train`` gates the MoE
+        with noise from ``generator`` (or the given ``noise``)."""
         if self.cfg.head == "moe":
-            return self.moe(fused)
+            return self.moe(fused, train=train, generator=generator, noise=noise)
         return self.fc(fused).float(), torch.zeros((), dtype=torch.float32, device=fused.device)
 
-    def forward(self, images: torch.Tensor, input_ids: torch.Tensor, attention_mask: torch.Tensor):
+    def forward(self, images: torch.Tensor, input_ids: torch.Tensor, attention_mask: torch.Tensor,
+                train: bool = False, generator: Optional[torch.Generator] = None,
+                noise: Optional[torch.Tensor] = None):
         """images: (B, 3, H, W). Returns (logits (B, num_labels) float32, balance loss)."""
-        return self.classify(self.forward_features(images, input_ids, attention_mask))
+        return self.classify(self.forward_features(images, input_ids, attention_mask), train, generator, noise)

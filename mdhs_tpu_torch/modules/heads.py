@@ -27,7 +27,8 @@ class MLPHead(nn.Sequential):
 
 class MoEHead(nn.Module):
     """MoE over KAN experts of layers (hidden, 4 hidden, classes); returns the
-    logits (the balance loss is the training path's)."""
+    logits. Eval only: the baseline family's training path (its gating
+    generator and balance loss in the loss) is ROADMAP Queue 1 item 10."""
 
     def __init__(self, hidden_dim: int, num_classes: int, dropout: float = 0.0, num_experts: int = 4,
                  k: int = 2, device=None, dtype=None):
@@ -37,7 +38,9 @@ class MoEHead(nn.Module):
                        expert_layers=(hidden_dim, 4 * hidden_dim, num_classes), device=device, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        logits, _ = self.moe(self.dropout(x), train=self.training)
+        if self.training:
+            raise NotImplementedError("the baseline family's MoE head in training: ROADMAP Queue 1 item 10")
+        logits, _ = self.moe(self.dropout(x))
         return logits.float()
 
 

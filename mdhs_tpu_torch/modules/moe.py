@@ -1,7 +1,9 @@
-"""Sparsely gated Mixture-of-Experts with KAN experts, eval forward.
+"""Sparsely gated Mixture-of-Experts with KAN experts.
 
 Counterpart of ``mdhs_tpu/modules/moe.py``: top-k gating on the softmaxed
-logits with the renormalised top-k probabilities, the cv^2 balance loss, and
+logits with the renormalised top-k probabilities (in training on logits with
+softplus-scaled Gaussian noise, and the load estimated from the normal CDF),
+the cv^2 balance loss, and
 the dense expert bank (every expert runs on the whole batch; the gates,
 zero for experts not chosen, combine the outputs). The JAX package vmaps a
 KAN over a stacked parameter bank; here the expert axis is written out: each
@@ -16,15 +18,20 @@ spline_weight,spline_scaler,grid}``), which
 Top-k takes the lowest index among equal probabilities, as
 ``jax.lax.top_k`` does (a stable descending sort; ``torch.topk`` promises no
 order on ties), so the zero-initialised ``w_gate`` routes as in JAX. The
-gating is float32. Training (the noisy gating and its load estimator) raises
-until the baseline training path (ROADMAP Queue 1 item 10).
+gating is float32. In training the gating noise is drawn from an explicit
+``torch.Generator`` on the module's device (or given, as ``noise``, by a
+test): JAX's ``gating`` stream gives other numbers from a seed, the same
+distribution. The expert bank's gradient reaches every expert's parameters
+through ``kan_forward``'s autograd (``ops/_library.py``).
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import math
+from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops import kan_spline as _ks
@@ -39,22 +46,60 @@ def cv_squared(x: torch.Tensor) -> torch.Tensor:
     return x.var(correction=1) / (x.mean() ** 2 + 1e-10)
 
 
-def noisy_top_k_gating(x, w_gate, w_noise, k: int, *, train: bool = False):
-    """(gates (B, E), load (E,)) of the eval branch: clean logits, softmax,
-    top-k, renormalised; load counts the rows that chose each expert."""
-    if train:
-        raise NotImplementedError("noisy_top_k_gating(train=True): the baseline training path, "
-                                  "ROADMAP Queue 1 item 10")
-    probs = torch.softmax(x.float() @ w_gate.float(), dim=1)
+def _normal_cdf(x: torch.Tensor) -> torch.Tensor:
+    return 0.5 * (1.0 + torch.erf(x / math.sqrt(2.0)))
+
+
+def noisy_top_k_gating(x, w_gate, w_noise, k: int, *, train: bool = False,
+                       generator: Optional[torch.Generator] = None, noise_epsilon: float = 1e-2,
+                       load_mode: str = "consistent", noise: Optional[torch.Tensor] = None):
+    """(gates (B, E), load (E,)), ``mdhs_tpu/modules/moe.py::noisy_top_k_gating``.
+
+    Eval (or training with neither ``generator`` nor ``noise``): clean logits,
+    softmax, top-k, renormalised; load counts the rows that chose each expert.
+    Training: logits plus N(0, 1) noise (from ``generator``, or ``noise``)
+    times softplus(x @ w_noise) + noise_epsilon; the load is the differentiable
+    P(expert in the top k) from the top-(k+1) thresholds, under ``load_mode``
+    "consistent" (all in softmax space) or "reference" (the reference's mix of
+    raw logits and softmaxed thresholds, moe.py:252-262)."""
+    if load_mode not in ("consistent", "reference"):
+        raise ValueError(f"unknown load_mode: {load_mode}")
+    num_experts = w_gate.shape[1]
+    clean_logits = x.float() @ w_gate.float()
+    noisy = train and (generator is not None or noise is not None)
+    noise_std = None
+    logits = clean_logits
+    if noisy:
+        noise_std = F.softplus(x.float() @ w_noise.float()) + noise_epsilon
+        if noise is None:
+            noise = torch.randn(clean_logits.shape, generator=generator, device=clean_logits.device)
+        logits = clean_logits + noise.float() * noise_std
+    probs = torch.softmax(logits, dim=1)
     top_probs, top_idx = torch.sort(probs, dim=1, descending=True, stable=True)
     top_k_probs = top_probs[:, :k]
     top_k_gates = top_k_probs / (top_k_probs.sum(dim=1, keepdim=True) + 1e-6)
     gates = torch.zeros_like(probs).scatter(1, top_idx[:, :k], top_k_gates)
-    return gates, (gates > 0).float().sum(dim=0)
+    if noisy and k < num_experts:
+        threshold_if_in = top_probs[:, k:k + 1]
+        threshold_if_out = top_probs[:, k - 1:k]
+        if load_mode == "reference":
+            is_in = logits > threshold_if_in
+            prob_if_in = _normal_cdf((clean_logits - threshold_if_in) / noise_std)
+            prob_if_out = _normal_cdf((clean_logits - threshold_if_out) / noise_std)
+        else:
+            clean_probs = torch.softmax(clean_logits, dim=1)
+            is_in = probs > threshold_if_in
+            prob_if_in = _normal_cdf((clean_probs - threshold_if_in) / (noise_std + 1e-9))
+            prob_if_out = _normal_cdf((clean_probs - threshold_if_out) / (noise_std + 1e-9))
+        load = torch.where(is_in, prob_if_in, prob_if_out).sum(dim=0)
+    else:
+        load = (gates > 0).float().sum(dim=0)
+    return gates, load
 
 
 class MoE(nn.Module):
-    """``forward(x)`` returns (logits (B, output_size) float32, balance loss)."""
+    """``forward(x)`` returns (logits (B, output_size) float32, balance loss);
+    ``forward(x, train=True, generator=g)`` gates with noise drawn from ``g``."""
 
     def __init__(self, input_size: int, output_size: int, num_experts: int = 4, k: int = 4,
                  expert_layers: Sequence[int] | None = None, grid_size: int = 5, spline_order: int = 3,
@@ -119,8 +164,15 @@ class MoE(nn.Module):
             h = _ks.kan_forward(h.float().contiguous(), grid, base_w, spline_w, order).to(self.out_dtype)
         return h
 
-    def forward(self, x: torch.Tensor, train: bool = False):
-        gates, load = noisy_top_k_gating(x, self.w_gate, self.w_noise, self.k, train=train)
+    def forward(self, x: torch.Tensor, train: bool = False, generator: Optional[torch.Generator] = None,
+                noise: Optional[torch.Tensor] = None):
+        """``train`` gates with noise (JAX's ``noisy_gating`` and ``load_mode``
+        defaults, the only ones its configs build): from ``generator``, which
+        training must give, or ``noise`` (B, E) where a test gives the values."""
+        if train and generator is None and noise is None:
+            raise ValueError("MoE.forward(train=True): the gating noise needs a generator (or noise)")
+        gates, load = noisy_top_k_gating(x, self.w_gate, self.w_noise, self.k, train=train, generator=generator,
+                                         noise=noise)
         balance = (cv_squared(gates.sum(dim=0)) + cv_squared(load)) * self.loss_coef
         y = torch.einsum("be,ebo->bo", gates, self.expert_bank(x).float())
         return y, balance

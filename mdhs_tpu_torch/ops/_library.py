@@ -17,9 +17,10 @@ registrations and no other:
 
 There is no composite or catch-all kernel, so a CUDA tensor reaches the
 launch or raises, and a tensor on any other device finds no kernel. The
-kernels are forward only, with no gradient, except ``kan_forward``'s on the
-CPU, which is its plain version's (the CPU tests differentiate the MoE bank;
-the card's backward, which raises, is ROADMAP Queue 1 item 10). The public
+kernels are forward only, with no gradient, except ``kan_forward``'s, which
+is its plain version's VJP on either device (ConNexT's training
+differentiates the MoE bank through the kernel's forward; JAX's custom VJP
+recomputes its plain version as well). The public
 wrappers (``ffn_block(...)``, ``attention_block(...)``, ...) keep their
 ``supports()`` gates and argument checks in Python and then call
 ``torch.ops.mdhs.<name>``: the route is decided where the trace runs, as in
@@ -146,11 +147,14 @@ def _kan_setup_context(ctx, inputs, output):
 
 
 def _kan_backward(ctx, grad):
+    """The VJP of ``kan_forward_reference`` for x, base_w and spline_w, and none for
+    the grid: ``mdhs_tpu/ops/kan_spline.py::_bwd`` (:150-158), whose backward is XLA
+    ops on the TPU too, recomputed here in plain tensor ops on the forward's device."""
     x, grid, base_w, spline_w = ctx.saved_tensors
-    if grad.device.type != "cpu":
-        raise NotImplementedError("kan_forward has no backward kernel on the card yet (ROADMAP Queue 1 item 10)")
-    _, vjp = torch.func.vjp(lambda *t: _ks.kan_forward_reference(*t, ctx.spline_order), x, grid, base_w, spline_w)
-    return (*vjp(grad), None)
+    _, vjp = torch.func.vjp(lambda a, b, c: _ks.kan_forward_reference(a, grid, b, c, ctx.spline_order),
+                            x, base_w, spline_w)
+    dx, dbw, dsw = vjp(grad)
+    return dx, None, dbw, dsw, None
 
 
 torch.library.register_autograd("mdhs::kan_forward", _kan_backward, setup_context=_kan_setup_context, lib=_LIB)

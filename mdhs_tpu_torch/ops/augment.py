@@ -1,10 +1,12 @@
-"""Device-side training augmentation of the MIBF family: random resized crop,
-flips, and rotation by three shears.
+"""Device-side training augmentation: random resized crop, flips, rotation by
+three shears, colour jitter and ImageNet normalisation.
 
 Counterpart of ``mdhs_tpu/ops/augment.py``'s fast geometric path
-(``_tent_matrix``, ``rotate_3shear``, ``random_crop_flip_rotate``,
-``train_pipeline`` in its MIBF mode). The images are float32 NHWC ``(B, S, S, C)``, the JAX
-layout, at every public function.
+(``_tent_matrix``, ``rotate_3shear``, ``random_crop_flip_rotate``), its
+``color_jitter`` with ``_rgb_to_hsv`` / ``_hsv_to_rgb`` (:287-356), and the
+JAX Trainer's ``_preprocess_train`` (``mdhs_tpu/train/trainer.py:401-428``).
+The images are float32 NHWC ``(B, S, S, C)``, the JAX layout, at every public
+function.
 
 JAX's ``random_crop_flip_rotate`` is split in two, so that tests can hand
 both packages the same random values:
@@ -22,9 +24,14 @@ both packages the same random values:
 calls, which launch the CUDA kernel on the card and take the plain version
 on the CPU.
 
-Colour jitter and ImageNet normalisation are not on the MIBF path; they come
-with the baseline family (ROADMAP Queue 1 item 10), and the trainer raises
-for a preset that asks for colour jitter.
+Colour jitter is split the same way: ``sample_color_jitter`` draws the
+per-image brightness, contrast, saturation and hue factors of
+``color_jitter``'s distributions, and ``apply_color_jitter`` is its math on
+given factors, in its fixed order (brightness, contrast, saturation, hue).
+It is elementwise work (XLA's fusions in JAX, no Pallas kernel), so plain
+tensor ops are its port. The MIBF family takes neither jitter nor
+normalisation; every other family takes both (the JAX Trainer's defaults,
+``trainer.py:174-180``: degrees 45 and vertical flips besides).
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from typing import NamedTuple
 
 import torch
 
+from .preprocess import normalize_imagenet
 from .shear import shear_sublane
 
 SCALE_RANGE = (0.2, 1.0)              # RandomResizedCrop's area fraction
@@ -135,16 +143,87 @@ def apply_crop_flip_rotate(images: torch.Tensor, p: CropFlipRotate, out_size: in
     return x
 
 
+class ColorJitter(NamedTuple):
+    """One batch's colour-jitter factors, each (B,) float32: brightness,
+    contrast and saturation multipliers, and the hue shift in turns."""
+
+    brightness: torch.Tensor
+    contrast: torch.Tensor
+    saturation: torch.Tensor
+    hue: torch.Tensor
+
+
+def sample_color_jitter(batch: int, generator: torch.Generator, brightness: float = 0.2, contrast: float = 0.2,
+                        saturation: float = 0.2, hue: float = 0.1) -> ColorJitter:
+    """Uniform factors in 1 +- brightness, 1 +- contrast, 1 +- saturation and a hue
+    shift in +- hue, drawn on the generator's device."""
+    u = torch.rand((4, batch), generator=generator, device=generator.device)
+    return ColorJitter(1.0 - brightness + 2.0 * brightness * u[0], 1.0 - contrast + 2.0 * contrast * u[1],
+                       1.0 - saturation + 2.0 * saturation * u[2], -hue + 2.0 * hue * u[3])
+
+
+def _gray(x: torch.Tensor) -> torch.Tensor:
+    """(..., 3) -> (...): 0.299 r + 0.587 g + 0.114 b, with no constant tensor made on the device."""
+    return x[..., 0] * 0.299 + x[..., 1] * 0.587 + x[..., 2] * 0.114
+
+
+def _rgb_to_hsv(x: torch.Tensor) -> torch.Tensor:
+    r, g, b = x.unbind(-1)
+    maxc = torch.maximum(torch.maximum(r, g), b)
+    minc = torch.minimum(torch.minimum(r, g), b)
+    delta = maxc - minc
+    s = torch.where(maxc > 0, delta / torch.clamp(maxc, min=1e-8), 0.0)
+    safe = torch.clamp(delta, min=1e-8)
+    rc, gc, bc = (maxc - r) / safe, (maxc - g) / safe, (maxc - b) / safe
+    h = torch.where(maxc == r, bc - gc, torch.where(maxc == g, 2.0 + rc - bc, 4.0 + gc - rc))
+    h = torch.remainder(h / 6.0, 1.0)
+    h = torch.where(delta < 1e-8, 0.0, h)
+    return torch.stack([h, s, maxc], dim=-1)
+
+
+def _hsv_to_rgb(x: torch.Tensor) -> torch.Tensor:
+    h, s, v = x.unbind(-1)
+    i = torch.floor(h * 6.0)
+    f = h * 6.0 - i
+    p = v * (1.0 - s)
+    q = v * (1.0 - f * s)
+    t = v * (1.0 - (1.0 - f) * s)
+    i = torch.remainder(i.to(torch.int32), 6)
+    # the sector's (r, g, b) of _hsv_to_rgb's jnp.select tables
+    table = torch.stack([torch.stack(c, dim=-1) for c in ((v, t, p), (q, v, p), (p, v, t), (p, q, v), (t, p, v),
+                                                          (v, p, q))], dim=-2)  # (..., 6, 3)
+    return torch.gather(table, -2, i[..., None, None].expand(*i.shape, 1, 3).long()).squeeze(-2)
+
+
+def apply_color_jitter(x: torch.Tensor, p: ColorJitter) -> torch.Tensor:
+    """x: (B, H, W, 3) float32 in [0, 1]: ``color_jitter``'s math on given factors.
+    Brightness scales; contrast blends with the image's mean grayscale; saturation
+    with each pixel's grayscale; hue shifts in HSV; each step clipped to [0, 1]."""
+    x = torch.clamp(x * p.brightness[:, None, None, None], 0.0, 1.0)
+    mean = _gray(x).mean(dim=(1, 2), keepdim=True)[..., None]
+    x = torch.clamp((x - mean) * p.contrast[:, None, None, None] + mean, 0.0, 1.0)
+    gray = _gray(x)[..., None]
+    x = torch.clamp((x - gray) * p.saturation[:, None, None, None] + gray, 0.0, 1.0)
+    hsv = _rgb_to_hsv(x)
+    h = torch.remainder(hsv[..., 0] + p.hue[:, None, None], 1.0)
+    return torch.clamp(_hsv_to_rgb(torch.stack([h, hsv[..., 1], hsv[..., 2]], dim=-1)), 0.0, 1.0)
+
+
 def train_pipeline(images_uint8: torch.Tensor, generator: torch.Generator, out_size: int = 224, *,
                    degrees: float = 15.0, vflip: bool = False, dtype: torch.dtype = torch.bfloat16,
-                   params: CropFlipRotate | None = None) -> torch.Tensor:
-    """uint8 canvases (B, S, S, 3) -> the model's input in the MIBF mode (no
-    colour jitter, no Normalize; by default degrees 15 and no vflip): NCHW in
-    ``channels_last`` memory, cast to ``dtype``, as ``ops/preprocess.py::
-    eval_pipeline`` hands it. ``params`` replaces the draw from ``generator``
-    with given values."""
+                   params: CropFlipRotate | None = None, color_jitter: bool = False,
+                   jitter: ColorJitter | None = None, normalize: bool = False) -> torch.Tensor:
+    """uint8 canvases (B, S, S, 3) -> the model's input: NCHW in ``channels_last``
+    memory, cast to ``dtype``, as ``ops/preprocess.py::eval_pipeline`` hands it.
+    Crop, flips and rotation (by default the MIBF mode's degrees 15 and no vflip),
+    then the colour jitter where ``color_jitter``, then ImageNet normalisation
+    where ``normalize``. ``params`` and ``jitter`` replace the draws from
+    ``generator`` with given values."""
     x = images_uint8.to(torch.float32) / 255.0
     if params is None:
         params = sample_crop_flip_rotate(x.shape[0], x.shape[1], generator, vflip=vflip, degrees=degrees)
     x = apply_crop_flip_rotate(x, params, out_size, degrees)
-    return x.to(dtype).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+    if color_jitter:
+        x = apply_color_jitter(x, jitter if jitter is not None else sample_color_jitter(x.shape[0], generator))
+    x = normalize_imagenet(x, dtype) if normalize else x.to(dtype)
+    return x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)

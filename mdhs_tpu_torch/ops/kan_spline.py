@@ -25,7 +25,9 @@ tensor the op launches the kernel (``launch_kan_forward``) and raises if it
 cannot; for a CPU tensor it returns ``kan_forward_reference``
 (``kan_forward_ref``'s math). Its ``launches`` attribute counts calls that
 launched the kernel, and ``launches_by_layer`` the same calls by the layer's
-(IN, OUT). Eval only: no backward (the training path adds one).
+(IN, OUT). Its gradient is the plain version's VJP for x and the weights,
+and none for the grid, as ``mdhs_tpu/ops/kan_spline.py``'s custom VJP
+(``ops/_library.py``).
 """
 
 from __future__ import annotations

@@ -13,9 +13,12 @@ Counterpart of ``mdhs_tpu/train/optim.py``:
   each update; ``set_learning_rate`` does the same to the torch optimizer's
   param groups, and the trainer calls it before every step.
 
-Muon, the flattened optimizer update and the encoder freeze mask raise
-``NotImplementedError`` (ROADMAP Queue 1 item 8, still open after the MIBF
-training step).
+Muon raises ``NotImplementedError`` (ROADMAP Queue 1 item 8). Encoder
+freezing (``optim.py:275-320``: a frozen tower takes no update and no weight
+decay) is the trainer's: it leaves the frozen masters out of the optimizer
+(``train/trainer.py::Trainer._freeze``). ``training.flatten_optimizer``
+changes no math in JAX (``optim.py:283-290``), so the trainer accepts it and
+builds the same optimizer.
 """
 
 from __future__ import annotations

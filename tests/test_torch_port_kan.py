@@ -176,8 +176,11 @@ def test_eval_gating_matches_jax(w_scale):
     np.testing.assert_array_equal(load.numpy(), np.asarray(jl))
     if w_scale:
         assert len({tuple(r) for r in (gates.numpy() > 0)}) > 1  # rows route differently
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        tmoe.noisy_top_k_gating(T(x), T(w_gate), T(w_noise), 2, train=True)
+    # training with no generator and no noise takes the clean branch, as JAX's with no rng
+    tg, tl = tmoe.noisy_top_k_gating(T(x), T(w_gate), T(w_noise), 2, train=True)
+    jg, jl = jmoe.noisy_top_k_gating(jnp.asarray(x), jnp.asarray(w_gate), jnp.asarray(w_noise), 2, train=True)
+    np.testing.assert_allclose(tg.numpy(), np.asarray(jg), atol=1e-6, rtol=0)
+    np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
 
 
 @pytest.fixture(scope="module")
