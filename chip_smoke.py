@@ -26,7 +26,8 @@ Phases, each printing JSON lines:
               the bases made beforehand, as its yardstick gemm_library_ms,
               and bound_rate, the rate its bound reckons the products at:
               the 3xTF32 route, three TF32 products at 494.7 TFLOP/s);
-              shear_sublane bit-exact;
+              shear_sublane bit-exact (pads 17 and 31 at 15 degrees, batch
+              32; pads 49 and 82 at 45 degrees, batch 32 and 64);
               bn_stats within rtol 1e-5 and
               atol 1e-6 * E|x| (mean) or * E[x^2] (variance) at ResNet50's
               12 BatchNorm inputs at batch 32, and its gradient
@@ -209,6 +210,35 @@ Phases, each printing JSON lines:
               gradient cosines >= CONNEXT_TRAIN_GRAD_COS); images/s, step ms
               split into augmentation, forward + backward and optimizer, the
               device breakdown, peak memory (torch.cuda.max_memory_allocated)
+ 12c. train_baseline  the baseline family trained at full width through the
+              config-driven Trainer, each from mdhs_tpu_torch/configs/*.json with
+              stain normalisation on (ResNet18 + BERT-base at seq 128, batch 64,
+              canvas 256 -> 224, degrees 45, vflip, colour jitter, ImageNet
+              normalisation, AdamW, warmup-cosine, bf16 module with float32
+              masters), seeded from training.seed: ham_base.json (base.yml:
+              multiscale fusion, GroupKAN head) fit over 2 epochs x 2 steps (the
+              second batch short) with a validation batch an epoch into a run
+              directory (removed after): shear_sublane 3 a step, attention_block
+              and ffn_block 12 a validation forward, nothing else; finite losses,
+              masters moved, the run's files; the 45-degree shears bit-exact
+              against the plain shear; images/s, step ms split into augmentation
+              (the stain pass in it), forward + backward and optimizer, the stain
+              pass alone (ms, device ms, its bytes bound), the device breakdown,
+              peak memory. ham_fusion_ssm_v1.json: a step launches the shears and
+              selective_scan once (its backward the associative scan's VJP, plain
+              ops), a validation forward the sublayers 12 times and the scan once;
+              one step against the same step on the scan's plain version (same
+              augmented batch and dropout masks: loss within
+              BASELINE_TRAIN_LOSS_REL, the Mamba's and BERT's gradient cosines >=
+              BASELINE_TRAIN_GRAD_COS); the backward alone at (64, 49, 512), N 16
+              (ms, device ms, bound, memory above its inputs) beside the forward
+              kernel's. ham_head_moe_v1.json (w_gate drawn as the baseline
+              phase's): kan_forward 2 a step and a validation forward, a step
+              against the plain kan_forward with the same gating noise (the same
+              bounds, the MoE's and BERT's cosines), and one re-grid
+              (training.kan_update_grid_every's: 2 bank layers, an eval forward's
+              launches, the grids moved, the kept bank stack remade, the change of
+              the validation logits printed); step ms of both
  13. cli     the inference entry points (mdhs_tpu_torch/cli) over a directory of
               CLI_IMAGES seeded 600 x 450 PNGs (HAM10000's size, written by
               data/png.py), a JSON of descriptions and a label CSV, each
@@ -278,6 +308,16 @@ Phases, each printing JSON lines:
               SLICE_ATOL / SLICE_MEAN of the trainer's eval forward on the same
               images (bit-equal reported); a resume from last.pt for a third
               epoch starts at the saved step and schedule position
+ 13c. train_baseline_cli  (after train_cli, on the cli phase's PNGs) python3 -m
+              mdhs_tpu_torch.cli.run_train (the family defaulting to baseline) on
+              ham_base.json with stain normalisation (batch 64, seq 128) over 64
+              train and 16 val images for 2 epochs from the seeded init: the run
+              directory's files; shear_sublane 3 a step, attention_block and
+              ffn_block 12 a validation batch, nothing else; the best checkpoint
+              bit for bit the trainer's state at its epoch; run_predict (the
+              family defaulting to baseline) over it, 12 + 12 launches, within
+              SLICE_ATOL / SLICE_MEAN of the trainer's eval forward (bit-equal
+              reported)
 Every device breakdown (device_profile) comes from a trace checked to hold
 whole calls: a census of one call against two names the kernels every call
 launches, and a trace that lost a record of one is taken again; the census,
@@ -349,6 +389,7 @@ from mdhs_tpu_torch.ops import quant_kernel as qk
 from mdhs_tpu_torch.ops import selective_scan as ss
 from mdhs_tpu_torch.ops import shear as sh
 from mdhs_tpu_torch.ops.preprocess import eval_pipeline
+from mdhs_tpu_torch.ops.stain_norm import stain_normalize
 from mdhs_tpu_torch.ops.quant import quantize_weight
 from mdhs_tpu_torch.ops.tta import tta_variants
 from mdhs_tpu_torch.presets import (BASELINE_BATCH, BASELINE_SEQ, CONNEXT_BATCH, CONNEXT_CROP, CONNEXT_HAM,
@@ -430,6 +471,11 @@ CONNEXT_BANK = (768, 512, 128, 32, 7)  # the MoE head's KAN experts (modules/moe
 # then; the loss within 1e-2 relative and the MoE bank's and BERT's gradient cosines >= 0.99, the
 # bounds of the flash and bf16 steps above
 CONNEXT_TRAIN_LOSS_REL, CONNEXT_TRAIN_GRAD_COS = 1e-2, 0.99
+# A baseline training step with selective_scan's or kan_forward's kernel against the same step on the
+# op's plain version (the same weights, augmented batch, dropout masks and gating noise): float32 kernels
+# ~1e-6 relative from their plain versions, whose outputs are cast to bf16 downstream; the bounds of the
+# ConNexT step above: loss within 1e-2 relative, the Mamba's (the MoE's) and BERT's gradient cosines >= 0.99
+BASELINE_TRAIN_LOSS_REL, BASELINE_TRAIN_GRAD_COS = 1e-2, 0.99
 # The cli phase's inputs: HAM10000's 600 x 450 dermoscopy images, the batch's three TTA variants
 CLI_IMAGES, CLI_H, CLI_W = 80, 450, 600
 CLI_TTA = ("hflip", "vflip", "rot90")
@@ -651,6 +697,13 @@ def kernel_device_ms(fn, reps: int = 10) -> float:
     """Device time of one call (the sum of its kernels' times), without the
     host's launch overhead that CUDA events around a short call include."""
     return sum(ms for _, ms, _ in trace.by_kernel(trace.kernel_events(fn, reps, trace.whole_calls(reps)), reps))
+
+
+def passes_device_ms(fn, reps: int = 3) -> float:
+    """kernel_device_ms of a call of many plain PyTorch passes (some hundred records a
+    call), from a trace checked by trace.whole_trace, which takes the census again
+    where each try lost a record."""
+    return sum(ms for _, ms, _ in trace.by_kernel(trace.whole_trace(fn, reps)[0], reps))
 
 
 # --- bounds: the least time the card could take for each kernel's work -------
@@ -1078,10 +1131,13 @@ def _kernel_cases(dev, rng, seed):
                               dq_args, (B, L) == (BATCH, LONG_SEQ), bound_flash_dq(B, L), sdpa_backward,
                               judge_dq(o, do)))
     # the training step's rotation: pads 17 (W shears) and 31 (H shear) at MIBF's 15 degrees, and
-    # 49 / 82 at ConNexT's 45 degrees, batch 32
-    for B, pad, deg, axis in ((BATCH, 17, 15.0, "w"), (BATCH, 31, 15.0, "h"), (BATCH, 49, 45.0, "w"),
-                              (BATCH, 82, 45.0, "h")):
-        args, library = _shear_case(rng, B, pad, deg, axis, dev)
+    # 49 / 82 at 45 degrees, ConNexT's at batch 32 and the baseline family's at batch 64 (inputs of
+    # their own, so that the cases after them keep theirs)
+    b64 = np.random.default_rng([seed, 64])
+    for B, pad, deg, axis, r in ((BATCH, 17, 15.0, "w", rng), (BATCH, 31, 15.0, "h", rng),
+                                 (BATCH, 49, 45.0, "w", rng), (BATCH, 82, 45.0, "h", rng),
+                                 (BASELINE_BATCH, 49, 45.0, "w", b64), (BASELINE_BATCH, 82, 45.0, "h", b64)):
+        args, library = _shear_case(r, B, pad, deg, axis, dev)
         x = args[0]
         cases.append(("shear_sublane", f"x={tuple(x.shape)},pad={pad}", sh.shear_reference, args, pad == 17,
                       bound_shear(*x.shape, pad), library, judge_exact))
@@ -1868,7 +1924,7 @@ def _images_per_s(trainer, batches, steps: int = 8) -> float:
     for i in range(steps):
         trainer.train_step(batches[i % len(batches)])
     torch.cuda.synchronize()
-    return steps * MIBF_HAM_TRAIN.batch_size / (time.perf_counter() - t0)
+    return steps * batches[0]["label"].shape[0] / (time.perf_counter() - t0)
 
 
 def _damp_residual_branches(model) -> nn.Module:
@@ -2407,6 +2463,221 @@ def phase_train_connext(dev, seed: int) -> dict:
     return launches
 
 
+def _baseline_train_batch(rng, n_valid: int) -> dict:
+    """A loader-shaped baseline batch: uint8 canvases, seq-128 tokens, labels and n_valid."""
+    b = _request(rng, BASELINE_BATCH, BASELINE_SEQ)
+    b["label"] = rng.integers(0, LABELS, BASELINE_BATCH).astype(np.int64)
+    b["n_valid"] = np.int32(n_valid)
+    return b
+
+
+def _baseline_trainer(name: str, run_dir: Path, dev) -> Trainer:
+    """mdhs_tpu_torch/configs/<name>.json with stain normalisation on, through the config-driven
+    Trainer: its seeded full-width model (training.seed), a run directory, the script's batches."""
+    cfg = load_config(REPO / "mdhs_tpu_torch" / "configs" / f"{name}.json",
+                      overrides=["data.stain_normalization.enabled=true", "training.log_every=1",
+                                 "training.log_per_class=true"])
+    trainer = Trainer(cfg, "baseline", output_dir=str(run_dir / name), device=dev, setup_data=False)
+    p = trainer.preset
+    check(p.stain == ((150.0, 140.0, 140.0), (20.0, 20.0, 20.0)) and p.degrees == 45.0 and p.vflip
+          and p.color_jitter and p.normalize and p.batch_size == BASELINE_BATCH and p.seq_len == BASELINE_SEQ,
+          f"{name} preset {p}")
+    return trainer
+
+
+def _kernel_vs_plain_step(trainer, batch, module, name: str, plain, groups: dict, seed: int, noise=None) -> dict:
+    """One step's loss and gradients with ``module.name`` launching its kernel against the same step
+    with it routed to ``plain``: the same augmented batch, dropout masks (torch's seed) and gating noise."""
+    dev_b = trainer.to_device(batch)
+    valid = trainer.valid_mask(batch, dev_b["label"].shape[0])
+    with torch.no_grad():
+        images = trainer.augment(dev_b["image"])
+    step = {}
+    for which in ("kernel", "plain"):
+        with contextlib.ExitStack() as stack:
+            if which == "plain":
+                stack.enter_context(_plain_op(module, name, plain))
+            torch.manual_seed(seed)
+            loss, _ = trainer.forward_backward(images, dev_b, valid, noise=noise)
+        step[which] = (loss.item(), {k: torch.cat([p.grad.double().flatten() for p in ps]) for k, ps in groups.items()})
+    (loss_k, gk), (loss_p, gp) = step["kernel"], step["plain"]
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    cos = {k: (gk[k] @ gp[k] / (gk[k].norm() * gp[k].norm() + 1e-30)).item() for k in groups}
+    check(rel <= BASELINE_TRAIN_LOSS_REL and all(c >= BASELINE_TRAIN_GRAD_COS for c in cos.values()),
+          f"baseline step vs plain {name}: loss {loss_k} vs {loss_p}, gradient cosines {cos}")
+    return {"loss_kernel": loss_k, "loss_plain": loss_p, "loss_rel": rel, "grad_cosine": cos}
+
+
+def _scan_backward(dev, rng) -> dict:
+    """selective_scan's backward at ham_fusion_ssm_v1's shape, (64, 49, 512), N 16: the associative
+    scan's VJP recomputed from the inputs (what the op's autograd runs), ms (CUDA events) beside the
+    forward kernel's, device ms (profiler; the forward kernel's is the kernels line's, at this
+    shape), and the memory it takes above its inputs."""
+    B, L, D, N = BASELINE_BATCH, 49, 512, 16
+    f = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+    args = (f(rng.standard_normal((B, L, D))), f(np.log1p(np.exp(rng.standard_normal((B, L, D))))),
+            f(-np.exp(rng.standard_normal((D, N)))), f(rng.standard_normal((B, L, N))),
+            f(rng.standard_normal((B, L, N))), f(rng.standard_normal(D)))
+    g = f(rng.standard_normal((B, L, D)))
+    bwd = lambda: torch.func.vjp(ss.selective_scan_associative, *args)[1](g)  # noqa: E731
+    fwd = lambda: ss.selective_scan(*args)  # noqa: E731
+    leaves = [a.clone().requires_grad_() for a in args]
+    got = torch.autograd.grad(ss.selective_scan(*leaves), leaves, g)
+    want = bwd()
+    err = max((a - b).abs().max().item() / max(b.abs().max().item(), 1e-30) for a, b in zip(got, want))
+    check(err <= 1e-6, f"selective_scan: the op's backward is not the associative VJP ({err})")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    bwd()
+    torch.cuda.synchronize()
+    extra_gib = (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 30
+    saved = read_counts()
+    out = {"shape": [B, L, D, N], "backward_ms": cuda_ms(bwd, reps=10), "backward_device_ms": passes_device_ms(bwd),
+           "forward_ms": cuda_ms(fwd),
+           "backward_memory_gib_above_inputs": extra_gib, "vs_autograd_max_rel": err}
+    # the least a backward could do: read the six inputs and the cotangent once and write the six
+    # gradients once (float32), and run the reverse recurrence's ~10 operations a state and step
+    out["backward_bound_ms"], out["backward_bound_by"] = _bound(
+        4.0 * (5 * B * L * D + 4 * B * L * N + 2 * D * N + 2 * D), 10.0 * B * L * D * N / F32_OPS)
+    for name, (wrapper, _, _) in KERNELS.items():
+        wrapper.launches = saved[name]
+    return out
+
+
+def phase_train_baseline(dev, seed: int) -> dict:
+    """The baseline family trained at full width (ResNet18 + BERT-base at seq 128, batch 64, bf16
+    module, float32 masters, AdamW, warmup-cosine, stain normalisation, degrees 45, vflip, colour
+    jitter, ImageNet normalisation) through the config-driven Trainer: ham_base.json (base.yml:
+    multiscale fusion, GroupKAN head) fit over 2 epochs x 2 steps with a validation batch an epoch;
+    ham_fusion_ssm_v1.json (the Mamba fusion: selective_scan's kernel forward, the associative VJP
+    backward) and ham_head_moe_v1.json (the KAN-expert MoE head: kan_forward's kernel, plain VJP)
+    a step each against the same step on the op's plain version, the MoE's one re-grid; launches,
+    rates, step parts, the stain pass, the scan's backward, devices and peak memory. Returns each
+    path's launches."""
+    rng = np.random.default_rng([seed, 27])  # inputs of its own
+    g = torch.Generator(device=dev).manual_seed(seed + 27)
+    run_dir = REPO / "mdhs_tpu_torch" / "build" / "train_baseline_smoke"  # git-ignored; removed at the end
+    shutil.rmtree(run_dir, ignore_errors=True)
+    layers = BertConfig().num_hidden_layers
+    train = [_baseline_train_batch(rng, BASELINE_BATCH), _baseline_train_batch(rng, 41)]  # the second short
+    val = [_baseline_train_batch(rng, BASELINE_BATCH)]
+    out = {}
+
+    # --- ham_base: the main path, Trainer.fit, 2 epochs x 2 steps, validation on one batch an epoch
+    torch.cuda.reset_peak_memory_stats(dev)
+    trainer = _baseline_trainer("ham_base", run_dir, dev)
+    masters = dict(zip((n for n, _ in trainer.model.named_parameters()), trainer.master_parameters()))
+    watch = {n: masters[n].detach().clone() for n in ("classifier.kan1.act_coeff", "classifier.kan2.linear.weight",
+                                                      "fusion.cross_l4.attn.in_proj_weight",
+                                                      "image_encoder.model.conv1.weight",
+                                                      "text_encoder.model.encoder.layer.0.attention.self.query.weight")}
+    zero_counts()
+    t0 = time.perf_counter()
+    history = trainer.fit(train, val, num_epochs=2, steps_per_epoch=2)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    want = {**dict.fromkeys(KERNELS, 0), "shear_sublane": 3 * 4, "attention_block": layers * 2,
+            "ffn_block": layers * 2}
+    check(launches == want, f"train_baseline fit launches {launches}, expected {want}")
+    losses = [x for h in history for x in h["train_losses"]] + [h["val_loss"] for h in history]
+    check(all(np.isfinite(losses)), f"non-finite baseline losses {losses}")
+    check(all(not torch.equal(p, masters[n]) for n, p in watch.items()), "baseline parameters unchanged")
+    files = _run_files(str(run_dir / "ham_base"))
+    check("per_class/f1_class_6" in files["tags"], "no per-class report")
+    zero_counts()
+    trainer.train_step(train[0])
+    step_launches = read_counts()
+    check(step_launches == {**dict.fromkeys(KERNELS, 0), "shear_sublane": 3}, f"ham_base step {step_launches}")
+    canv = trainer.to_device(train[1])["image"]
+    p = aug.sample_crop_flip_rotate(BASELINE_BATCH, CANVAS, trainer.generator, vflip=True, degrees=45.0)
+    j = aug.sample_color_jitter(BASELINE_BATCH, trainer.generator)
+    x_kernel = trainer.augment(canv, params=p, jitter=j)
+    with _plain_op(aug, "shear_sublane", sh.shear_reference):
+        x_plain = trainer.augment(canv, params=p, jitter=j)
+    aug_d = diff(x_kernel, x_plain)
+    check(aug_d[0] == 0.0 and x_kernel.shape == (BASELINE_BATCH, 3, 224, 224),
+          f"baseline augmentation kernel vs plain: {aug_d}")
+    x01 = canv.float() / 255.0
+    stain = {"ms": cuda_ms(lambda: stain_normalize(x01)), "device_ms": passes_device_ms(lambda: stain_normalize(x01)),
+             "bound_ms": _bound(2 * x01.numel() * 4, 0.0)[0], "shape": list(x01.shape)}
+    images_per_s = _images_per_s(trainer, train)
+    parts = _step_parts_ms(trainer, train[0])
+    device = device_profile(lambda: trainer.train_step(train[0]), parts["step_ms"], reps=2, top=15)
+    peak_all_gb = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    out["ham_base"] = {"config": "ham_base (configs/common/base.yml)", "history": history, "fit_s": fit_s,
+                       "launches_fit": launches, "launches_train_step": step_launches, "run_files": files,
+                       "augment_kernel_vs_plain_max_abs": aug_d[0], "stain_pass": stain,
+                       "images_per_s_b64": images_per_s, "step_parts_ms": parts, "device": device,
+                       "peak_memory_gib_fit": peak_gb, "peak_memory_gib_phase": peak_all_gb}
+    result = {"train_baseline": launches}
+    del trainer, masters, watch
+    torch.cuda.empty_cache()
+
+    # --- ham_fusion_ssm_v1 and ham_head_moe_v1: a step and a validation forward each, the step against
+    # --- the op's plain version, their step parts; the MoE's one re-grid
+    for name, module, kernel, plain, per, group in (
+            ("ham_fusion_ssm_v1", ss, "selective_scan", ss.selective_scan_reference, 1, "fusion.mamba."),
+            ("ham_head_moe_v1", ks, "kan_forward", ks.kan_forward_reference, 2, "classifier.moe.")):
+        trainer = _baseline_trainer(name, run_dir, dev)
+        noise = None
+        if kernel == "kan_forward":
+            trainer.model.eval()
+            _route_rows_apart(trainer.model, train[0], dev, g)  # w_gate is its own float32 master
+            trainer.model.train()
+            noise = torch.randn((BASELINE_BATCH, HAM_HEAD_MOE.moe_num_experts), generator=g, device=dev)
+        zero_counts()
+        trainer.train_step(train[0])
+        step_launches = read_counts()
+        check(step_launches == {**dict.fromkeys(KERNELS, 0), "shear_sublane": 3, kernel: per},
+              f"{name} train_step launches {step_launches}")
+        zero_counts()
+        val_loss, _ = trainer.validate(val)
+        val_launches = read_counts()
+        check(val_launches == {**dict.fromkeys(KERNELS, 0), "attention_block": layers, "ffn_block": layers,
+                               kernel: per} and np.isfinite(val_loss), f"{name} validation launches {val_launches}")
+        groups = {group.rstrip("."): [p for n, p in trainer.model.named_parameters() if n.startswith(group)],
+                  "text_encoder": list(trainer.model.text_encoder.parameters())}
+        vs_plain = _kernel_vs_plain_step(trainer, train[1], module, kernel, plain, groups, seed, noise)
+        rec = {"config": name, "launches_train_step": step_launches, "launches_validation_forward": val_launches,
+               f"step_vs_plain_{kernel}": vs_plain, "step_parts_ms": _step_parts_ms(trainer, train[0], reps=3)}
+        result[f"train_baseline_{'ssm' if kernel == 'selective_scan' else 'moe'}"] = {
+            k: step_launches[k] + val_launches[k] for k in KERNELS}
+        if kernel == "kan_forward":
+            moe = trainer.model.classifier.moe
+            grid0 = moe.experts[0].layers[0].grid.clone()
+            with torch.no_grad():
+                trainer.model.eval()
+                before = trainer._val_pass(val, True)[2][0][0]
+                zero_counts()
+                n = trainer._kan_regrid(train[0])
+                regrid_launches = read_counts()
+                trainer.model.eval()
+                after = trainer._val_pass(val, True)[2][0][0]
+            trainer.model.train()
+            check(n == 2 and not torch.equal(grid0, moe.experts[0].layers[0].grid)
+                  and torch.equal(moe.stacked_layers()[0][0][0], moe.experts[0].layers[0].grid)
+                  and regrid_launches == {**dict.fromkeys(KERNELS, 0), "attention_block": layers,
+                                          "ffn_block": layers, "kan_forward": per}
+                  and bool(torch.isfinite(after).all()), f"{name} re-grid: {n} layers, launches {regrid_launches}")
+            rec["regrid"] = {"layers": n, "launches": regrid_launches,
+                             "val_logits_change_max_abs": (after - before).abs().max().item(),
+                             "val_logits_max_abs": before.abs().max().item()}
+            result["train_baseline_moe"] = {k: result["train_baseline_moe"][k] + regrid_launches[k] for k in KERNELS}
+        else:
+            rec["scan_backward"] = _scan_backward(dev, rng)
+        out[name] = rec
+        del trainer
+        torch.cuda.empty_cache()
+    emit({"phase": "train_baseline", "model": "MultimodalBaselineModel: ResNet18 + BERT-base at seq 128, hidden 256, "
+          f"batch {BASELINE_BATCH}; bf16 module, float32 masters, AdamW, warmup-cosine, canvas 256 -> 224, stain "
+          "normalisation, degrees 45, vflip, colour jitter, ImageNet normalisation", **out})
+    shutil.rmtree(run_dir, ignore_errors=True)
+    return result
+
+
 # ---------------------------------------------------------------------------
 # phase 13: the inference entry points over an image directory and a checkpoint
 REPO = Path(__file__).resolve().parent
@@ -2819,6 +3090,65 @@ def phase_train_cli(dev, inputs: dict, g) -> dict:
     return {"train_cli": {k: launches[k] + r_launches[k] for k in KERNELS}}
 
 
+def phase_train_baseline_cli(dev, inputs: dict) -> dict:
+    """python3 -m mdhs_tpu_torch.cli.run_train (the family defaulting to baseline) on ham_base.json
+    (batch 64, seq 128, stain normalisation on) over phase_cli's PNGs: 64 train images, 16 val images,
+    2 epochs from the seeded init; the run directory, the launches of the run, the best checkpoint
+    against the trainer's state at its epoch, and run_predict (the family defaulting to baseline)
+    over it against the trainer's eval forward; returns the launches of the two runs."""
+    layers = BertConfig().num_hidden_layers
+    order = inputs["order"]
+    val_csv = CLI_DIR / "labels_val16.csv"  # train_cli's: the 16 images after the 64
+    val_csv.write_text("image_id,label\n" + "".join(f"{a},{inputs['labels'][a]}\n" for a in order[64:80]))
+    cfg = load_config(REPO / "mdhs_tpu_torch" / "configs" / "ham_base.json")
+    for key, val in (("data.train_image_dir", inputs["image_dir"]), ("data.train_json_path", inputs["json_path"]),
+                     ("data.train_label_csv", inputs["label_csv"][64]), ("data.val_image_dir", inputs["image_dir"]),
+                     ("data.val_json_path", inputs["json_path"]), ("data.val_label_csv", str(val_csv)),
+                     ("data.test_image_dir", inputs["image_dir"]), ("data.test_json_path", inputs["json_path"]),
+                     ("data.test_label_csv", str(val_csv)), ("output.log_dir", str(CLI_DIR / "train_runs")),
+                     ("output.run_name", "ham_base"), ("training.num_epochs", 2), ("training.log_every", 1),
+                     ("data.stain_normalization", {"enabled": True})):
+        cfg.set(key, val)
+    cfg_path = str(CLI_DIR / "ham_base_train.json")
+    cfg.save_json(cfg_path)
+    saved = {}
+    with _saved_checkpoints(saved):
+        trainer, launches, info = _cli_run(run_train.main, ["--config", cfg_path], 64 * 2)
+    want = {"shear_sublane": 3 * 2, "attention_block": layers * 2, "ffn_block": layers * 2}
+    check(trainer.family == "baseline" and launches == {**dict.fromkeys(KERNELS, 0), **want},
+          f"train baseline cli: family {trainer.family}, launches {launches}, expected {want}")
+    out = trainer.output_dir
+    files = _run_files(out)
+    check(trainer.step == 2 and trainer.epoch == 2, f"train baseline cli: step {trainer.step}, epoch {trainer.epoch}")
+    best = Path(out, files["checkpoints"][0]["path"])
+    epoch = int(re.match(r"epoch_(\d+)_", best.name).group(1))
+    on_disk = load_torch_file(str(best))
+    check(on_disk.keys() == saved[epoch].keys() and all(torch.equal(on_disk[k], saved[epoch][k]) for k in on_disk),
+          f"train baseline cli: {best.name} differs from the trainer's state at epoch {epoch}")
+    pred, p_launches, p_info = _cli_run(run_predict.main, ["--config", cfg_path, "--model_path", str(best),
+                                                           "--output_path", str(CLI_DIR / "ham_base_best.csv")], 16)
+    check(p_launches == {**dict.fromkeys(KERNELS, 0), "attention_block": layers, "ffn_block": layers},
+          f"train baseline cli predict launches {p_launches}")
+    trainer.load_weights(str(best))
+    trainer.model.eval()
+    ref = []
+    with torch.inference_mode():
+        for b in trainer.val_loader:
+            d = trainer.to_device(b)
+            img = eval_pipeline(d["image"], 224, normalize=True, dtype=trainer.dtype)
+            ref.append(trainer.model(img, d["input_ids"], d["attention_mask"])[: int(b["n_valid"])])
+    ref = torch.cat(ref).float().cpu().numpy()
+    predict_vs_trainer = _judge_model(pred["logits"], ref, SLICE_ATOL, SLICE_MEAN,
+                                      "run_predict over the baseline's best checkpoint against the trainer's eval forward")
+    predict_vs_trainer["bit_equal"] = bool(np.array_equal(pred["logits"], ref))
+    del trainer
+    torch.cuda.empty_cache()
+    emit({"phase": "train_baseline_cli", "config": "ham_base", "train_images": 64, "val_images": 16, "run": info,
+          "launches": launches, "run_files": files, "best": best.name, "best_epoch": epoch, "predict": p_info,
+          "predict_launches": p_launches, "predict_vs_trainer_eval": predict_vs_trainer})
+    return {"train_baseline_cli": {k: launches[k] + p_launches[k] for k in KERNELS}}
+
+
 EXPORT_DIR = REPO / "mdhs_tpu_torch" / "build" / "export_smoke"  # git-ignored; removed when the phase ends
 # the artifacts: (CLI config made by phase_cli, family, static batch, export_serving's extra flags,
 # launches a forward). Full width and depth.
@@ -3080,9 +3410,11 @@ def main() -> int:
     train_flash = phase_train_flash(dev, rng, seed)
     connext = phase_connext(dev, seed)
     train_connext = phase_train_connext(dev, seed)
+    train_baseline = phase_train_baseline(dev, seed)
     try:
         cli, made = phase_cli(dev, seed)
         cli.update(phase_train_cli(dev, made["inputs"], torch.Generator(device=dev).manual_seed(seed + 35)))
+        cli.update(phase_train_baseline_cli(dev, made["inputs"]))
         export = phase_export(dev, seed, made)
     finally:
         shutil.rmtree(CLI_DIR, ignore_errors=True)
@@ -3097,7 +3429,7 @@ def main() -> int:
                "baseline_ssm": baseline["selective_scan"], "baseline_moe": baseline["kan_forward"],
                "train": train["launches"], "train_bn_stats": train["ab_launches"], "flash": flash_launches,
                "train_flash": train_flash, "ablate": {"attention_ablate": ablate_launches},
-               "connext": connext["launches"], "train_connext": train_connext, **cli, **export}
+               "connext": connext["launches"], "train_connext": train_connext, **train_baseline, **cli, **export}
     kan_by_layer = {**baseline["kan_forward_by_layer"], **connext["kan_forward_by_layer"]}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -162,15 +162,53 @@ def moe_state_dict_from_jax(params: Tree, kan_state: Tree, prefix: str = "") -> 
     return out
 
 
+def head_state_dict_from_jax(head: Tree, kan_state: Tree | None, classifier_type: str,
+                             prefix: str = "") -> dict[str, torch.Tensor]:
+    """A baseline head's params (and, for ``moe``, its kan_state) -> the port's
+    ``modules/heads.py`` names under ``prefix``: ``mlp`` and ``residual`` as
+    ``_convert_head`` reads them; ``kan`` and ``attention_pooling`` after the JAX
+    tree; ``moe`` in ``_convert_kan_bank``'s layout."""
+    out: dict[str, torch.Tensor] = {}
+    if classifier_type == "mlp":
+        _lin(head["fc1"], f"{prefix}0", out)
+        _lin(head["fc2"], f"{prefix}3", out)
+    elif classifier_type == "residual":
+        for jname, name in (("project", "project"), ("res_fc1", "res_block.linear1"),
+                            ("res_fc2", "res_block.linear2"), ("classifier", "classifier")):
+            _lin(head[jname], f"{prefix}{name}", out)
+        _ln(head["res_norm"], f"{prefix}res_block.norm", out)
+    elif classifier_type == "attention_pooling":
+        out[f"{prefix}query"] = _t(head["query"])
+        out.update(mha_state_dict_from_jax(head["attn"], f"{prefix}attn."))
+        _lin(head["classifier"], f"{prefix}classifier", out)
+    elif classifier_type == "kan":
+        for name in ("kan1", "kan2"):
+            out[f"{prefix}{name}.act_coeff"] = _t(head[name]["act_coeff"])
+            out[f"{prefix}{name}.act_base"] = _t(head[name]["act_base"])
+            _lin(head[name]["linear"], f"{prefix}{name}.linear", out)
+        _ln(head["norm"], f"{prefix}norm", out)
+    elif classifier_type == "moe":
+        out.update(moe_state_dict_from_jax(head["moe"], kan_state["moe"], f"{prefix}moe."))
+    else:
+        raise ValueError(f"no converter for classifier_type={classifier_type!r}")
+    return out
+
+
 def baseline_state_dict_from_jax(params: Tree, batch_stats: Tree, kan_state: Tree | None = None,
                                  fusion_type: str = "multiscale",
                                  classifier_type: str = "mlp") -> dict[str, torch.Tensor]:
     """``mdhs_tpu.models.baseline.MultimodalBaselineModel`` (params,
     batch_stats, kan_state) -> state_dict of
     ``mdhs_tpu_torch.models.baseline.MultimodalBaselineModel``: the inverse of
-    ``convert_baseline_full`` for ``multiscale`` + ``mlp``, with the
-    ``mamba`` fusion in mamba_ssm's names and the ``moe`` head in
-    ``_convert_kan_bank``'s layout (``convert_baseline_full`` maps neither)."""
+    ``convert_baseline_full`` for ``multiscale`` with the ``mlp`` and
+    ``residual`` heads, with the ``mamba`` fusion in mamba_ssm's names
+    (``convert_baseline_full`` does not map it), and every head as
+    ``head_state_dict_from_jax`` names it. The ``kan`` and
+    ``attention_pooling`` heads have no torch converter in the JAX package;
+    their names follow the JAX tree (``classifier.kan1.act_coeff``,
+    ``classifier.kan1.linear.weight``, ``classifier.norm.weight``;
+    ``classifier.query``, ``classifier.attn.*`` as ``nn.MultiheadAttention``,
+    ``classifier.classifier.weight``)."""
     img = params["image_encoder"]
     out = resnet_state_dict_from_jax({"trunk": img["trunk"]}, batch_stats["image_encoder"], "image_encoder.model.")
     for s in (2, 3, 4):
@@ -189,14 +227,8 @@ def baseline_state_dict_from_jax(params: Tree, batch_stats: Tree, kan_state: Tre
         out.update(mamba_state_dict_from_jax(fusion["mamba"], "fusion.mamba."))
     else:
         raise ValueError(f"no converter for fusion_type={fusion_type!r}")
-    head = params["classifier"]
-    if classifier_type == "mlp":
-        _lin(head["fc1"], "classifier.0", out)
-        _lin(head["fc2"], "classifier.3", out)
-    elif classifier_type == "moe":
-        out.update(moe_state_dict_from_jax(head["moe"], kan_state["classifier"]["moe"], "classifier.moe."))
-    else:
-        raise ValueError(f"no converter for classifier_type={classifier_type!r}")
+    out.update(head_state_dict_from_jax(params["classifier"], (kan_state or {}).get("classifier"), classifier_type,
+                                        "classifier."))
     return out
 
 

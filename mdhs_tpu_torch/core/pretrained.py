@@ -1,17 +1,19 @@
 """Pretrained weights named in a config: the full model and its two towers.
 
 Counterpart of the JAX Trainer's ``_load_pretrained``
-(``mdhs_tpu/train/trainer.py:1060-1158``) for the ``mibf`` and ``connext``
-families, which the eval CLIs (``cli/common.py::Predictor``) and the trainer
-both call:
-
-The baseline family raises (ROADMAP Queue 1 items 8 and 10).
+(``mdhs_tpu/train/trainer.py:1060-1158``), which the eval CLIs
+(``cli/common.py::Predictor``) and the trainer both call:
 
 - ``model.pretrained_path``: the full model, any file ``load_weights`` reads
-  (a port checkpoint, a JAX msgpack, a reference torch state dict).
+  (a port checkpoint, a JAX msgpack, a reference torch state dict, which for
+  the baseline family is ``convert_baseline_full``'s layout under the port's
+  own names).
 - ``model.image_encoder.pretrained_path``: MIBF's torchvision ResNet50 (its
   1000-class ``fc`` is skipped by the tolerant merge, as a shape mismatch),
-  or ConNexT's HF ``ConvNextModel`` (a ``convnext.`` prefix stripped, the
+  the baseline's torchvision ResNet18 / ResNet34 (``model.image_encoder.
+  backbone``) under ``image_encoder.model.``, its ``fc`` dropped, as
+  ``convert_resnet`` reads the trunk only, or ConNexT's HF ``ConvNextModel``
+  (a ``convnext.`` prefix stripped, the
   final ``layernorm`` and any ``classifier`` dropped, as
   ``convert_convnext_hf`` drops them). The torchvision ConvNeXt naming
   (``features.*``) raises: ROADMAP Queue 1 item 11.
@@ -20,7 +22,8 @@ The baseline family raises (ROADMAP Queue 1 items 8 and 10).
   ``convert_bert`` returns it apart.
 
 The port's modules carry the reference's torch names, so a tower's file
-loads under its prefix (``image_encoder.``, ``text_encoder.bert.``) through
+loads under its prefix (``image_encoder.``, ``image_encoder.model.``,
+``text_encoder.bert.``, the baseline's ``text_encoder.model.``) through
 ``core/checkpoint.py::merge_tolerant``. A file missing one of the tower's
 names raises ``ValueError`` naming the path and the family, as the JAX
 ``convert_context`` does. A ``.msgpack`` tower path is a whole JAX
@@ -50,6 +53,8 @@ def _image_tower(sd: dict, family: str) -> tuple[dict, str]:
     """(the tower's state dict under the port's tower names, what the file should be)."""
     if family == "mibf":
         return sd, "torchvision resnet50"
+    if family == "baseline":
+        return {k: v for k, v in sd.items() if not k.startswith("fc.")}, "torchvision ResNet"
     if any(k.startswith("features.") for k in sd) and not any("patch_embeddings" in k for k in sd):
         raise NotImplementedError("a torchvision ConvNeXt (features.*) state dict is not read yet: "
                                   "ROADMAP Queue 1 item 11; give an HF ConvNextModel")
@@ -67,12 +72,13 @@ def _text_tower(sd: dict) -> dict:
 
 def _load_tower(model: nn.Module, path: str, family: str, tower: str) -> None:
     sd = load_torch_file(path)
+    baseline = family == "baseline"
     if tower == "image":
         sub, what = _image_tower(sd, family)
-        prefix = "image_encoder."
+        prefix = "image_encoder.model." if baseline else "image_encoder."
     else:
         sub, what = _text_tower(sd), "HF BertModel"
-        prefix = "text_encoder.bert."
+        prefix = "text_encoder.model." if baseline else "text_encoder.bert."
     target = model.state_dict()
     loaded = {prefix + k: v for k, v in sub.items()}
     skip = ("image_encoder.fc.",) if family == "mibf" else ()  # the 768-out head, not the backbone's
@@ -89,10 +95,6 @@ def load_pretrained(model: nn.Module, cfg, family: str) -> list[str]:
     then the image tower, then the text tower); the paths it loaded."""
     done = []
     full, img, txt = (cfg.get(k) for k in PRETRAINED_KEYS)
-    if family == "baseline" and (full or img or txt):
-        raise NotImplementedError("pretrained weights named in the config of the baseline family are not loaded "
-                                  "yet: ROADMAP Queue 1 item 8 (with the family's training, item 10); give the "
-                                  "checkpoint as --model_path")
     if full:
         load_weights(model, full, family)
         done.append(full)

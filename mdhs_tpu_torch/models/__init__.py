@@ -2,12 +2,13 @@
 with torchvision / HF / reference names, and ``build_model``, which resolves a
 config into one of them.
 
-``build_model`` is the eval half of ``mdhs_tpu/train/trainer.py::build_model``
-(:101-146) with ``bert_config_from`` (:74-97) and ``BaselineConfig.from_config``:
-the same keys, defaults and family switch. What the port does not have
-raises ``NotImplementedError`` naming its ROADMAP item, from the model's own
-config check. ``training.remat`` is checked as JAX checks it and not carried:
-it changes only what a backward keeps, and these models serve eval.
+``build_model`` is ``mdhs_tpu/train/trainer.py::build_model`` (:101-146)
+with ``bert_config_from`` (:74-97) and ``BaselineConfig.from_config``: the
+same keys, defaults and family switch; the eval CLIs and the trainer both
+build through it. What the port does not have raises
+``NotImplementedError`` naming its ROADMAP item, from the model's own config
+check. ``training.remat`` is checked as JAX checks it and not carried: it
+changes only what a backward keeps, not what a step computes.
 """
 
 from __future__ import annotations

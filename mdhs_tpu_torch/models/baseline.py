@@ -1,4 +1,4 @@
-"""MultimodalBaselineModel, the configurable baseline family, eval forward.
+"""MultimodalBaselineModel, the configurable baseline family.
 
 Counterpart of ``mdhs_tpu/models/baseline.py``: ResNet tokens + BERT text
 tokens -> a fusion (``modules/fusion.py``) -> a classifier head
@@ -9,11 +9,16 @@ Submodule names are the reference's (``image_encoder.model``,
 ``image_encoder.proj{2,3,4}``, ``text_encoder.model``, ``fusion``,
 ``classifier``), which ``mdhs_tpu.core.convert.convert_baseline_full`` reads.
 
-Ported: the ``multiscale`` and ``mamba`` fusions and the ``mlp`` and ``moe``
-heads, the serving path of ``configs/ham/ham_fusion_ssm_v1.yml`` and
-``ham_head_moe_v1.yml``. The gate, the sequence encoder, the tabular branch
-and the global/local stream raise ``NotImplementedError`` naming their
-ROADMAP item, as do the other fusions and heads.
+Ported: the ``multiscale`` and ``mamba`` fusions and every head (``mlp``,
+``residual``, ``attention_pooling``, ``kan``, ``moe``), served and trained:
+``configs/common/base.yml`` and the ``configs/ham/*_v1.yml`` built on those.
+``features_and_logits`` is the training forward (``baseline.py:352-358``):
+the fused feature, the logits and the MoE head's balance loss (None for the
+other heads). The fusion and head dropout is the config's clamped to 0.1, as
+in JAX; the ResNet's BatchNorm follows the module's train/eval mode. The
+gate, the sequence encoder, the tabular branch and the global/local stream
+raise ``NotImplementedError`` naming their ROADMAP item, as do the other
+fusions.
 """
 
 from __future__ import annotations
@@ -24,8 +29,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..modules.fusion import build_fusion, pool_image
-from ..modules.heads import build_head
+from ..modules.fusion import NOT_PORTED as NOT_PORTED_FUSIONS, build_fusion, pool_image
+from ..modules.heads import MoEHead, build_head
 from .bert import BertConfig
 from .encoders import ImageTokenEncoder, TextEncoder
 
@@ -81,6 +86,8 @@ class BaselineConfig:
                            (self.global_local_enabled, "global/local dual stream")):
             if flag:
                 raise NotImplementedError(f"baseline {what} is not ported yet: ROADMAP Queue 1 item 10")
+        if self.fusion_type in NOT_PORTED_FUSIONS:
+            raise NotImplementedError(f"fusion_type={self.fusion_type!r} is not ported yet: ROADMAP Queue 1 item 10")
         if self.remat != "none":
             raise NotImplementedError(f"remat={self.remat!r} is a training knob: ROADMAP Queue 1 item 8")
 
@@ -98,9 +105,11 @@ class MultimodalBaselineModel(nn.Module):
                                                multi_scale=cfg.fusion_type == "multiscale", **f)
         self.text_encoder = TextEncoder(cfg.bert, **f)
         self.fusion = build_fusion(cfg.fusion_type, text_dim=cfg.text_feature_dim, hidden_dim=cfg.hidden_dim,
-                                   num_heads=cfg.num_heads, text_pool=cfg.text_pool, **f)
+                                   num_heads=cfg.num_heads, dropout=dropout, text_pool=cfg.text_pool, **f)
         self.classifier = build_head(cfg.classifier_type, hidden_dim=cfg.hidden_dim, num_classes=cfg.num_classes,
-                                     dropout=dropout, moe_num_experts=cfg.moe_num_experts, moe_k=cfg.moe_k, **f)
+                                     dropout=dropout, num_heads=cfg.num_heads, kan_num_groups=cfg.kan_num_groups,
+                                     kan_act_mode=cfg.kan_act_mode, moe_num_experts=cfg.moe_num_experts,
+                                     moe_k=cfg.moe_k, **f)
 
     @property
     def input_dtype(self) -> torch.dtype:
@@ -124,3 +133,15 @@ class MultimodalBaselineModel(nn.Module):
                 ablation_mode: Optional[str] = None) -> torch.Tensor:
         """images: (B, 3, H, W). Returns float32 logits (B, num_classes)."""
         return self.classifier(self.forward_features(images, input_ids, attention_mask, ablation_mode))
+
+    def features_and_logits(self, images: torch.Tensor, input_ids: torch.Tensor, attention_mask: torch.Tensor,
+                            ablation_mode: Optional[str] = None, generator: Optional[torch.Generator] = None,
+                            noise: Optional[torch.Tensor] = None):
+        """(fused feature, float32 logits, the MoE head's balance loss or None):
+        the training forward. ``generator`` (or a test's ``noise``) draws the
+        MoE head's gating noise."""
+        feats = self.forward_features(images, input_ids, attention_mask, ablation_mode)
+        if isinstance(self.classifier, MoEHead):
+            logits, balance = self.classifier.logits_and_balance(feats, generator, noise)
+            return feats, logits, balance
+        return feats, self.classifier(feats), None

@@ -9,7 +9,8 @@ import torch
 from torch import nn
 
 from ..modules.attention import MultiHeadAttention
-from ..modules.kan import KANLinear, make_grid
+from ..modules.heads import AttentionPoolingHead
+from ..modules.kan import GroupKANLinear, KANLinear, make_grid
 from ..modules.mamba import MambaBlock
 from ..modules.moe import MoE
 from .convnext import ConvNextLayer
@@ -30,7 +31,9 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
     base weights and spline scalers uniform in +-scale / sqrt(in), spline
     coefficients uniform in +-scale_noise / (2 grid_size) (the JAX layer fits
     them to noise of that range), and the grid ``make_grid``'s, never drawn.
-    MoE: ``w_gate`` and ``w_noise`` zero. ConvNeXt's layer scale: its
+    GroupKAN (``kan.py:269-274``): ``act_coeff`` normal with std 0.1 /
+    grid_size, ``act_base`` one. The attention-pooling head's ``query``:
+    normal with std 1. MoE: ``w_gate`` and ``w_noise`` zero. ConvNeXt's layer scale: its
     ``layer_scale_init`` (1e-6). Values are drawn on the generator's
     device in float32 and cast to each parameter's dtype and device.
     """
@@ -69,6 +72,11 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
             m.spline_weight.copy_(uniform(m.spline_weight.shape, m.scale_noise / (2 * m.grid_size)))
             m.spline_scaler.copy_(uniform(m.spline_scaler.shape, m.scale_spline * bound))
             m.grid.copy_(make_grid(m.in_features, m.grid_size, m.spline_order, m.grid_range))
+        elif isinstance(m, GroupKANLinear):
+            normal_(m.act_coeff, 0.1 / m.grid_size)
+            m.act_base.fill_(1.0)
+        elif isinstance(m, AttentionPoolingHead):
+            normal_(m.query, 1.0)
         elif isinstance(m, MoE):
             m.w_gate.zero_()
             m.w_noise.zero_()

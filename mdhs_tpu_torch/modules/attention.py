@@ -33,14 +33,16 @@ NEG_INF = -1e9
 
 class MultiHeadAttention(nn.Module):
     """Separate q/k/v projections of one width packed as (3E, E), a key
-    padding mask (B, Lk) with 1 = valid, 0 = pad; eval (no attention dropout)."""
+    padding mask (B, Lk) with 1 = valid, 0 = pad; in training, dropout on the
+    attention probabilities (``dropout``, the JAX module's)."""
 
-    def __init__(self, embed_dim: int, num_heads: int, device=None, dtype=None):
+    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0, device=None, dtype=None):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError("embed_dim must be divisible by num_heads")
         f = dict(device=device, dtype=dtype)
         self.embed_dim, self.num_heads = embed_dim, num_heads
+        self.dropout = nn.Dropout(dropout)
         self.in_proj_weight = nn.Parameter(torch.empty((3 * embed_dim, embed_dim), **f))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim, **f))
         self.out_proj = nn.Linear(embed_dim, embed_dim, **f)
@@ -62,7 +64,7 @@ class MultiHeadAttention(nn.Module):
         scores = ((q @ k.transpose(-1, -2)) / self.head_scale.to(q.dtype)).float()
         if key_padding_mask is not None:
             scores = scores + ((1.0 - key_padding_mask.float()) * NEG_INF)[:, None, None, :]
-        probs = torch.softmax(scores, dim=-1).to(q.dtype)
+        probs = self.dropout(torch.softmax(scores, dim=-1).to(q.dtype))
         ctx = (probs @ v).transpose(1, 2).reshape(query.shape[0], query.shape[1], E)
         return self.out_proj(ctx)
 

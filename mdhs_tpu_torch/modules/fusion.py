@@ -1,4 +1,4 @@
-"""Fusion strategies of the baseline family, eval forward.
+"""Fusion strategies of the baseline family.
 
 Counterpart of ``mdhs_tpu/modules/fusion.py`` for ``multiscale`` (per-scale
 text cross-attention on ResNet layer2/3/4 tokens, the mean of the three
@@ -7,8 +7,10 @@ Mamba block, mean pool). Every fusion takes (image tokens, text tokens,
 text mask) and returns a (B, hidden_dim) feature; the image tokens are
 (B, N, H) or the {layer2, layer3, layer4} dict. Names follow the reference
 torch modules (``cross_l{2,3,4}.{txt_proj,attn,norm}``; ``txt_proj``,
-``mamba``), which ``mdhs_tpu.core.convert`` reads. The other fusion types
-raise ``NotImplementedError`` until they are ported.
+``mamba``), which ``mdhs_tpu.core.convert`` reads. In training, the
+multiscale fusion's attention drops its probabilities at ``dropout`` (the
+model's clamped dropout, as in JAX); the Mamba fusion has no dropout. The
+other fusion types raise ``NotImplementedError`` until they are ported.
 """
 
 from __future__ import annotations
@@ -40,11 +42,12 @@ def pool_image(image_tokens) -> torch.Tensor:
 class CrossAttentionBlock(nn.Module):
     """LayerNorm(img + MHA(img, txt_proj(text), txt_proj(text), mask))."""
 
-    def __init__(self, text_dim: int, hidden_dim: int, num_heads: int = 4, device=None, dtype=None):
+    def __init__(self, text_dim: int, hidden_dim: int, num_heads: int = 4, dropout: float = 0.0, device=None,
+                 dtype=None):
         super().__init__()
         f = dict(device=device, dtype=dtype)
         self.txt_proj = nn.Linear(text_dim, hidden_dim, **f)
-        self.attn = MultiHeadAttention(hidden_dim, num_heads, **f)
+        self.attn = MultiHeadAttention(hidden_dim, num_heads, dropout, **f)
         self.norm = nn.LayerNorm(hidden_dim, eps=1e-5, **f)
 
     def forward(self, img_tokens, txt_tokens, txt_mask=None):
@@ -53,10 +56,11 @@ class CrossAttentionBlock(nn.Module):
 
 
 class MultiScaleFusion(nn.Module):
-    def __init__(self, text_dim: int, hidden_dim: int, num_heads: int = 4, device=None, dtype=None):
+    def __init__(self, text_dim: int, hidden_dim: int, num_heads: int = 4, dropout: float = 0.0, device=None,
+                 dtype=None):
         super().__init__()
         for s in (2, 3, 4):
-            setattr(self, f"cross_l{s}", CrossAttentionBlock(text_dim, hidden_dim, num_heads,
+            setattr(self, f"cross_l{s}", CrossAttentionBlock(text_dim, hidden_dim, num_heads, dropout,
                                                              device=device, dtype=dtype))
 
     def forward(self, img_tokens, txt_tokens, txt_mask=None):
@@ -81,16 +85,16 @@ class SSMFusion(nn.Module):
         return self.mamba(img_tokens + txt[:, None, :]).mean(dim=1)
 
 
-_NOT_PORTED = ("basic", "concat", "weighted_concat", "hadamard", "bilinear", "hierarchical", "vmamba")
+NOT_PORTED = ("basic", "concat", "weighted_concat", "hadamard", "bilinear", "hierarchical", "vmamba")
 
 
-def build_fusion(fusion_type: str, *, text_dim: int, hidden_dim: int, num_heads: int = 4,
+def build_fusion(fusion_type: str, *, text_dim: int, hidden_dim: int, num_heads: int = 4, dropout: float = 0.0,
                  text_pool: str = "cls", device=None, dtype=None) -> nn.Module:
     f = dict(device=device, dtype=dtype)
     if fusion_type == "multiscale":
-        return MultiScaleFusion(text_dim, hidden_dim, num_heads, **f)
+        return MultiScaleFusion(text_dim, hidden_dim, num_heads, dropout, **f)
     if fusion_type == "mamba":
         return SSMFusion(text_dim, hidden_dim, text_pool, **f)
-    if fusion_type in _NOT_PORTED:
+    if fusion_type in NOT_PORTED:
         raise NotImplementedError(f"fusion_type={fusion_type!r} is not ported yet: ROADMAP Queue 1 item 10")
     raise KeyError(f"unknown fusion_type {fusion_type!r}")

@@ -11,8 +11,11 @@ module.
 The projections and the convolution compute in the module's dtype; ``dt``
 plus ``dt_bias``, the softplus, ``A = -exp(A_log)``, ``D`` and the scan are
 float32 (``dt_bias``, ``A_log`` and ``D`` are float32 parameters in a
-bf16 module too), as flax keeps them. ``VMambaBlock`` waits for the
-``vmamba`` fusion (ROADMAP Queue 1 item 10).
+bf16 module too), as flax keeps them; the trainer keeps them float32 beside
+its bf16 working copies. In training the scan's gradient is the associative
+scan's VJP (``ops/_library.py``), as JAX's custom VJP; the block has no
+dropout. ``VMambaBlock`` waits for the ``vmamba`` fusion (ROADMAP Queue 1
+item 10).
 """
 
 from __future__ import annotations

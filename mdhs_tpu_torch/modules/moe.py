@@ -119,6 +119,7 @@ class MoE(nn.Module):
         # keeps the converter's keys
         self._bank: list | None = None
         self._bank_made_from: tuple = ()
+        self.captured: list | None = None  # each bank layer's input, while a re-grid captures them
 
     def _stack(self) -> list[tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
         return [(torch.stack([l.grid for l in bank]), torch.stack([l.base_weight for l in bank]),
@@ -157,11 +158,16 @@ class MoE(nn.Module):
     def expert_bank(self, x: torch.Tensor) -> torch.Tensor:
         """(E, B, out) in the module's dtype: one ``kan_forward`` per KAN layer
         over the stacked experts; each layer's output is cast to the module's
-        dtype, as each JAX KANLinear's is."""
+        dtype, as each JAX KANLinear's is. Where ``captured`` is a list, each
+        layer's float32 input ((B, IN) shared by the experts at layer 0, then (E,
+        B, IN)) is appended to it: what the JAX bank sows for the re-gridding."""
         h = x
         order = self.experts[0].layers[0].spline_order
         for grid, base_w, spline_w in self.stacked_layers():
-            h = _ks.kan_forward(h.float().contiguous(), grid, base_w, spline_w, order).to(self.out_dtype)
+            h = h.float().contiguous()
+            if self.captured is not None:
+                self.captured.append(h)
+            h = _ks.kan_forward(h, grid, base_w, spline_w, order).to(self.out_dtype)
         return h
 
     def forward(self, x: torch.Tensor, train: bool = False, generator: Optional[torch.Generator] = None,

@@ -17,10 +17,11 @@ registrations and no other:
 
 There is no composite or catch-all kernel, so a CUDA tensor reaches the
 launch or raises, and a tensor on any other device finds no kernel. The
-kernels are forward only, with no gradient, except ``kan_forward``'s, which
-is its plain version's VJP on either device (ConNexT's training
-differentiates the MoE bank through the kernel's forward; JAX's custom VJP
-recomputes its plain version as well). The public
+kernels are forward only, with no gradient, except ``kan_forward``'s and
+``selective_scan``'s, each a plain version's VJP on either device (ConNexT's
+and the baseline's training differentiate the MoE bank, and the Mamba
+fusion, through the kernels' forwards; JAX's custom VJPs recompute their
+plain versions as well). The public
 wrappers (``ffn_block(...)``, ``attention_block(...)``, ...) keep their
 ``supports()`` gates and argument checks in Python and then call
 ``torch.ops.mdhs.<name>``: the route is decided where the trace runs, as in
@@ -92,7 +93,7 @@ def _int8_attention_launch(*args):
 
 
 def _scan_fake(x, dt, A, B, C, D_skip):
-    return x.new_empty(x.shape, dtype=torch.float32)
+    return x.new_empty(x.shape, dtype=torch.promote_types(x.dtype, torch.float32))
 
 
 def _kan_fake(x, grid, base_w, spline_w, spline_order: int):
@@ -158,3 +159,19 @@ def _kan_backward(ctx, grad):
 
 
 torch.library.register_autograd("mdhs::kan_forward", _kan_backward, setup_context=_kan_setup_context, lib=_LIB)
+
+
+def _scan_setup_context(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _scan_backward(ctx, grad):
+    """The VJP of ``selective_scan_associative`` for all six inputs:
+    ``mdhs_tpu/ops/selective_scan.py::_bwd`` (:145-147), ``jax.vjp`` of
+    ``selective_scan_ref``. The scan is recomputed here from the saved inputs,
+    in plain tensor ops on the forward's device; the forward kept none of it."""
+    _, vjp = torch.func.vjp(_ss.selective_scan_associative, *ctx.saved_tensors)
+    return vjp(grad)
+
+
+torch.library.register_autograd("mdhs::selective_scan", _scan_backward, setup_context=_scan_setup_context, lib=_LIB)

@@ -43,6 +43,7 @@ import torch
 
 from .preprocess import normalize_imagenet
 from .shear import shear_sublane
+from .stain_norm import stain_normalize
 
 SCALE_RANGE = (0.2, 1.0)              # RandomResizedCrop's area fraction
 RATIO_RANGE = (3.0 / 4.0, 4.0 / 3.0)  # and aspect ratio (w / h)
@@ -212,14 +213,19 @@ def apply_color_jitter(x: torch.Tensor, p: ColorJitter) -> torch.Tensor:
 def train_pipeline(images_uint8: torch.Tensor, generator: torch.Generator, out_size: int = 224, *,
                    degrees: float = 15.0, vflip: bool = False, dtype: torch.dtype = torch.bfloat16,
                    params: CropFlipRotate | None = None, color_jitter: bool = False,
-                   jitter: ColorJitter | None = None, normalize: bool = False) -> torch.Tensor:
+                   jitter: ColorJitter | None = None, normalize: bool = False,
+                   stain: tuple | None = None) -> torch.Tensor:
     """uint8 canvases (B, S, S, 3) -> the model's input: NCHW in ``channels_last``
     memory, cast to ``dtype``, as ``ops/preprocess.py::eval_pipeline`` hands it.
-    Crop, flips and rotation (by default the MIBF mode's degrees 15 and no vflip),
+    The stain normalisation to ``stain`` = (target mean, target std) where given
+    (``ops/stain_norm.py``, on the whole canvas, as ``trainer.py:419-421``), then
+    crop, flips and rotation (by default the MIBF mode's degrees 15 and no vflip),
     then the colour jitter where ``color_jitter``, then ImageNet normalisation
     where ``normalize``. ``params`` and ``jitter`` replace the draws from
     ``generator`` with given values."""
     x = images_uint8.to(torch.float32) / 255.0
+    if stain is not None:
+        x = stain_normalize(x, *stain)
     if params is None:
         params = sample_crop_flip_rotate(x.shape[0], x.shape[1], generator, vflip=vflip, degrees=degrees)
     x = apply_crop_flip_rotate(x, params, out_size, degrees)

@@ -21,7 +21,16 @@ tensor the op launches the kernel (``launch_selective_scan``) and raises if
 it cannot; for a CPU tensor it returns ``selective_scan_reference``, the
 sequential loop in the kernel's order (not the JAX package's associative
 scan). Its ``launches`` attribute counts calls that launched the kernel.
-Eval only: no backward (the training path adds one).
+
+Its gradient (``ops/_library.py``) is the VJP of
+``selective_scan_associative``, the port of ``selective_scan_ref``: the
+recurrence as a log-depth associative scan over L with
+``jax.lax.associative_scan``'s odd-even recursion, as the JAX custom VJP
+(``mdhs_tpu/ops/selective_scan.py:131-148``) differentiates it, not the
+sequential loop. The backward recomputes that scan from the forward's
+inputs: nothing of it is kept from the forward, whose (B, L, D, N) float32
+intermediates are about 103 MB each at (64, 49, 512, 16). It runs as plain
+tensor ops on the forward's device, as JAX's backward runs XLA ops.
 """
 
 from __future__ import annotations
@@ -30,7 +39,8 @@ import torch
 
 from . import _build
 
-__all__ = ["launch_selective_scan", "selective_scan", "selective_scan_reference", "supports"]
+__all__ = ["launch_selective_scan", "selective_scan", "selective_scan_associative", "selective_scan_reference",
+           "supports"]
 
 MAX_STATE = 128  # a group of 8 threads, 16 states each (csrc/selective_scan.cu)
 
@@ -44,9 +54,16 @@ def supports(x_shape, n_state: int, dtype: torch.dtype) -> bool:
     return 1 <= batch <= 65535 and L >= 1 and D >= 1 and 1 <= n_state <= MAX_STATE
 
 
+def _compute_dtype(x: torch.Tensor) -> torch.dtype:
+    """float32, or float64 where the input is (a gradient check's)."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 def selective_scan_reference(x, dt, A, B, C, D_skip) -> torch.Tensor:
-    """Plain PyTorch version: the recurrence step by step in float32."""
-    x, dt, A, B, C, D_skip = (t.float() for t in (x, dt, A, B, C, D_skip))
+    """Plain PyTorch version: the recurrence step by step in float32 (float64
+    for float64 inputs)."""
+    f = _compute_dtype(x)
+    x, dt, A, B, C, D_skip = (t.to(f) for t in (x, dt, A, B, C, D_skip))
     batch, L, D = x.shape
     h = x.new_zeros((batch, D, A.shape[1]))
     ys = []
@@ -56,6 +73,48 @@ def selective_scan_reference(x, dt, A, B, C, D_skip) -> torch.Tensor:
         h = decay * h + drive
         ys.append((h * C[:, t, None, :]).sum(-1) + D_skip * x[:, t])
     return torch.stack(ys, dim=1)
+
+
+def _interleave(even: torch.Tensor, odd: torch.Tensor) -> torch.Tensor:
+    """Along dim 1: even[0], odd[0], even[1], ...; ``even`` has as many rows as
+    ``odd`` or one more."""
+    n = odd.shape[1]
+    pairs = torch.stack([even[:, :n], odd], dim=2).flatten(1, 2)
+    return pairs if even.shape[1] == n else torch.cat([pairs, even[:, n:]], dim=1)
+
+
+def _combine(left, right):
+    """(a_l, b_l) then (a_r, b_r): h -> a_r (a_l h + b_l) + b_r."""
+    (a_l, b_l), (a_r, b_r) = left, right
+    return a_r * a_l, a_r * b_l + b_r
+
+
+def _associative_scan(a: torch.Tensor, b: torch.Tensor):
+    """Inclusive scan of ``_combine`` over dim 1, ``jax.lax.associative_scan``'s
+    recursion: pairs combined, the half scanned, the even rows made from it."""
+    n = a.shape[1]
+    if n < 2:
+        return a, b
+    oa, ob = _associative_scan(*_combine((a[:, 0:-1:2], b[:, 0:-1:2]), (a[:, 1::2], b[:, 1::2])))
+    if n % 2 == 0:
+        ea, eb = _combine((oa[:, :-1], ob[:, :-1]), (a[:, 2::2], b[:, 2::2]))
+    else:
+        ea, eb = _combine((oa, ob), (a[:, 2::2], b[:, 2::2]))
+    ea, eb = torch.cat([a[:, :1], ea], dim=1), torch.cat([b[:, :1], eb], dim=1)
+    return _interleave(ea, oa), _interleave(eb, ob)
+
+
+def selective_scan_associative(x, dt, A, B, C, D_skip) -> torch.Tensor:
+    """``mdhs_tpu/ops/selective_scan.py::selective_scan_ref`` (:41-68): da =
+    exp(dt A), db = dt x B as (batch, L, D, N), their associative scan over L,
+    y = <h, C> + D_skip x; float32 (float64 for float64 inputs). The plain
+    version the op's backward differentiates."""
+    f = _compute_dtype(x)
+    x, dt, A, B, C, D_skip = (t.to(f) for t in (x, dt, A, B, C, D_skip))
+    da = torch.exp(dt[..., None] * A[None, None])
+    db = (dt * x)[..., None] * B[:, :, None, :]
+    _, h = _associative_scan(da, db)
+    return torch.einsum("bldn,bln->bld", h, C) + x * D_skip[None, None]
 
 
 def selective_scan(x, dt, A, B, C, D_skip) -> torch.Tensor:

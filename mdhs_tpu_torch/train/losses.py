@@ -1,13 +1,13 @@
-"""Losses of the MIBF training step, computed in float32.
+"""Losses of the training step, computed in float32.
 
-Counterpart of ``mdhs_tpu/train/losses.py:28-176``: ``cross_entropy`` (its
-mean reduction) with torch ``CrossEntropyLoss`` semantics (label smoothing,
-class weights with the weighted-mean normalisation) plus a 0/1
-``sample_mask`` that drops the padded tail rows of a short last batch; ``masked_mean``; ``kl_divergence``;
+Counterpart of ``mdhs_tpu/train/losses.py:28-176``: ``cross_entropy`` with
+torch ``CrossEntropyLoss`` semantics (label smoothing, class weights with the
+weighted-mean normalisation; the mean, or ``reduction="none"`` per row) plus
+a 0/1 ``sample_mask`` that drops the padded tail rows of a short last batch;
+``masked_mean``; the baseline family's ``focal_loss`` and ``supcon_loss``
+and the ``LOSSES`` dispatch by ``training.loss.type``; ``kl_divergence``;
 ``mp_loss`` (MIBF's MP-Loss: 0.3 CE_image + 0.6 CE_text + 1.1 mean(exp(symKL)
 CE_joint)); ``mibf_loss`` in its three modes; ``compute_class_weights``.
-The baseline family's focal and supervised-contrastive losses wait for that
-family (ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -44,9 +44,11 @@ def cross_entropy(
     label_smoothing: float = 0.0,
     class_weights: Optional[torch.Tensor] = None,
     sample_mask: Optional[torch.Tensor] = None,
+    reduction: str = "mean",
 ) -> torch.Tensor:
     """The mean loss; with class weights normalised by the sum of the kept
-    rows' weights, as torch's CrossEntropyLoss(weight=...)."""
+    rows' weights, as torch's CrossEntropyLoss(weight=...). ``reduction="none"``:
+    each row's loss (times its class weight and its mask)."""
     logits = logits.float()
     num_classes = logits.shape[-1]
     logp = torch.log_softmax(logits, dim=-1)
@@ -54,12 +56,58 @@ def cross_entropy(
     if label_smoothing > 0:
         targets = targets * (1.0 - label_smoothing) + label_smoothing / num_classes
     per_sample = -(targets * logp).sum(dim=-1)
+    if reduction not in ("mean", "none"):
+        raise ValueError(f"reduction={reduction!r}: expected 'mean' or 'none'")
     if class_weights is not None:
         w = class_weights.float()[labels.long()]
         if sample_mask is not None:
             w = w * sample_mask.float()
+        if reduction == "none":
+            return per_sample * w
         return (per_sample * w).sum() / torch.clamp(w.sum(), min=1e-8)
+    if reduction == "none":
+        return per_sample if sample_mask is None else per_sample * sample_mask.float()
     return masked_mean(per_sample, sample_mask)
+
+
+def ce_loss(logits, labels, *, label_smoothing: float = 0.02, class_weights=None, sample_mask=None,
+            **_) -> torch.Tensor:
+    """``training.loss.type: ce``: cross-entropy with label smoothing (0.02 by default)."""
+    return cross_entropy(logits, labels, label_smoothing=label_smoothing, class_weights=class_weights,
+                         sample_mask=sample_mask)
+
+
+def focal_loss(logits, labels, *, gamma: float = 2.0, class_weights=None, sample_mask=None, **_) -> torch.Tensor:
+    """``training.loss.type: focal``: the mean over the kept rows of (1 - pt)^gamma
+    CE, with pt = exp(-CE) of the class-weighted, unsmoothed CE (``losses.py:102-108``)."""
+    ce = cross_entropy(logits, labels, class_weights=class_weights, reduction="none")
+    pt = torch.exp(-ce)
+    return masked_mean(((1.0 - pt) ** gamma) * ce, sample_mask)
+
+
+LOSSES = {"ce": ce_loss, "focal": focal_loss}
+
+
+def supcon_loss(features: torch.Tensor, labels: torch.Tensor, temperature: float = 0.07,
+                sample_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Supervised contrastive loss (``losses.py:111-137``): cosine logits over
+    ``temperature``, less their row max (no gradient through it); each row's
+    mean log-probability of its same-label rows against all other rows.
+    ``sample_mask`` removes padded rows from the positives and the denominator."""
+    f = features.float()
+    f = f / (torch.linalg.vector_norm(f, dim=1, keepdim=True) + 1e-12)
+    logits = f @ f.T / temperature
+    logits = logits - logits.max(dim=1, keepdim=True).values.detach()
+    labels = labels.reshape(-1, 1)
+    n = logits.shape[0]
+    eye = torch.eye(n, dtype=torch.float32, device=logits.device)
+    valid = torch.ones(n, device=logits.device) if sample_mask is None else sample_mask.float()
+    pair_valid = valid[:, None] * valid[None, :]
+    mask = (labels == labels.T).float() * (1.0 - eye) * pair_valid
+    exp_logits = torch.exp(logits) * (1.0 - eye) * pair_valid
+    log_prob = logits - torch.log(exp_logits.sum(dim=1, keepdim=True) + 1e-8)
+    mean_log_prob_pos = (mask * log_prob).sum(dim=1) / (mask.sum(dim=1) + 1e-8)
+    return -(mean_log_prob_pos * valid).sum() / torch.clamp(valid.sum(), min=1.0)
 
 
 def kl_divergence(p: torch.Tensor, q: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:

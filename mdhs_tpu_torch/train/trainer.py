@@ -1,22 +1,29 @@
-"""Training on one device: MIBF-Net and ConNexT, from a config or a preset.
+"""Training on one device: the baseline family, MIBF-Net and ConNexT, from a
+config or a preset.
 
-Counterpart of ``mdhs_tpu/train/trainer.py::Trainer`` for the ``mibf`` and
-``connext`` families: the constructor (:167-297: loaders, class weights, the
-schedule over ``len(train_loader)``, the run directory, metric writer and
-top-3 checkpoints, pretrained towers, ``training.resume_from``),
-``train_step`` (its ``train_step_fn``, :654-691), ``validate`` and
-``log_validation_report`` (:752-846) and ``fit`` (:1216-1289). The baseline
-family raises (ROADMAP Queue 1 item 10).
+Counterpart of ``mdhs_tpu/train/trainer.py::Trainer``: the constructor
+(:167-297: loaders, class weights, the loss configuration, the schedule over
+``len(train_loader)``, the run directory, metric writer and top-3
+checkpoints, pretrained towers, ``training.resume_from``), ``train_step``
+(its ``train_step_fn`` and ``_loss_fn``, :594-691), ``validate`` and
+``log_validation_report`` (:752-846), the KAN re-gridding ``_kan_regrid``
+(:856-952) and ``fit`` (:1216-1289). ``check_trainable`` raises, before
+anything is built, for what is not ported yet, naming its ROADMAP item.
 
 A step takes a host batch of numpy arrays as ``data/loader.py`` yields it
 (``image`` uint8 (B, S, S, 3), ``input_ids``, ``attention_mask``, ``label``,
 optional ``n_valid``), copies it to the device through pinned staging
 buffers, augments on the device (``ops/augment.py``: crop, flips, the 3-shear
-rotation through the ``shear_sublane`` kernel; for ConNexT colour jitter and
-ImageNet normalisation too), runs the training forward, the family's loss
-with the ``n_valid`` row mask (MIBF: MP-Loss, ``model.loss_class``; ConNexT:
-cross-entropy with the class weights, no smoothing, plus
-``model.moe.balance_weight`` times the MoE's balance loss), the backward, the
+rotation through the ``shear_sublane`` kernel; for the baseline and ConNexT
+colour jitter and ImageNet normalisation too; ``data.stain_normalization``
+before the crop, ``ops/stain_norm.py``), runs the training forward, the
+family's loss with the ``n_valid`` row mask (MIBF: MP-Loss,
+``model.loss_class``; ConNexT: cross-entropy with the class weights, no
+smoothing; the baseline: ``training.loss`` (``ce`` with its label smoothing
+or ``focal``) with the class weights, and the supervised contrastive loss of
+``training.supcon``, which replaces it in the ``pretrain`` stage and is added
+times ``weight`` in ``finetune``; for the MoE heads of both, plus
+``model.moe.balance_weight`` times the balance loss), the backward, the
 optimizer update and the BatchNorm running-statistics update. Loss and
 accuracy stay on the device until a logging point reads them.
 
@@ -26,7 +33,9 @@ updates float32 master copies of its weights, which are copied back into the
 module after each step. BatchNorm, the KAN layers and the MoE gate keep
 float32 parameters inside the bf16 module, as the served models do (a
 momentum-0.1 update in bf16 would lose most of its digits; the KAN kernel is
-float32). ``torch.autocast`` is not used: it would leave BERT's residual
+float32), and so do the GroupKAN activations' coefficients and Mamba's
+``dt_bias``, ``A_log`` and ``D``, which the JAX modules use in float32
+arithmetic. ``torch.autocast`` is not used: it would leave BERT's residual
 stream in float32, and the eval kernels of ``validate`` want bf16.
 
 Random streams: dropout draws from torch's default generators, which the
@@ -36,9 +45,21 @@ from the same seed. The JAX package draws from other PRNGs
 (``trainer.py:655-662`` records that no parity surface depends on which), so
 parity tests hand both packages the same augmentation values and gating
 noise. ``last.pt`` keeps all of their states, the loader's shuffle, the step,
-the float32 masters and the optimizer state, so that a run resumed from it
-(``training.resume_from``) goes on with the schedule and the streams where
-they stopped; the JAX Trainer's resume reloads the weights only.
+the float32 masters, the optimizer state and the run's configuration, so that
+a run resumed from it (``training.resume_from``) goes on with the schedule
+and the streams where they stopped. A ``last.pt`` written under another
+configuration (the SupCon recipe's stage 1 for its stage 2,
+``configs/ham/ham_supcon_stage2_v1.yml``) gives its weights only, with a
+fresh schedule and optimizer, as the JAX Trainer's resume always does
+(:294-296). Which keys make a run its own: ``RUN_KEYS``.
+
+KAN re-gridding (``training.kan_update_grid_every``) runs every that many
+steps on the step's batch: one eval-mode forward captures each KAN layer's
+input (a forward hook on each ``KANLinear``; for an MoE bank, the inputs of
+each of its layers, per expert), and ``modules/kan.py::kan_update_grid``
+refits each layer's grid and spline weights on the host, as JAX does;
+the float32 weights are written in place, so the masters, the optimizer
+state and ``MoE.stacked_layers``' kept stack follow.
 
 Deviations from the JAX Trainer, each named where it applies: the run
 directory holds ``config.json`` (``Config.save_json``) where JAX writes
@@ -59,6 +80,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import json
 import logging
 import os
 import time
@@ -76,16 +98,17 @@ from ..data.datasets import DatasetOptions, MultimodalDataset
 from ..data.loader import DataLoader
 from ..data.tokenizer import load_tokenizer
 from ..device import resolve_device
-from ..models import FAMILIES, build_model
+from ..models import FAMILIES, build_model, model_config
 from ..models.bert import BertConfig
 from ..models.init import init_parameters
 from ..models.mibf import MIBFNet
-from ..modules.kan import KANLinear
+from ..modules.kan import GroupKANLinear, KANLinear, kan_update_grid
+from ..modules.mamba import MambaBlock
 from ..modules.moe import MoE
 from ..ops.augment import ColorJitter, CropFlipRotate, train_pipeline
 from ..ops.preprocess import eval_pipeline
 from ..utils.logging import MetricWriter, setup_logging, setup_run_dir
-from .losses import compute_class_weights, cross_entropy, mibf_loss
+from .losses import LOSSES, compute_class_weights, cross_entropy, mibf_loss, supcon_loss
 from .metrics import classification_report, correct_count, masked_accuracy
 from .optim import make_optimizer, make_schedule, set_learning_rate
 
@@ -93,7 +116,7 @@ log = logging.getLogger(__name__)
 
 _PRECISIONS = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
                "f32": torch.float32, "fp32": torch.float32, "float32": torch.float32}
-TRAINED_FAMILIES = ("mibf", "connext")
+TRAINED_FAMILIES = ("baseline", "mibf", "connext")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,7 +124,12 @@ class TrainPreset:
     """A resolved training configuration: the numbers the trainer reads.
     ``family`` "mibf" takes MP-Loss (``loss_class``) and no jitter or
     normalisation; "connext" cross-entropy plus ``balance_weight`` times the
-    MoE balance loss, colour jitter and ImageNet normalisation."""
+    MoE balance loss, colour jitter and ImageNet normalisation; "baseline"
+    ``loss_type`` ("ce" with ``label_smoothing``, or "focal" with
+    ``focal_gamma``), the SupCon loss in ``supcon_stage`` ("pretrain",
+    "finetune" or None), the MoE head's balance loss, jitter and
+    normalisation. ``stain`` is (target mean, target std) of the stain
+    normalisation, or None."""
 
     bert: BertConfig
     num_labels: int
@@ -124,6 +152,14 @@ class TrainPreset:
     color_jitter: bool = False
     normalize: bool = False
     balance_weight: float = 0.01
+    loss_type: str = "ce"
+    label_smoothing: float = 0.02
+    focal_gamma: float = 2.0
+    supcon_stage: Optional[str] = None
+    supcon_temperature: float = 0.07
+    supcon_weight: float = 0.1
+    stain: Optional[tuple] = None
+    ablation_mode: Optional[str] = None
 
 
 # configs/mibf/mibf_ham.yml over configs/common/base.yml: 7 labels, batch 32,
@@ -143,6 +179,9 @@ def preset_from_config(cfg: Config, family: str, bert: BertConfig) -> TrainPrese
     t = cfg.get("training", {})
     aug = cfg.get("data.augment", {}) or {}
     mibf = family == "mibf"
+    loss = t.get("loss", {}) or {}
+    sc = t.get("supcon", {}) or {}
+    stain = cfg.get("data.stain_normalization", {}) or {}
     return TrainPreset(
         bert=bert, num_labels=int(cfg.get("model.num_classes", 6 if mibf else 7)),
         batch_size=int(t.get("batch_size", 32)), seq_len=int(cfg.get("tokenizer.max_length", 128)),
@@ -155,25 +194,52 @@ def preset_from_config(cfg: Config, family: str, bert: BertConfig) -> TrainPrese
         precision=str(t.get("precision", "bf16") or "bf16"), seed=int(t.get("seed", 0)), family=family,
         color_jitter=bool(aug.get("color_jitter", not mibf)), normalize=not mibf,
         balance_weight=float(cfg.get("model.moe.balance_weight", 0.01)),
+        loss_type=str(loss.get("type", "ce")).lower(), label_smoothing=float(loss.get("label_smoothing", 0.02)),
+        focal_gamma=float(loss.get("focal_gamma", 2.0)),
+        supcon_stage=str(sc.get("stage", "finetune")) if sc.get("enabled", False) else None,
+        supcon_temperature=float(sc.get("temperature", 0.07)), supcon_weight=float(sc.get("weight", 0.1)),
+        stain=(tuple(map(float, stain.get("target_mean", (150.0, 140.0, 140.0)))),
+               tuple(map(float, stain.get("target_std", (20.0, 20.0, 20.0))))) if stain.get("enabled") else None,
+        ablation_mode=cfg.get("model.ablation_mode") if family == "baseline" else None,
+    )
+
+
+def dataset_options(cfg: Config, family: str, split: str) -> DatasetOptions:
+    """``trainer.py:299-343``'s dataset options for ``split``."""
+    d = cfg.get("data")
+    return DatasetOptions(
+        max_length=cfg.get("tokenizer.max_length", 128),
+        tabular_enabled=bool(cfg.get("model.tabular.enabled", False)),
+        extra_image_dirs=tuple(d.get("extra_image_dirs", []) or []),
+        pseudo_2p5d=bool(d.get("pseudo_2p5d.enabled", False)),
+        sequence=bool(d.get("sequence.enabled", False)),
+        multi_view=bool(d.get("multi_view.enabled", False)),
+        clean_cjk_text=family == "mibf",
+        canvas=int(cfg.get("data.canvas", 256)),
+        llm_hidden_json=d.get(f"{split}_llm_hidden_json") or d.get("llm_hidden_json"),
+        cache=bool(d.get("cache", True)),
     )
 
 
 def check_trainable(cfg: Config, family: str) -> None:
-    """Raise for what the port does not train yet, before anything is built."""
-    if family == "baseline":
-        raise NotImplementedError("training the baseline family is not ported yet: ROADMAP Queue 1 item 10")
+    """Raise for what the port does not train yet, before anything is built:
+    the host augmentation, Muon and the other data modes (the dataset's own
+    check), ``parallel.n_model`` > 1, and for the baseline family the model's
+    own check (the other fusions, the gate, sequence, tabular and global/local
+    branches), each naming its ROADMAP item."""
     if family not in FAMILIES:
         raise ValueError(f"unknown model family: {family}")
-    if (cfg.get("data.stain_normalization", {}) or {}).get("enabled", False):
-        raise NotImplementedError("data.stain_normalization is not ported yet: ROADMAP Queue 1 item 10")
     if (cfg.get("data.augment", {}) or {}).get("host", False):
         raise NotImplementedError("data.augment.host (the host augmentation) is not ported yet: "
                                   "ROADMAP Queue 1 item 8")
-    if int(cfg.get("training.kan_update_grid_every", 0) or 0) > 0:
-        raise NotImplementedError("training.kan_update_grid_every (KAN re-gridding) is not ported yet: "
-                                  "ROADMAP Queue 1 item 10")
+    if str(cfg.get("training.optimizer", "Adam")).lower() == "muon":
+        raise NotImplementedError("the Muon optimizer is not ported yet: ROADMAP Queue 1 item 8")
     if int(cfg.get("parallel.n_model", 1)) > 1:
         raise NotImplementedError("parallel.n_model > 1 is not ported yet: ROADMAP Queue 1 item 12")
+    if cfg.get("data") is not None:
+        dataset_options(cfg, family, "train").check_ported()
+    if family == "baseline":
+        model_config(cfg, family, 30522).check_ported()  # any vocabulary: the check reads none
     flatten = cfg.get("training.flatten_optimizer", False)
     if flatten not in (False, True, "bucketed"):
         raise ValueError(f"training.flatten_optimizer must be false, true, or 'bucketed'; got {flatten!r}")
@@ -181,21 +247,31 @@ def check_trainable(cfg: Config, family: str) -> None:
 
 _INPUTS = {"image": torch.uint8, "input_ids": torch.int64, "attention_mask": torch.int64,
            "label": torch.int64}
-_FLOAT32_MODULES = (nn.BatchNorm2d, KANLinear, MoE)  # float32 parameters inside a bf16 module
+# float32 parameters inside a bf16 module: every one of these modules' own, and Mamba's named ones
+_FLOAT32_MODULES = (nn.BatchNorm2d, KANLinear, MoE, GroupKANLinear)
+_FLOAT32_MAMBA = ("dt_bias", "A_log", "D")
+# the configuration that makes a run its own: a last.pt written under another loads its weights only
+RUN_KEYS = ("model", "training")
+_RUN_KEYS_FREE = ("resume_from", "num_epochs", "log_every", "log_per_class", "profile", "early_stopping")
+
+
+def _keeps_float32(m: nn.Module, name: str) -> bool:
+    return isinstance(m, _FLOAT32_MODULES) or (isinstance(m, MambaBlock) and name in _FLOAT32_MAMBA)
 
 
 def _split_precision(model: nn.Module, dtype: torch.dtype) -> list[tuple[torch.Tensor, torch.Tensor]]:
-    """Cast every parameter outside BatchNorm, the KAN layers and the MoE gate to
-    ``dtype`` in place (and the KAN layers' and the MoE's output dtype to it, as
-    in a module built in ``dtype``); return (working parameter, float32 master)
-    pairs in ``model.parameters()`` order, the master being the parameter itself
-    where nothing was cast."""
+    """Cast every parameter outside BatchNorm, the KAN layers, the MoE gate, the
+    GroupKAN activations and Mamba's float32 ones to ``dtype`` in place (and the
+    KAN layers' and the MoE's output dtype to it, as in a module built in
+    ``dtype``); return (working parameter, float32 master) pairs in
+    ``model.parameters()`` order, the master being the parameter itself where
+    nothing was cast."""
     pairs = []
     for m in model.modules():
         if isinstance(m, (KANLinear, MoE)):
             m.out_dtype = dtype
-        for p in m.parameters(recurse=False):
-            if isinstance(m, _FLOAT32_MODULES) or p.dtype == dtype:
+        for name, p in m.named_parameters(recurse=False):
+            if _keeps_float32(m, name) or p.dtype == dtype:
                 pairs.append((p, p))
                 continue
             master = p.detach().float().requires_grad_()  # the weights as they came, float32
@@ -205,8 +281,8 @@ def _split_precision(model: nn.Module, dtype: torch.dtype) -> list[tuple[torch.T
 
 
 class Trainer:
-    """Training of the ``mibf`` and ``connext`` families: ``train_step``,
-    ``validate`` and ``fit``.
+    """Training of the ``baseline``, ``mibf`` and ``connext`` families:
+    ``train_step``, ``validate`` and ``fit``.
 
     ``Trainer(cfg, family, output_dir=None, device="cuda", setup_data=True)``
     builds the family's model from a ``Config`` (seeded random weights, then
@@ -244,7 +320,8 @@ class Trainer:
                 model = init_parameters(build_model(cfg, self.family, self.tokenizer, device=self.device,
                                                     dtype=torch.float32),
                                         torch.Generator(device=self.device).manual_seed(int(cfg.get("training.seed", 0))))
-            preset = preset_from_config(cfg, self.family, model.text_encoder.bert.cfg)
+            text = model.text_encoder
+            preset = preset_from_config(cfg, self.family, (text.model if self.family == "baseline" else text.bert).cfg)
             if cfg.get("training.class_weight") == "balanced" and self.train_loader is not None:
                 self.class_weights = torch.from_numpy(
                     compute_class_weights(self.train_loader.dataset.labels, preset.num_labels)).to(self.device)
@@ -253,7 +330,7 @@ class Trainer:
         if preset.precision.lower() not in _PRECISIONS:
             raise ValueError(f"precision={preset.precision!r}: expected one of {sorted(_PRECISIONS)}")
         if preset.family not in TRAINED_FAMILIES:
-            raise NotImplementedError(f"training family {preset.family!r}: ROADMAP Queue 1 item 10")
+            raise ValueError(f"unknown training family {preset.family!r}")
         self.preset = preset
         self.dtype = _PRECISIONS[preset.precision.lower()]
         torch.manual_seed(preset.seed)  # dropout masks come from torch's default generators
@@ -300,20 +377,8 @@ class Trainer:
         image_dir = d.get(f"{split}_image_dir")
         if image_dir is None:
             return None
-        opts = DatasetOptions(
-            max_length=cfg.get("tokenizer.max_length", 128),
-            tabular_enabled=bool(cfg.get("model.tabular.enabled", False)),
-            extra_image_dirs=tuple(d.get("extra_image_dirs", []) or []),
-            pseudo_2p5d=bool(d.get("pseudo_2p5d.enabled", False)),
-            sequence=bool(d.get("sequence.enabled", False)),
-            multi_view=bool(d.get("multi_view.enabled", False)),
-            clean_cjk_text=self.family == "mibf",
-            canvas=int(cfg.get("data.canvas", 256)),
-            llm_hidden_json=d.get(f"{split}_llm_hidden_json") or d.get("llm_hidden_json"),
-            cache=bool(d.get("cache", True)),
-        )
         ds = MultimodalDataset(image_dir, d.get(f"{split}_json_path"), d.get(f"{split}_label_csv"), self.tokenizer,
-                               opts)
+                               dataset_options(cfg, self.family, split))
         is_train = split == "train"
         return DataLoader(ds, batch_size=int(cfg.get("training.batch_size", 32)), shuffle=is_train,
                           weighted=is_train and cfg.get("training.sampler") == "weighted",
@@ -373,7 +438,19 @@ class Trainer:
             rng["cuda"] = torch.cuda.get_rng_state(self.device)
         loader = self.train_loader._rng.bit_generator.state if self.train_loader is not None else None
         return {"epoch": self.epoch, "step": self.step, "optimizer": self.optimizer.state_dict(), "rng": rng,
-                "loader": loader, "best_val": self._best_val, "es_bad": self._es_bad}
+                "loader": loader, "best_val": self._best_val, "es_bad": self._es_bad, "run": self.run_identity()}
+
+    def run_identity(self) -> Optional[str]:
+        """The configuration that makes this run its own: ``RUN_KEYS`` with the
+        keys a resume may change (``training.resume_from``, ``num_epochs``, the
+        logging, profiling and early-stopping knobs) left out, and the family;
+        None for a preset-driven trainer."""
+        if self.cfg is None:
+            return None
+        d = self.cfg.to_dict()
+        keep = {k: d.get(k) or {} for k in RUN_KEYS}
+        keep["training"] = {k: v for k, v in keep["training"].items() if k not in _RUN_KEYS_FREE}
+        return json.dumps({"family": self.family, **keep}, sort_keys=True, default=str)
 
     def last_state(self) -> dict:
         """``last.pt``'s contents: a checkpoint and what a resume needs under ``resume``."""
@@ -405,10 +482,16 @@ class Trainer:
     def _restore(self, path: str) -> None:
         """Step, epoch, optimizer, generators and the loader's shuffle from ``last.pt``
         (the weights were loaded before the masters were made). A file without
-        them (a best checkpoint, a JAX or reference file) gave its weights only."""
+        them (a best checkpoint, a JAX or reference file), or a ``last.pt`` of a
+        run under another configuration (``run_identity``), gave its weights only:
+        the schedule and the optimizer start afresh."""
         state = {} if is_flax_msgpack(path) else torch.load(path, map_location="cpu", weights_only=True)
         r = state.get("resume") if isinstance(state, dict) else None
         if r is None:
+            return
+        if r.get("run") is not None and r["run"] != self.run_identity():
+            log.info("%s was written under another configuration: its weights only, a fresh schedule and "
+                     "optimizer", path)
             return
         self.optimizer.load_state_dict(r["optimizer"])
         self.step, self.epoch = int(r["step"]), int(r["epoch"])
@@ -462,38 +545,69 @@ class Trainer:
         p = self.preset
         return train_pipeline(images_uint8, self.generator, p.image_size, degrees=p.degrees, vflip=p.vflip,
                               dtype=self.dtype, params=params, color_jitter=p.color_jitter, jitter=jitter,
-                              normalize=p.normalize)
+                              normalize=p.normalize, stain=p.stain)
 
     def criterion(self, out, labels: torch.Tensor, valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """The family's loss (``trainer.py:550-567``): MIBF's MP-Loss family on its
-        three heads; ConNexT's cross-entropy with the class weights and no smoothing."""
+        """The family's criterion, which validation uses too (``trainer.py:550-568``):
+        MIBF's MP-Loss family on its three heads; ConNexT's cross-entropy with the
+        class weights and no smoothing; the baseline's ``training.loss`` (focal, or
+        cross-entropy with its label smoothing) with the class weights."""
+        p = self.preset
         if self.family == "mibf":
-            return mibf_loss(out, labels, self.preset.loss_class, sample_mask=valid)
-        return cross_entropy(out, labels, class_weights=self.class_weights, sample_mask=valid)
+            return mibf_loss(out, labels, p.loss_class, sample_mask=valid)
+        if self.family == "connext":
+            return cross_entropy(out, labels, class_weights=self.class_weights, sample_mask=valid)
+        return LOSSES["focal" if p.loss_type == "focal" else "ce"](
+            out, labels, label_smoothing=p.label_smoothing, gamma=p.focal_gamma, class_weights=self.class_weights,
+            sample_mask=valid)
+
+    def training_loss(self, out, feats, labels: torch.Tensor, valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The criterion, or for the baseline under ``training.supcon`` (``trainer.py:608-615``)
+        the SupCon loss of the fused feature in its place (``pretrain``) or added
+        ``weight`` times (``finetune``)."""
+        p = self.preset
+        if feats is None or p.supcon_stage not in ("pretrain", "finetune"):
+            return self.criterion(out, labels, valid)
+        supcon = supcon_loss(feats, labels, p.supcon_temperature, sample_mask=valid)
+        if p.supcon_stage == "pretrain":
+            return supcon
+        return self.criterion(out, labels, valid) + p.supcon_weight * supcon
 
     def _forward(self, images, dev, train: bool, noise=None):
-        """(what the criterion takes, the joint logits, the balance loss or None)."""
+        """(what the criterion takes, the joint logits, the balance loss or None,
+        the baseline's fused feature in training or None)."""
+        ids, mask = dev["input_ids"], dev["attention_mask"]
         if self.family == "mibf":
-            out = self.model(images, dev["input_ids"], dev["attention_mask"])
-            return out, out["image_text"], None
-        logits, balance = self.model(images, dev["input_ids"], dev["attention_mask"], train=train,
-                                     generator=self.gating_generator if train else None, noise=noise)
-        return logits, logits, balance
+            out = self.model(images, ids, mask)
+            return out, out["image_text"], None, None
+        gen = self.gating_generator if train else None
+        if self.family == "baseline":
+            if not train:
+                logits = self.model(images, ids, mask, self.preset.ablation_mode)
+                return logits, logits, None, None
+            feats, logits, balance = self.model.features_and_logits(images, ids, mask, self.preset.ablation_mode,
+                                                                    generator=gen, noise=noise)
+            return logits, logits, balance, feats
+        logits, balance = self.model(images, ids, mask, train=train, generator=gen, noise=noise)
+        return logits, logits, balance, None
 
     def forward_backward(self, images: torch.Tensor, dev: dict, valid: Optional[torch.Tensor] = None,
                          noise: Optional[torch.Tensor] = None):
         """Training-mode forward, the loss, and its gradients into the working
         module; returns (loss, outputs), both detached: MIBF's three heads, or
-        ConNexT's ``logits`` and ``balance``. ``noise`` replaces ConNexT's gating draw."""
+        the ``logits`` and, with an MoE head, the ``balance`` loss. ``noise``
+        replaces the MoE's gating draw."""
         self.model.train()
         self.model.zero_grad(set_to_none=True)
-        out, logits, balance = self._forward(images, dev, True, noise)
-        loss = self.criterion(out, dev["label"], valid)
+        out, logits, balance, feats = self._forward(images, dev, True, noise)
+        loss = self.training_loss(out, feats, dev["label"], valid)
         if balance is not None:
             loss = loss + self.preset.balance_weight * balance
         loss.backward()
-        if balance is None:
+        if self.family == "mibf":
             return loss.detach(), {k: v.detach() for k, v in out.items()}
+        if balance is None:
+            return loss.detach(), {"logits": logits.detach()}
         return loss.detach(), {"logits": logits.detach(), "balance": balance.detach()}
 
     def optimizer_step(self) -> None:
@@ -534,7 +648,7 @@ class Trainer:
                 n = dev["label"].shape[0]
                 valid = self.valid_mask(batch, n)
                 images = eval_pipeline(dev["image"], p.image_size, normalize=p.normalize, dtype=self.dtype)
-                out, logits, _ = self._forward(images, dev, False)
+                out, logits, _, _ = self._forward(images, dev, False)
                 total_loss += self.criterion(out, dev["label"], valid)
                 correct += correct_count(logits, dev["label"], valid)
                 nv = int(batch.get("n_valid", n))
@@ -577,6 +691,72 @@ class Trainer:
                 self.writer.scalar(f"per_class/{metric}_{names[i]}", v, epoch)
         return rep
 
+    # ------------------------------------------------------------------ KAN re-gridding
+    def _kan_inputs(self, batch: dict) -> dict:
+        """One eval-mode forward of ``batch`` (eval preprocessing, clean gating, no
+        gradients), capturing each KAN layer's float32 input: {KANLinear: (n, IN)}
+        for the layers outside a bank (a forward pre-hook, as JAX's ``intermediates``
+        sow them), {MoE: [each bank layer's input]} for the banks (``MoE.captured``)."""
+        banks = [m for m in self.model.modules() if isinstance(m, MoE)]
+        in_bank = {id(layer) for moe in banks for e in moe.experts for layer in e.layers}
+        got: dict = {}
+
+        def keep(mod, args):
+            got[mod] = args[0].reshape(-1, mod.in_features).float()
+
+        hooks = [m.register_forward_pre_hook(keep) for m in self.model.modules()
+                 if isinstance(m, KANLinear) and id(m) not in in_bank]
+        for moe in banks:
+            moe.captured = got[moe] = []
+        self.model.eval()
+        try:
+            with torch.inference_mode():
+                dev = self.to_device(batch)
+                images = eval_pipeline(dev["image"], self.preset.image_size, normalize=self.preset.normalize,
+                                       dtype=self.dtype)
+                self._forward(images, dev, False)
+        finally:
+            for h in hooks:
+                h.remove()
+            for moe in banks:
+                moe.captured = None
+            self.model.train()
+        return got
+
+    def _kan_regrid(self, batch: dict) -> int:
+        """``trainer.py::_kan_regrid`` (:856-952): every KAN layer's grid moved toward
+        its inputs on ``batch`` and its spline weights refit on the host
+        (``modules/kan.py::kan_update_grid``), each expert of a bank on its own
+        inputs; the float32 weights and grids written in place. Returns the number
+        of layers re-gridded (a bank's layer counts once)."""
+        if not any(isinstance(m, KANLinear) for m in self.model.modules()):
+            return 0
+        got = self._kan_inputs(batch)
+        name_of = {p: n for n, p in self.model.named_parameters()}
+        n = 0
+        with torch.no_grad():
+            for mod, x in got.items():
+                if isinstance(mod, MoE):
+                    for i, h in enumerate(x):
+                        h = h.cpu().numpy()
+                        for e, expert in enumerate(mod.experts):
+                            self._regrid_layer(expert.layers[i], h[e] if h.ndim == 3 else h, name_of)
+                else:
+                    self._regrid_layer(mod, x.cpu().numpy(), name_of)
+                n += len(x) if isinstance(mod, MoE) else 1
+        log.info("re-gridded %d KAN layer(s)", n)
+        return n
+
+    def _regrid_layer(self, layer: KANLinear, x: np.ndarray, name_of: dict) -> None:
+        new_sw, new_grid = kan_update_grid(x, layer.grid.cpu().numpy(), layer.spline_weight.detach().cpu().numpy(),
+                                           layer.spline_scaler.detach().cpu().numpy(), grid_size=layer.grid_size,
+                                           spline_order=layer.spline_order)
+        master = self._master_by_name[name_of[layer.spline_weight]]  # the parameter itself: a float32 island
+        master.copy_(torch.from_numpy(new_sw))
+        if master is not layer.spline_weight:
+            layer.spline_weight.copy_(master)
+        layer.grid.copy_(torch.from_numpy(new_grid))
+
     # ------------------------------------------------------------------ the epoch loop
     def _opt(self, key: str, default):
         return self.cfg.get(key, default) if self.cfg is not None else default
@@ -593,7 +773,9 @@ class Trainer:
         ``LearningRate`` each epoch; the per-class report under
         ``training.log_per_class``), offers each epoch to the top-3
         checkpoints, saves ``last.pt``, and stops early under
-        ``training.early_stopping``. Returns one record an epoch."""
+        ``training.early_stopping``. Every ``training.kan_update_grid_every``
+        steps it re-grids the KAN layers on the step's batch. Returns one record
+        an epoch."""
         train_batches = self.train_loader if train_batches is None else train_batches
         val_batches = self.val_loader if val_batches is None else val_batches
         if steps_per_epoch is None:
@@ -608,6 +790,7 @@ class Trainer:
         prof_cfg = self._opt("training.profile", {}) or {}
         prof_steps = int(prof_cfg.get("steps", 20)) if prof_cfg.get("enabled") and self.output_dir else 0
         prof = self._start_profile() if prof_steps else None
+        regrid_every = int(self._opt("training.kan_update_grid_every", 0) or 0)
         history = []
         for epoch in range(self.epoch, num_epochs):
             t0 = time.perf_counter()
@@ -620,6 +803,8 @@ class Trainer:
                     prof = self._stop_profile(prof)
                 if self.writer is not None and self.step % log_every == 0:
                     self.writer.scalar("Loss/Train_Batch", float(m["loss"]), self.step)
+                if regrid_every and self.step % regrid_every == 0:
+                    self._kan_regrid(batch)
             train_losses = torch.stack(losses).tolist() if losses else []
             val_loss, val_acc, kept = self._val_pass(val_batches, per_class) if val_batches is not None \
                 else (0.0, 0.0, [])

@@ -1,6 +1,7 @@
 """MultimodalBaselineModel of mdhs_tpu_torch against the JAX package's, on the
-CPU in float32, in the three configurations the port serves: multiscale +
-mlp, mamba + mlp (the selective scan) and multiscale + moe (the KAN bank).
+CPU in float32: multiscale + mlp, mamba + mlp (the selective scan),
+multiscale + moe (the KAN bank), and multiscale with base.yml's ``kan``
+head, ``residual`` and ``attention_pooling``.
 
 Weights come from the JAX ``init`` with every bias, LayerNorm/BatchNorm
 affine and running statistic, ``A_log``, ``dt_bias``, ``D`` and KAN spline
@@ -42,7 +43,8 @@ REPO = Path(__file__).resolve().parent.parent
 BERT = dict(vocab_size=128, hidden_size=32, num_hidden_layers=2, num_attention_heads=4, intermediate_size=64,
             max_position_embeddings=64, hidden_dropout=0.0, attention_dropout=0.0)
 B, S, L = 2, 64, 10
-CONFIGS = [("multiscale", "mlp"), ("mamba", "mlp"), ("multiscale", "moe")]
+CONFIGS = [("multiscale", "mlp"), ("mamba", "mlp"), ("multiscale", "moe"), ("multiscale", "kan"),
+           ("multiscale", "residual"), ("multiscale", "attention_pooling")]
 
 
 def _cfg(module, fusion, head):
@@ -76,8 +78,10 @@ def _perturb(tree, seed):
         name = path[-1].key
         if name in ("bias", "conv1d_bias", "dt_bias", "mean"):
             return (a + rng.uniform(-0.1, 0.1, a.shape)).astype(np.float32)
-        if name in ("scale", "var", "D", "spline_scaler"):
+        if name in ("scale", "var", "D", "spline_scaler", "act_base"):
             return (a * rng.uniform(0.8, 1.2, a.shape)).astype(np.float32)
+        if name == "act_coeff":
+            return (a + rng.standard_normal(a.shape) * 0.3).astype(np.float32)
         if name == "A_log":
             return (a + rng.uniform(-0.3, 0.3, a.shape)).astype(np.float32)
         if name == "w_gate":
@@ -131,6 +135,22 @@ def test_convert_roundtrip_is_bit_exact():
             assert b.dtype == a.dtype and b.shape == a.shape and np.array_equal(a, b), path
     # and the port's state_dict holds nothing else
     assert set(baseline_state_dict_from_jax(params, stats)) == set(sd)
+
+
+def test_convert_roundtrip_of_the_residual_head_is_bit_exact():
+    """multiscale + residual: the names convert_baseline_full's _convert_head reads
+    (classifier.project, classifier.res_block.{linear1,linear2,norm},
+    classifier.classifier) give every leaf back bit for bit."""
+    _, var, model = pair("multiscale", "residual")
+    sd = {k: v.numpy() for k, v in model.state_dict().items() if not k.endswith(".num_batches_tracked")}
+    params, stats = convert_baseline_full(sd, "multiscale", "residual", "resnet18", BERT["num_hidden_layers"])
+    for want, got in ((var["params"], params), (var["batch_stats"], stats)):
+        want_leaves = jax.tree_util.tree_flatten_with_path(want)[0]
+        got_leaves = dict(jax.tree_util.tree_flatten_with_path(got)[0])
+        assert {p for p, _ in want_leaves} == set(got_leaves)
+        for path, a in want_leaves:
+            assert np.array_equal(a, got_leaves[path]), path
+    assert set(baseline_state_dict_from_jax(params, stats, classifier_type="residual")) == set(sd)
 
 
 def test_kan_bank_layout_is_the_converters():
@@ -212,7 +232,7 @@ def test_baseline_config_mirrors_the_jax_fields():
     ("gate_enabled", True, "gate"), ("sequence_enabled", True, "sequence"), ("tabular_enabled", True, "tabular"),
     ("global_local_enabled", True, "global/local"), ("remat", "full", "item 8"),
     ("fusion_type", "basic", "item 10"), ("fusion_type", "vmamba", "item 10"), ("fusion_type", "hierarchical", "item 10"),
-    ("classifier_type", "kan", "item 10"), ("classifier_type", "residual", "item 10"),
+    ("fusion_type", "concat", "item 10"), ("fusion_type", "bilinear", "item 10"),
     ("image_backbone", "mamba_vision_T", "item 11"),
 ])
 def test_unported_options_raise(field, value, match):

@@ -1453,3 +1453,71 @@ def test_run_predict_on_the_card_matches_the_cpu_plain_path(dev, tmp_path, famil
     assert np.isfinite(out["cuda"]["logits"]).all() and out["cuda"]["logits"].shape == (6, 7)
     assert d.max() <= 0.15 and d.mean() < 0.01, (d.max(), d.mean())
     assert out["cuda"]["image_ids"] == out["cpu"]["image_ids"] == names
+
+
+# --------------------------------------------------------------------------- the baseline family's training
+def test_selective_scan_gradient_on_the_card_matches_the_cpu(dev):
+    """The op's forward launches the kernel once, and its backward (the associative
+    scan's VJP, plain ops on the card) gives the CPU's six gradients within 1e-4 of
+    each one's max |cpu|."""
+    args = _scan_args(np.random.default_rng(7), 8, 49, 64, 16, dev)
+    g = torch.randn((8, 49, 64), generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    leaves = [a.clone().requires_grad_() for a in args]
+    n = ss.selective_scan.launches
+    ss.selective_scan(*leaves).backward(g)
+    torch.cuda.synchronize()
+    assert ss.selective_scan.launches == n + 1
+    cpu = [a.detach().cpu().requires_grad_() for a in args]
+    ss.selective_scan(*cpu).backward(g.cpu())
+    for leaf, ref in zip(leaves, cpu):
+        _close_f32(leaf.grad.cpu(), ref.grad)
+
+
+def test_stain_normalize_on_the_card_matches_the_cpu_and_makes_no_host_copy(dev):
+    from mdhs_tpu_torch.ops.stain_norm import stain_normalize
+
+    x = torch.rand((4, 64, 48, 3), generator=torch.Generator().manual_seed(3))
+    ref = stain_normalize(x)
+    xd = x.to(dev)
+    stain_normalize(xd)  # the constants are made once per device, here
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = stain_normalize(xd)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert float((out.cpu() - ref).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("fusion, head, kernel, per_step", [("mamba", "mlp", "selective_scan", 1),
+                                                            ("multiscale", "moe", "kan_forward", 2),
+                                                            ("multiscale", "kan", None, 0)])
+def test_baseline_trainer_step_launches_its_kernels(dev, fusion, head, kernel, per_step):
+    """A baseline step launches the three shears and the fusion's scan or the MoE
+    bank's two layers (the backward takes the plain VJPs, no kernel)."""
+    import dataclasses as dc
+
+    from mdhs_tpu_torch.train.trainer import MIBF_HAM_TRAIN, Trainer
+
+    bert = BertConfig(vocab_size=512, num_hidden_layers=1, intermediate_size=512, max_position_embeddings=128)
+    preset = dc.replace(MIBF_HAM_TRAIN, bert=bert, batch_size=4, seq_len=40, canvas=72, image_size=64,
+                        family="baseline", degrees=45.0, vflip=True, color_jitter=True, normalize=True,
+                        stain=((150.0, 140.0, 140.0), (20.0, 20.0, 20.0)))
+    cfg = BaselineConfig(hidden_dim=32, num_heads=4, fusion_type=fusion, classifier_type=head, bert=bert)
+    model = init_parameters(MultimodalBaselineModel(cfg, device=dev), torch.Generator(device=dev).manual_seed(0))
+    trainer = Trainer(preset, model=model, device=dev)
+    rng = np.random.default_rng(2)
+    batch = {"image": rng.integers(0, 256, (4, 72, 72, 3), dtype=np.uint8),
+             "input_ids": rng.integers(0, 512, (4, 40)), "attention_mask": np.ones((4, 40), np.int64),
+             "label": rng.integers(0, 7, 4), "n_valid": np.int32(3)}
+    launches = {k: m.launches for k, m in (("shear", sh.shear_sublane), ("selective_scan", ss.selective_scan),
+                                           ("kan_forward", ks.kan_forward))}
+    m = trainer.train_step(batch)
+    torch.cuda.synchronize()
+    got = {k: mod.launches - launches[k] for k, mod in (("shear", sh.shear_sublane),
+                                                        ("selective_scan", ss.selective_scan),
+                                                        ("kan_forward", ks.kan_forward))}
+    want = {"shear": 3, "selective_scan": 0, "kan_forward": 0}
+    if kernel:
+        want[kernel] = per_step
+    assert got == want and bool(torch.isfinite(m["loss"]))

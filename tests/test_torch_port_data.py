@@ -42,7 +42,8 @@ from mdhs_tpu_torch.train import metrics as tmetrics
 REPO = Path(__file__).resolve().parent.parent
 YAMLS = sorted(str(p.relative_to(REPO)) for p in (REPO / "configs").rglob("*.yml"))
 RESOLVED = {"mibf_ham.json": "configs/mibf/mibf_ham.yml", "mibf_ham_serving.json": "configs/serving/mibf_ham_serving.yml",
-            "ham_fusion_ssm_v1.json": "configs/ham/ham_fusion_ssm_v1.yml",
+            "ham_fusion_ssm_v1.json": "configs/ham/ham_fusion_ssm_v1.yml", "ham_base.json": "configs/common/base.yml",
+            "ham_head_moe_v1.json": "configs/ham/ham_head_moe_v1.yml",
             "connext_ham.json": "configs/connext/connext_ham.yml"}
 
 

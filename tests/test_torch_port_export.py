@@ -3,7 +3,8 @@
 - (a) each of the eight ``torch.ops.mdhs`` ops passes ``torch.library.opcheck``
   at small shapes, and its CPU kernel is its plain version bit for bit;
 - (b) MIBF exact, MIBF int8 with ``fast_math``, MIBF under "flash", the
-  baseline's ``mamba`` + ``mlp`` and ``multiscale`` + ``moe`` and a pico
+  baseline's ``mamba`` + ``mlp``, ``multiscale`` + ``moe`` and ``multiscale`` +
+  ``kan`` (base.yml's GroupKAN head, plain tensor ops) and a pico
   ConNexT with the MoE head (one narrow BERT layer, a 64^2 crop): the live
   ``ServingModel``'s ``ServeFunction`` exported, written, loaded with
   ``ServingModel.load``, and its logits equal to the live ones bit for bit, on
@@ -116,6 +117,7 @@ MODELS = {
     "mibf_flash": (lambda: _mibf(dataclasses.replace(TINY_BERT, attention_impl="flash")), "mibf", 128, ()),
     "mamba_mlp": (lambda: _baseline("mamba", "mlp"), "baseline", SEQ, ()),
     "multiscale_moe": (lambda: _baseline("multiscale", "moe"), "baseline", SEQ, texport.TTA),
+    "multiscale_kan": (lambda: _baseline("multiscale", "kan"), "baseline", SEQ, ()),  # base.yml's GroupKAN head
     "connext_moe": (_connext, "connext", SEQ, ()),
 }
 

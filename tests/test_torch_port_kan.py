@@ -224,7 +224,7 @@ def test_moe_head_matches_jax(moe_pair):
     with torch.no_grad():
         out = head(T(x))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-5, rtol=0)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="generator"):  # in training the gating noise needs its generator
         head.train()(T(x))
 
 

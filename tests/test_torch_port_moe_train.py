@@ -314,3 +314,22 @@ def test_connext_fit_writes_the_run_and_its_kernels_path(connext_pair, tmp_path)
     index = json.load(open(tmp_path / "checkpoints.json"))
     assert 1 <= len(index) <= 3 and index == sorted(index, key=lambda e: -e["metric"])
     assert (tmp_path / "last.pt").exists()
+
+
+def test_connext_kan_regrid_matches_the_jax_trainer(connext_pair):
+    """training.kan_update_grid_every reaches ConNexT's bank by the baseline's code:
+    Trainer._kan_regrid on one batch against the JAX Trainer's on the same weights,
+    each expert's grid and spline weight within 1e-3 of max |ref| (the inputs come
+    through the whole eval forward; tests/test_torch_port_baseline_train.py holds
+    the refit itself to 1e-4 on equal inputs)."""
+    jt, pt = connext_pair["jax"], connext_pair["port"]
+    carry_weights(jt, pt, jt.state.params, connext_pair["root"])
+    batch = next(iter(pt.train_loader))
+    jt._kan_regrid(jax_batch(batch))
+    assert pt._kan_regrid(batch) == 2
+    want = _jax_state_dict(jt)
+    got = pt.state_dict()
+    names = [k for k in got if k.startswith("moe.experts.") and k.rsplit(".", 1)[1] in ("grid", "spline_weight")]
+    assert len(names) == 4 * 2 * 2
+    for k in names:
+        _close(got[k].detach().numpy(), want[k].numpy(), 1e-3)

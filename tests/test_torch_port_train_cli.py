@@ -460,9 +460,9 @@ def test_run_train_then_predict_and_resume(tmp_path, monkeypatch):
 
 # --------------------------------------------------------------------------- refusals
 @pytest.mark.parametrize("overrides, exc, match", [
-    (["data.stain_normalization.enabled=true"], NotImplementedError, "Queue 1 item 10"),
+    (["data.multi_view.enabled=true"], NotImplementedError, "Queue 1 item 10"),
     (["data.augment.host=true"], NotImplementedError, "Queue 1 item 8"),
-    (["training.kan_update_grid_every=5"], NotImplementedError, "Queue 1 item 10"),
+    (["model.tabular.enabled=true"], NotImplementedError, "Queue 1 item 10"),
     (["training.flatten_optimizer=sideways"], ValueError, "flatten_optimizer"),
     (["training.optimizer=Muon"], NotImplementedError, "Queue 1 item 8"),
     (["parallel.n_model=2"], NotImplementedError, "Queue 1 item 12"),
@@ -476,11 +476,16 @@ def test_unported_training_options_raise(tmp_path, overrides, exc, match):
         trun_train.main(["--config", path, "--family", "mibf", "--device", "cpu", *sets])
 
 
-def test_run_train_refuses_the_baseline_family_and_a_multi_process_launch(monkeypatch):
+def test_run_train_refuses_the_baseline_family_and_a_multi_process_launch(monkeypatch, tmp_path):
+    """The baseline family trains (tests/test_torch_port_baseline_train.py); what it
+    still lacks, here a fusion, raises before anything is built, as a multi-process
+    launch does."""
+    path = str(tmp_path / "c.json")
+    Config({"model": {"fusion_type": "concat"}}).save_json(path)
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        trun_train.main(["--config", "never_read.json", "--family", "baseline", "--device", "cpu"])
+        trun_train.main(["--config", path, "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        Trainer(Config({}), "baseline", device="cpu")
+        Trainer(Config({"model": {"fusion_type": "concat"}}), "baseline", device="cpu")
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
         trun_train.main(["--config", "never_read.json", "--family", "mibf", "--device", "cpu"])
