@@ -318,6 +318,30 @@ Phases, each printing JSON lines:
               family defaulting to baseline) over it, 12 + 12 launches, within
               SLICE_ATOL / SLICE_MEAN of the trainer's eval forward (bit-equal
               reported)
+ 17. spine    (last) seeded numbered slices p{k:03d}_slice_{i:03d}.png, gray /
+              RGB / RGBA, with gaps for both neighbour fallbacks, descriptions, a
+              6-class label CSV and a HAM-style metadata CSV; run_train of
+              spine_sequence_lstm_v1.json at batch 64 x 5 slices (ResNet18 over
+              320 images a step, BERT-base at seq 128, the bidirectional LSTM):
+              3 steps and a validation batch, shear_sublane 3 a step (N = 320),
+              attention_block and ffn_block 12; the (64, 5) stack's augmentation
+              bit for bit against the plain shear and a step against the same
+              step on it (BASELINE_TRAIN_LOSS_REL, BASELINE_TRAIN_GRAD_COS);
+              step ms by part, device ms, busy share, records/s and slices/s; the
+              LSTM's bf16 loop against cuDNN's nn.LSTM, each against the float32
+              loop. The seven branch configurations (gate, global/local,
+              multi-view, sequence transformer, pseudo-2.5D, HAM gate, HAM
+              tabular) and the HAM gate with the MoE head served at batch 32 on
+              their own datasets' records: 12 + 12 launches a forward (4
+              kan_forward with the MoE head), the logits against BERT's two
+              sublayers on their plain versions within BF16_STEPS of the
+              largest logit, mean within CONNEXT_LOGIT_MEAN of it and under
+              SLICE_MEAN; with the MoE head, kan_forward alone on its plain
+              version, as phase baseline holds it (BF16_STEPS, BF16_MEAN of
+              the largest logit); sync_free, CUDA-event and device ms. ham_tabular_v1
+              trained 2 steps, exported with its tabular input at batch 64,
+              loaded by ServingModel.load: launches and logits as the live
+              model's bit for bit, run_serve's CSV run_predict's
 Every device breakdown (device_profile) comes from a trace checked to hold
 whole calls: a census of one call against two names the kernels every call
 launches, and a trace that lost a record of one is taken again; the census,
@@ -339,6 +363,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import cProfile
 import dataclasses
 import gc
@@ -365,6 +390,8 @@ from mdhs_tpu_torch.core.checkpoint import TopKCheckpointManager, load_torch_fil
 from mdhs_tpu_torch.core.config import load_config
 from mdhs_tpu_torch.data import datasets as cli_data
 from mdhs_tpu_torch.data import png
+from mdhs_tpu_torch.data.loader import DataLoader
+from mdhs_tpu_torch.data.tokenizer import load_tokenizer
 from mdhs_tpu_torch.diagnostics import attention_ablate as diag
 from mdhs_tpu_torch.diagnostics import trace
 from mdhs_tpu_torch.models import build_model
@@ -1134,9 +1161,12 @@ def _kernel_cases(dev, rng, seed):
     # 49 / 82 at 45 degrees, ConNexT's at batch 32 and the baseline family's at batch 64 (inputs of
     # their own, so that the cases after them keep theirs)
     b64 = np.random.default_rng([seed, 64])
+    b320 = np.random.default_rng([seed, 320])  # the Spine sequence's 64 x 5 slices, a batch of 320
     for B, pad, deg, axis, r in ((BATCH, 17, 15.0, "w", rng), (BATCH, 31, 15.0, "h", rng),
                                  (BATCH, 49, 45.0, "w", rng), (BATCH, 82, 45.0, "h", rng),
-                                 (BASELINE_BATCH, 49, 45.0, "w", b64), (BASELINE_BATCH, 82, 45.0, "h", b64)):
+                                 (BASELINE_BATCH, 49, 45.0, "w", b64), (BASELINE_BATCH, 82, 45.0, "h", b64),
+                                 (SPINE_BATCH * SPINE_T, 49, 45.0, "w", b320),
+                                 (SPINE_BATCH * SPINE_T, 82, 45.0, "h", b320)):
         args, library = _shear_case(r, B, pad, deg, axis, dev)
         x = args[0]
         cases.append(("shear_sublane", f"x={tuple(x.shape)},pad={pad}", sh.shear_reference, args, pad == 17,
@@ -3388,6 +3418,361 @@ def phase_export(dev, seed: int, made: dict) -> dict:
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the Spine configurations and the baseline's branches (gate, sequence encoder,
+# tabular, global/local) with the dataset's stacked modes, trained, served and exported
+SPINE_DIR = REPO / "mdhs_tpu_torch" / "build" / "spine_smoke"  # git-ignored; removed when the phase ends
+SPINE_PATIENTS, SPINE_SLICES, SPINE_H, SPINE_W = 60, 8, 288, 320
+SPINE_LABELS, SPINE_BATCH, SPINE_T, SPINE_SERVE_BATCH = 6, 64, 5, 32
+SPINE_WORDS = ("lumbar", "disc", "herniation", "stenosis", "foramen", "degeneration", "L4-L5", "L5-S1", "signal",
+               "bulging", "canal", "nerve", "root", "compression", "vertebral", "endplate", "modic", "sagittal",
+               "T2-weighted", "facet", "hypertrophy", "mild", "moderate", "severe", "spondylolisthesis")
+SPINE_MODES = ("L", "RGB", "RGBA")
+# the served configurations: (config, classifier override or None, the launches a forward besides BERT's
+# 12 + 12). base.yml's "kan" head is GroupKAN, which launches no kernel; the gate with the MoE head
+# (ham_head_moe_v1's) puts kan_forward on a gated path: two classifier calls of two bank layers
+SPINE_SERVED = (("spine_gate_entropy_v1", None, {}), ("spine_global_local_v1", None, {}),
+                ("spine_multi_view_v1", None, {}), ("spine_sequence_transformer_v1", None, {}),
+                ("spine_pseudo25d_v1", None, {}), ("ham_gate_entropy_v1", None, {}), ("ham_tabular_v1", None, {}),
+                ("ham_gate_entropy_v1", "moe", {"kan_forward": 4}))
+
+
+def _spine_slice(rng, mode: str) -> np.ndarray:
+    """A seeded 288 x 320 MR-like sagittal slice: a dark field, a bright vertebral column of
+    blocks, pixel noise; gray, RGB or RGBA."""
+    yy, xx = np.mgrid[0:SPINE_H, 0:SPINE_W].astype(np.float32)
+    img = 20.0 + 10.0 * np.sin(xx / rng.uniform(20, 40))
+    cx = rng.uniform(0.4, 0.6) * SPINE_W
+    for k in range(5):
+        cy = (k + 0.5) * SPINE_H / 5 + rng.normal(0, 4)
+        img += 150.0 * np.exp(-(((yy - cy) / 22.0) ** 4 + ((xx - cx) / 40.0) ** 4))
+    img = np.clip(img + rng.normal(0, 8, img.shape), 0, 255).astype(np.uint8)
+    if mode == "L":
+        return img
+    rgb = np.stack([img, np.clip(img * 0.95, 0, 255), np.clip(img * 0.9 + 5, 0, 255)], axis=-1).astype(np.uint8)
+    if mode == "RGB":
+        return rgb
+    return np.concatenate([rgb, rng.integers(128, 256, (SPINE_H, SPINE_W, 1), dtype=np.uint8)], axis=-1)
+
+
+def _spine_inputs(seed: int) -> dict:
+    """SPINE_PATIENTS patients of SPINE_SLICES numbered slices, p{k:03d}_slice_{i:03d}.png, gray, RGB
+    and RGBA in turns, with gaps: every fifth patient lacks slice 6 (its neighbours fall back to the
+    centre slice) and every seventh has slice 3 under the reference-intent name p{k:03d}_slice_3.png
+    (found before the padded one). The records are slices 2-5 of each patient (231): 192 train,
+    the next 39 val; a JSON of their descriptions, a 6-class label CSV, and a HAM-style metadata
+    CSV (lesion_id,image_id,dx,dx_type,age,sex,localization) with missing ages, "unknown" and
+    empty categories, and three records it does not list (their vectors zero)."""
+    rng = np.random.default_rng([seed, 50])
+    img_dir = SPINE_DIR / "images"
+    img_dir.mkdir(parents=True, exist_ok=True)
+    records, gaps = [], {"centre_fallback": 0, "reference_name": 0}
+    for k in range(SPINE_PATIENTS):
+        for i in range(SPINE_SLICES):
+            if k % 5 == 0 and i == 6:
+                gaps["centre_fallback"] += 1
+                continue
+            name = f"p{k:03d}_slice_{i}.png" if (k % 7 == 0 and i == 3) else f"p{k:03d}_slice_{i:03d}.png"
+            gaps["reference_name"] += name.endswith("_3.png")
+            png.write_png(str(img_dir / name), _spine_slice(rng, SPINE_MODES[(k + i) % 3]))
+        records += [f"p{k:03d}_slice_{i:03d}.png" for i in range(2, 6) if not (k % 7 == 0 and i == 3)]
+    descriptions = [{"image_info": r, "description": " ".join(rng.choice(SPINE_WORDS, int(rng.integers(10, 120))))}
+                    for r in records]
+    (SPINE_DIR / "descriptions.json").write_text(json.dumps(descriptions))
+    labels = {r: int(rng.integers(0, SPINE_LABELS)) for r in records}
+    n_train = 192
+    csvs = {"train": records[:n_train], "train128": records[:128], "val": records[n_train:]}
+    paths = {}
+    for split, rows in csvs.items():
+        paths[split] = str(SPINE_DIR / f"labels_{split}.csv")
+        Path(paths[split]).write_text("image_id,label\n" + "".join(f"{r},{labels[r]}\n" for r in rows))
+    sex, site = ("male", "female", "unknown", ""), ("back", "lower extremity", "trunk", "unknown", "", "scalp")
+    meta = ["lesion_id,image_id,dx,dx_type,age,sex,localization"]
+    for j, r in enumerate(records[:-3]):
+        age = "" if j % 9 == 0 else str(int(rng.integers(20, 90)))
+        meta.append(f"L{j:05d},{r[:-4]},nv,histo,{age},{sex[j % 4]},{site[j % 6]}")
+    (SPINE_DIR / "metadata.csv").write_text("\n".join(meta) + "\n")
+    return {"image_dir": str(img_dir), "json_path": str(SPINE_DIR / "descriptions.json"), "label_csv": paths,
+            "metadata_csv": str(SPINE_DIR / "metadata.csv"), "records": records, "gaps": gaps}
+
+
+def _spine_config(name: str, inputs: dict, train: str = "train", **sets) -> str:
+    """mdhs_tpu_torch/configs/<name>.json on the phase's data, with ``sets`` (dotted keys), as JSON; its path."""
+    cfg = load_config(REPO / "mdhs_tpu_torch" / "configs" / f"{name}.json")
+    for key, val in (("data.train_image_dir", inputs["image_dir"]), ("data.train_json_path", inputs["json_path"]),
+                     ("data.train_label_csv", inputs["label_csv"][train]), ("data.val_image_dir", inputs["image_dir"]),
+                     ("data.val_json_path", inputs["json_path"]), ("data.val_label_csv", inputs["label_csv"]["val"]),
+                     ("data.test_image_dir", inputs["image_dir"]), ("data.test_json_path", inputs["json_path"]),
+                     ("data.test_label_csv", inputs["label_csv"]["val"]),
+                     ("data.metadata_csv", inputs["metadata_csv"]), ("output.log_dir", str(SPINE_DIR / "runs")),
+                     ("training.log_every", 1), *sets.items()):
+        cfg.set(key.replace("__", "."), val)
+    path = SPINE_DIR / f"{name}_{len(list(SPINE_DIR.glob('*.json')))}.json"
+    cfg.save_json(path)
+    return str(path)
+
+
+def _rnn_routes(model, dev) -> dict:
+    """The trained LSTM at its full-width shape, (64, 5, 256) -> 2 x 256: the port's loop (flax's
+    rounding order) and cuDNN's nn.LSTM on the same weights (its input biases zero), each in bf16
+    against the loop in float32; max and mean |d| and CUDA-event ms of each."""
+    rnn = model.sequence_encoder.rnn
+    x = torch.randn((SPINE_BATCH, SPINE_T, rnn.hidden_size), generator=torch.Generator(device=dev).manual_seed(5),
+                    device=dev)
+    ref_rnn = copy.deepcopy(rnn).float()
+    lstm = nn.LSTM(rnn.hidden_size, rnn.hidden_size, batch_first=True, bidirectional=True, device=dev,
+                   dtype=torch.bfloat16)
+    with torch.no_grad():
+        for name, p in lstm.named_parameters():
+            p.copy_(getattr(rnn, name) if hasattr(rnn, name) else torch.zeros_like(p))
+    out = {}
+    with torch.inference_mode():
+        ref = ref_rnn(x)
+        bf = x.to(torch.bfloat16)
+        for route, fn in (("loop_bf16", lambda: rnn(bf)), ("cudnn_lstm_bf16", lambda: lstm(bf)[0])):
+            y = fn().float()
+            out[route] = {"max_abs_vs_float32_loop": (y - ref).abs().max().item(),
+                          "mean_abs_vs_float32_loop": (y - ref).abs().mean().item(), "ms": cuda_ms(fn)}
+        out["loop_float32_ms"] = cuda_ms(lambda: ref_rnn(x))
+    return out
+
+
+def _spine_train(dev, inputs: dict, seed: int) -> tuple[dict, dict]:
+    """run_train on spine_sequence_lstm_v1.json at full width (batch 64 x 5 slices, 320 images a
+    step through ResNet18, BERT-base at seq 128, the LSTM, multiscale fusion, MLP head): one epoch
+    of 3 steps and a validation pass; then, on the trainer it returns, the augmentation of the
+    (64, 5) stack through shear_sublane against the plain shear bit for bit, a step against the same
+    step on the plain shear, step parts, rates, the device, and the LSTM's two routes."""
+    layers = BertConfig().num_hidden_layers
+    cfg = _spine_config("spine_sequence_lstm_v1", inputs, training__num_epochs=1)
+    zero_counts()
+    t0 = time.perf_counter()
+    trainer = run_train.main(["--config", cfg, "--device", "cuda"])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = read_counts()
+    want = {**dict.fromkeys(KERNELS, 0), "shear_sublane": 3 * 3, "attention_block": layers, "ffn_block": layers}
+    check(launches == want and trainer.step == 3, f"spine train launches {launches}, expected {want}")
+    files = _run_files(trainer.output_dir)
+    losses = [r["value"] for r in map(json.loads, Path(trainer.output_dir, "metrics.jsonl").read_text().splitlines())
+              if r["tag"] == "Loss/Train_Batch"]
+    check(len(losses) == 3 and all(np.isfinite(losses)), f"spine train losses {losses}")
+    batches = list(trainer.train_loader)
+    b0 = batches[0]
+    check(b0["image"].shape == (SPINE_BATCH, SPINE_T, CANVAS, CANVAS, 3), f"spine batch {b0['image'].shape}")
+    # the (64, 5) stack's augmentation, one draw over its 320 images: the kernel against the plain shear
+    dev_b = trainer.to_device(b0)
+    valid = trainer.valid_mask(b0, SPINE_BATCH)
+    n_img = SPINE_BATCH * SPINE_T
+    p = aug.sample_crop_flip_rotate(n_img, CANVAS, trainer.generator, vflip=True, degrees=45.0)
+    j = aug.sample_color_jitter(n_img, trainer.generator)
+    with torch.no_grad():
+        zero_counts()
+        x_kernel = trainer.augment(dev_b["image"], params=p, jitter=j)
+        aug_launches = read_counts()["shear_sublane"]
+        with _plain_op(aug, "shear_sublane", sh.shear_reference):
+            x_plain = trainer.augment(dev_b["image"], params=p, jitter=j)
+    aug_d = diff(x_kernel, x_plain)
+    check(aug_d[0] == 0.0 and aug_launches == 3 and x_kernel.shape == (SPINE_BATCH, SPINE_T, 3, 224, 224),
+          f"spine augmentation kernel vs plain: {aug_d}, {aug_launches} shears, {tuple(x_kernel.shape)}")
+    groups = {"sequence_encoder": list(trainer.model.sequence_encoder.parameters()),
+              "text_encoder": list(trainer.model.text_encoder.parameters())}
+    step = {}
+    for which, x in (("kernel", x_kernel), ("plain", x_plain)):
+        torch.manual_seed(seed)
+        loss, _ = trainer.forward_backward(x, dev_b, valid)
+        step[which] = (loss.item(), {k: torch.cat([q.grad.double().flatten() for q in ps]) for k, ps in groups.items()})
+    (loss_k, gk), (loss_p, gp) = step["kernel"], step["plain"]
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    cos = {k: (gk[k] @ gp[k] / (gk[k].norm() * gp[k].norm() + 1e-30)).item() for k in groups}
+    check(rel <= BASELINE_TRAIN_LOSS_REL and all(c >= BASELINE_TRAIN_GRAD_COS for c in cos.values()),
+          f"spine step vs plain shear: loss {loss_k} vs {loss_p}, gradient cosines {cos}")
+    trainer.model.zero_grad(set_to_none=True)
+    parts = _step_parts_ms(trainer, b0, reps=3)
+    records_per_s = _images_per_s(trainer, batches, steps=4)
+    device = device_profile(lambda: trainer.train_step(b0), parts["step_ms"], reps=2, top=10)
+    line = {"config": "spine_sequence_lstm_v1", "records": len(trainer.train_loader.dataset), "run_s": run_s,
+            "launches_run": launches, "losses": losses, "run_files": files["tags"],
+            "augment_kernel_vs_plain_max_abs": aug_d[0], "shear_batch": n_img,
+            "step_vs_plain_shear": {"loss_kernel": loss_k, "loss_plain": loss_p, "loss_rel": rel, "grad_cosine": cos},
+            "step_parts_ms": parts, "event_ms_per_step": parts["step_ms"], "device_ms_per_step": device["kernel_ms"],
+            "busy_share": device["busy_share"], "records_per_s": records_per_s, "slices_per_s": records_per_s * SPINE_T,
+            "device": device, "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+            "lstm_routes": _rnn_routes(trainer.model, dev)}
+    del trainer, batches, x_kernel, x_plain
+    torch.cuda.empty_cache()
+    return line, {"spine_train": launches}
+
+
+def _spine_request(cfg_path: str, n: int) -> tuple[dict, int]:
+    """The first ``n`` test records of a configuration through its own dataset and loader (its
+    stacked mode, its tabular vectors): a serving request, and the tabular width."""
+    cfg = load_config(cfg_path)
+    tok = load_tokenizer_for(cfg)
+    ds = cli_data.MultimodalDataset(cfg.get("data.test_image_dir"), cfg.get("data.test_json_path"),
+                                    cfg.get("data.test_label_csv"), tok,
+                                    cli_data.DatasetOptions.from_config(cfg, "baseline", "test"))
+    batch = next(iter(DataLoader(ds, batch_size=n)))
+    keys = ("image", "input_ids", "attention_mask") + (("tabular",) if "tabular" in batch else ())
+    return {k: np.asarray(batch[k]) for k in keys}, ds.tabular_dim
+
+
+def load_tokenizer_for(cfg):
+    return load_tokenizer(cfg.get("model.text_encoder.model_name"),
+                          vocab_size=cfg.get("model.text_encoder.vocab_size", 30522))
+
+
+def _spine_serve(dev, inputs: dict, seed: int) -> tuple[dict, dict]:
+    """Each SPINE_SERVED configuration at full width (ResNet18, BERT-base at seq 128, hidden 256,
+    bf16, seeded weights) through ServingModel at batch 32 on its own dataset's first 32 test
+    records: launches, the logits against the same weights with BERT's kernels (with the MoE head,
+    kan_forward) routed to their plain versions, CUDA-event and device ms a forward, sync_free."""
+    layers = BertConfig().num_hidden_layers
+    lines, by_path = {}, {}
+    for i, (name, head, extra) in enumerate(SPINE_SERVED):
+        sets = {"model__classifier_type": head} if head else {}
+        cfg_path = _spine_config(name, inputs, **sets)
+        cfg = load_config(cfg_path)
+        req, width = _spine_request(cfg_path, SPINE_SERVE_BATCH)
+        g = torch.Generator(device=dev).manual_seed(seed + 60 + i)
+        model = init_parameters(build_model(cfg, "baseline", load_tokenizer_for(cfg), device=dev,
+                                            dtype=torch.bfloat16, tabular_dim=width), g).eval()
+        if head == "moe":
+            _route_rows_apart(model, req, dev, g)
+        server = ServingModel(model, SPINE_SERVE_BATCH, dev)
+        zero_counts()
+        out = server.predict(req)
+        launches = read_counts()
+        want = {**dict.fromkeys(KERNELS, 0), "attention_block": layers, "ffn_block": layers, **extra}
+        check(launches == want, f"{name} launches {launches}, expected {want}")
+        check(out.shape == (SPINE_SERVE_BATCH, cfg.get("model.num_classes")) and bool(np.isfinite(out).all()),
+              f"{name} logits {out.shape}")
+        # with the MoE head, kan_forward alone on its plain version, BERT's kernels in place, as phase
+        # baseline holds it: the gate reads the same features on both paths, so the rows route alike and
+        # the float32 kernel's ~1e-6 difference flips a bf16 rounding now and then (BF16_STEPS, BF16_MEAN).
+        # Otherwise BERT's two sublayers on their plain versions: bf16 kernels against bf16 ops move every
+        # row's CLS (phase slice), so the logits move together: max |d| within BF16_STEPS of the largest
+        # logit, mean |d| within CONNEXT_LOGIT_MEAN of it (ConNexT's bound for logits that differ in BERT)
+        # and under SLICE_MEAN (the MIBF model bound).
+        if head == "moe":
+            plain_ops, mean_frac = [(ks, "kan_forward", ks.kan_forward_reference)], BF16_MEAN
+        else:
+            plain_ops = [(ab, "attention_block", ab.attention_block_reference),
+                         (fb, "ffn_block", fb.ffn_block_reference)]
+            mean_frac = CONNEXT_LOGIT_MEAN
+        with contextlib.ExitStack() as stack:
+            for module, op, plain in plain_ops:
+                stack.enter_context(_plain_op(module, op, plain))
+            zero_counts()
+            ref = server.predict(req)
+            plain_counts = read_counts()
+        routed = [op for _, op, _ in plain_ops]
+        check(all(plain_counts[op] == 0 for op in routed) and
+              all(plain_counts[k] == launches[k] for k in KERNELS if k not in routed),
+              f"{name}: launches {plain_counts} with {routed} on their plain versions")
+        lmax, lmean = diff(torch.from_numpy(out), torch.from_numpy(ref))
+        scale = float(np.abs(ref).max())
+        bound = BF16_STEPS * scale
+        mean_bound = min(SLICE_MEAN, mean_frac * scale)
+        check(lmax <= bound and lmean <= mean_bound,
+              f"{name} logits kernels vs plain {routed}: max {lmax} (bound {bound}) mean {lmean} "
+              f"(bound {mean_bound}), max |logit| {scale}")
+        dev_in = [torch.from_numpy(req[k]).to(dev, dt) for k, dt in server.inputs.items()]
+        with torch.inference_mode():
+            fwd = lambda: server.fn(*dev_in)  # noqa: E731
+            forward_ms = cuda_ms(fwd, reps=10)
+            device = device_profile(fwd, forward_ms, top=6)
+        key = f"{name}+{head}" if head else name
+        lines[key] = {"image": list(req["image"].shape), "tabular_width": width, "launches": launches,
+                      "logits_vs_plain": {"plain": routed, "max_abs": lmax, "mean_abs": lmean, "max_abs_logit": scale,
+                                          "max_abs_over_max_logit": lmax / scale, "max_abs_bound": bound,
+                                          "mean_abs_bound": mean_bound},
+                      "sync_free": sync_free_call(fwd), "forward_ms_b32": forward_ms,
+                      "device_ms_b32": device["kernel_ms"], "device": device}
+        by_path[f"spine_serve_{key}"] = launches
+        del model, server
+        torch.cuda.empty_cache()
+    return lines, by_path
+
+
+def _spine_export(dev, inputs: dict) -> tuple[dict, dict]:
+    """ham_tabular_v1 trained 2 steps by run_train (128 records, batch 64), exported with its tabular
+    input by cli/export_serving.py at the configuration's batch, 64 (run_predict's), loaded by
+    ServingModel.load and held against the live ServingModel of the same checkpoint on a full request:
+    launches, logits bit for bit, a moved record moves them, device ms; run_serve's CSV against
+    run_predict's."""
+    layers = BertConfig().num_hidden_layers
+    cfg = _spine_config("ham_tabular_v1", inputs, train="train128", training__num_epochs=1)
+    zero_counts()
+    trainer = run_train.main(["--config", cfg, "--device", "cuda"])
+    torch.cuda.synchronize()
+    train_launches = read_counts()
+    want = {**dict.fromkeys(KERNELS, 0), "shear_sublane": 6, "attention_block": layers, "ffn_block": layers}
+    check(train_launches == want and trainer.step == 2, f"ham_tabular train launches {train_launches}")
+    best = str(Path(trainer.output_dir, _run_files(trainer.output_dir)["checkpoints"][0]["path"]))
+    width = trainer.model.cfg.tabular_input_dim
+    del trainer
+    torch.cuda.empty_cache()
+    art = str(SPINE_DIR / "ham_tabular.pt2")
+    t0 = time.perf_counter()
+    info = export_serving.main(["--config", cfg, "--model_path", best, "--output", art, "--batch_size",
+                                str(SPINE_BATCH), "--device", "cuda"])
+    export_s = time.perf_counter() - t0
+    check(info["inputs"]["tabular"] == [[SPINE_BATCH, width], "float32"], f"artifact inputs {info['inputs']}")
+    loaded = ServingModel.load(art, dev)
+    predictor = cli_common.build_predictor(cfg, device=dev)
+    predictor.load_weights(best)
+    live = predictor.server()
+    req, _ = _spine_request(cfg, SPINE_BATCH)
+    out = {}
+    for which, server in (("live", live), ("artifact", loaded)):
+        zero_counts()
+        out[which] = server.predict(req)
+        out[f"{which}_launches"] = read_counts()
+    check(out["live_launches"] == out["artifact_launches"] == {**dict.fromkeys(KERNELS, 0), "attention_block": layers,
+                                                                "ffn_block": layers},
+          f"ham_tabular artifact launches {out['artifact_launches']}, live {out['live_launches']}")
+    check(np.array_equal(out["live"], out["artifact"]), "ham_tabular: the artifact's logits are not the live model's")
+    moved = dict(req, tabular=req["tabular"] + 1.0)
+    check(not np.array_equal(loaded.predict(moved), out["artifact"]), "ham_tabular: the record does not reach the logits")
+    dev_in = [torch.from_numpy(req[k]).to(dev, dt) for k, dt in loaded.inputs.items()]
+    with torch.inference_mode():
+        fwd = lambda: loaded.fn(*dev_in)  # noqa: E731
+        ms = cuda_ms(fwd, reps=10)
+        device = device_profile(fwd, ms)
+    serve_csv, pred_csv = str(SPINE_DIR / "serve.csv"), str(SPINE_DIR / "predict.csv")
+    run_serve.main(["--artifact", art, "--config", cfg, "--output_path", serve_csv, "--device", "cuda"])
+    run_predict.main(["--config", cfg, "--model_path", best, "--output_path", pred_csv, "--device", "cuda"])
+    check(Path(serve_csv).read_text() == Path(pred_csv).read_text(), "ham_tabular: run_serve's CSV is not run_predict's")
+    line = {"config": "ham_tabular_v1", "train_launches": train_launches, "tabular_width": width,
+            "export_s": export_s, "bytes": info["bytes"], "launches": out["artifact_launches"],
+            "logits_bit_equal": True, "forward_ms_b64": ms, "device_ms_b64": device["kernel_ms"], "device": device,
+            "sync_free": sync_free_call(fwd), "run_serve_csv_equals_run_predict": True}
+    return line, {"spine_export_train": train_launches, "spine_export_artifact": out["artifact_launches"]}
+
+
+def phase_spine(dev, seed: int) -> dict:
+    """The Spine configurations and the baseline's branches on the card (SPINE_DIR, removed after),
+    a line for each part; returns each path's launches."""
+    shutil.rmtree(SPINE_DIR, ignore_errors=True)
+    SPINE_DIR.mkdir(parents=True)
+    try:
+        t0 = time.perf_counter()
+        inputs = _spine_inputs(seed)
+        emit({"phase": "spine", "part": "data", "records": len(inputs["records"]), "gaps": inputs["gaps"],
+              "seconds": time.perf_counter() - t0})
+        torch.cuda.reset_peak_memory_stats(dev)
+        train, by_path = _spine_train(dev, inputs, seed)
+        emit({"phase": "spine", "part": "train", **train})
+        serve, serve_paths = _spine_serve(dev, inputs, seed)
+        emit({"phase": "spine", "part": "serve", "configs": serve})
+        export, export_paths = _spine_export(dev, inputs)
+        emit({"phase": "spine", "part": "export", **export})
+    finally:
+        shutil.rmtree(SPINE_DIR, ignore_errors=True)
+    return {**by_path, **serve_paths, **export_paths}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3418,6 +3803,7 @@ def main() -> int:
         export = phase_export(dev, seed, made)
     finally:
         shutil.rmtree(CLI_DIR, ignore_errors=True)
+    spine = phase_spine(dev, seed)
     main_path = {"attention_block": slice_launches, "ffn_block": slice_launches,
                  "fused_attention": seq512_launches, "int8_ffn_block": preset_launches,
                  "int8_attention_block": preset_launches, "shear_sublane": train["launches"],
@@ -3429,7 +3815,8 @@ def main() -> int:
                "baseline_ssm": baseline["selective_scan"], "baseline_moe": baseline["kan_forward"],
                "train": train["launches"], "train_bn_stats": train["ab_launches"], "flash": flash_launches,
                "train_flash": train_flash, "ablate": {"attention_ablate": ablate_launches},
-               "connext": connext["launches"], "train_connext": train_connext, **train_baseline, **cli, **export}
+               "connext": connext["launches"], "train_connext": train_connext, **train_baseline, **cli, **export,
+               **spine}
     kan_by_layer = {**baseline["kan_forward_by_layer"], **connext["kan_forward_by_layer"]}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -27,7 +27,7 @@ import torch
 from ..core.checkpoint import load_weights
 from ..core.config import Config, load_config
 from ..core.pretrained import load_pretrained
-from ..data.datasets import DatasetOptions, MultimodalDataset
+from ..data.datasets import DatasetOptions, MultimodalDataset, tabular_dim
 from ..data.loader import DataLoader
 from ..data.tokenizer import load_tokenizer
 from ..device import resolve_device
@@ -51,7 +51,11 @@ class Predictor:
         self.batch_size = int(cfg.get("training.batch_size", 32))
         self.tokenizer = load_tokenizer(cfg.get("model.text_encoder.model_name"),
                                         vocab_size=cfg.get("model.text_encoder.vocab_size", 30522))
-        self.model = build_model(cfg, family, self.tokenizer, device=self.device).eval()
+        # the tabular width from the metadata CSV, as the JAX Trainer's predict-only construction takes it
+        # for every family (an MIBF or ConNexT artifact then takes a tabular input that its model ignores)
+        self.tabular_dim = tabular_dim(cfg)
+        self.model = build_model(cfg, family, self.tokenizer, device=self.device,
+                                 tabular_dim=self.tabular_dim).eval()
         load_pretrained(self.model, cfg, family)  # the config's weights; --model_path loads after them
         self._output_dir = output_dir
         self._servers: dict = {}
@@ -77,18 +81,7 @@ class Predictor:
         image_dir = image_dir or d.get("test_image_dir")
         json_path = json_path or d.get("test_json_path")
         csv_path = csv_path if csv_path is not None else d.get("test_label_csv")
-        opts = DatasetOptions(
-            max_length=cfg.get("tokenizer.max_length", 128),
-            tabular_enabled=bool(cfg.get("model.tabular.enabled", False)),
-            extra_image_dirs=tuple(d.get("extra_image_dirs", []) or []),
-            pseudo_2p5d=bool(d.get("pseudo_2p5d.enabled", False)),
-            sequence=bool(d.get("sequence.enabled", False)),
-            multi_view=bool(d.get("multi_view.enabled", False)),
-            clean_cjk_text=self.family == "mibf",
-            canvas=self.canvas,
-            llm_hidden_json=d.get("test_llm_hidden_json") or d.get("llm_hidden_json"),
-            cache=bool(d.get("cache", True)),
-        )
+        opts = DatasetOptions.from_config(cfg, self.family, "test", canvas=self.canvas)
         ds = MultimodalDataset(image_dir, json_path, csv_path, self.tokenizer, opts)
         return DataLoader(ds, batch_size=self.batch_size)
 

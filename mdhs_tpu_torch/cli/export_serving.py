@@ -11,7 +11,11 @@ module the live ``ServingModel`` runs: the eval preprocessing on the device,
 the forward and, with ``--tta``, the fused TTA over hflip, vflip and rot90,
 under ``torch.no_grad()`` at its static input spec: ``image`` uint8 ``(B,
 canvas, canvas, 3)``, ``input_ids`` and ``attention_mask`` int64 ``(B,
-tokenizer.max_length)``. The hand-written kernels are the ``torch.ops.mdhs``
+tokenizer.max_length)``, and for a baseline with the tabular branch
+``tabular`` float32 ``(B, width)``, the width of the metadata CSV's vectors
+(``mdhs_tpu/cli/export_serving.py:62-65``). As in JAX, the image is 4-D for
+every configuration: a sequence or multi-view configuration's artifact takes
+one image a record and never runs its sequence encoder. The hand-written kernels are the ``torch.ops.mdhs``
 custom ops (``ops/_library.py``), so the program holds them as nodes and
 launches them when it runs. One eager forward before the trace makes the
 weight caches the live model keeps (the int8 weights of each BERT layer, the
@@ -48,11 +52,14 @@ from .common import Predictor
 TTA = ("hflip", "vflip", "rot90")
 
 
-def input_spec(batch_size: int, canvas: int, seq_len: int) -> dict:
+def input_spec(batch_size: int, canvas: int, seq_len: int, tabular_dim: int = 0) -> dict:
     """The static inputs {name: (shape, dtype)} of a served step."""
-    return {"image": ((batch_size, canvas, canvas, 3), "uint8"),
+    spec = {"image": ((batch_size, canvas, canvas, 3), "uint8"),
             "input_ids": ((batch_size, seq_len), "int64"),
             "attention_mask": ((batch_size, seq_len), "int64")}
+    if tabular_dim:
+        spec["tabular"] = ((batch_size, tabular_dim), "float32")
+    return spec
 
 
 def export_program(fn: ServeFunction, spec: dict, device: torch.device) -> torch.export.ExportedProgram:
@@ -72,7 +79,7 @@ def export_forward(predictor: Predictor, batch_size: int, tta=()):
     """(the exported program, its input spec, the exported ``ServeFunction``) of
     the predictor's served step at a static batch of ``batch_size``."""
     spec = input_spec(batch_size, int(predictor.cfg.get("data.canvas", 256)),
-                      int(predictor.cfg.get("tokenizer.max_length", 128)))
+                      int(predictor.cfg.get("tokenizer.max_length", 128)), predictor.tabular_dim)
     model = predictor.model.to(memory_format=torch.channels_last).eval()
     fn = ServeFunction(model, predictor.image_size, tta)
     return export_program(fn, spec, predictor.device), spec, fn
@@ -114,9 +121,6 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     cfg = load_config(args.config, overrides=args.overrides)
-    if cfg.get("model.tabular.enabled", False):
-        raise NotImplementedError("model.tabular: the dataset's tabular mode is not ported yet (ROADMAP Queue 1 "
-                                  "item 8), so an artifact has no tabular input")
     predictor = Predictor(cfg, family=args.family, device=device)
     if args.model_path:
         predictor.load_weights(args.model_path)

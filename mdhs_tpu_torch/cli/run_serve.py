@@ -49,13 +49,12 @@ def main(argv=None):
     tokenizer = load_tokenizer(cfg.get("model.text_encoder.model_name"),
                                vocab_size=cfg.get("model.text_encoder.vocab_size", 30522))
     d = cfg.get("data")
-    opts = DatasetOptions(
-        max_length=int(model.input_spec["input_ids"][0][1]),  # the artifact's static shapes rule
-        canvas=int(model.input_spec["image"][0][1]),
-        extra_image_dirs=tuple(d.get("extra_image_dirs", []) or []),
-        clean_cjk_text=args.family == "mibf",
-        cache=bool(d.get("cache", True)),
-    )
+    # the artifact's static shapes rule, and its image is one canvas a record: no stacked mode or
+    # LLM hidden states, as JAX's run_serve reads the test split
+    opts = DatasetOptions.from_config(cfg, args.family, "test", max_length=int(model.input_spec["input_ids"][0][1]),
+                                      canvas=int(model.input_spec["image"][0][1]),
+                                      tabular_enabled="tabular" in model.input_spec, pseudo_2p5d=False,
+                                      sequence=False, multi_view=False, llm_hidden_json=None)
     ds = MultimodalDataset(args.image_dir or d.get("test_image_dir"), args.json_path or d.get("test_json_path"),
                            d.get("test_label_csv"), tokenizer, opts)
     loader = DataLoader(ds, batch_size=model.batch_size)

@@ -15,6 +15,9 @@ that ``load_state_dict`` takes. Layouts:
 - MultiHeadAttention q/k/v_proj -> in_proj_weight (3E, E), in_proj_bias
 - Mamba's depthwise conv HIO (d_conv, 1, d_inner) -> nn.Conv1d weight (d_inner, 1, d_conv)
 - a vmapped KAN bank (leaves with a leading expert axis) -> experts.{e}.layers.{i}.*
+- flax LSTM / GRU cells (``ii``..``io`` / ``ir``..``in`` input kernels,
+  ``hi``..``ho`` / ``hr``..``hn`` recurrent ones) -> ``nn.LSTM`` / ``nn.GRU``
+  names, the gates stacked in their order (i, f, g, o; r, z, n)
 
 Every value is copied, so the tensors never alias the caller's arrays.
 """
@@ -194,6 +197,45 @@ def head_state_dict_from_jax(head: Tree, kan_state: Tree | None, classifier_type
     return out
 
 
+def sequence_state_dict_from_jax(params: Tree, prefix: str = "") -> dict[str, torch.Tensor]:
+    """``mdhs_tpu.modules.sequence.SequenceEncoder`` params -> ``modules/sequence.py``'s
+    names (the kind read from the tree): ``fwd_{k}`` / ``bwd_{k}`` cells to
+    ``rnn.*_l{k}`` / ``rnn.*_l{k}_reverse``, ``layer_{k}`` to ``encoder.layers.{k}``
+    (``self_attn`` as ``nn.MultiheadAttention``, ``ff1`` / ``ff2`` to ``linear1`` /
+    ``linear2``), ``proj``. ``convert_baseline_full`` maps no sequence weights, so
+    these names are the reference's ``nn.LSTM`` / ``nn.GRU`` /
+    ``nn.TransformerEncoderLayer`` ones."""
+    out: dict[str, torch.Tensor] = {}
+
+    def stack(cell: Tree, names: str, key: str) -> torch.Tensor:
+        return _t(np.concatenate([np.asarray(cell[n][key]).T if key == "kernel" else np.asarray(cell[n][key])
+                                  for n in names], axis=0))
+
+    for name, p in params.items():
+        if name == "proj":
+            _lin(p, f"{prefix}proj", out)
+        elif name.startswith("layer_"):
+            base = f"{prefix}encoder.layers.{name[len('layer_'):]}."
+            out.update(mha_state_dict_from_jax(p["self_attn"], base + "self_attn."))
+            _lin(p["ff1"], base + "linear1", out)
+            _lin(p["ff2"], base + "linear2", out)
+            _ln(p["norm1"], base + "norm1", out)
+            _ln(p["norm2"], base + "norm2", out)
+        else:
+            direction, k = name.split("_")
+            cell, sfx = p["cell"], "_reverse" if direction == "bwd" else ""
+            rnn = f"{prefix}rnn."
+            gates = "ifgo" if "ii" in cell else "rzn"
+            out[f"{rnn}weight_ih_l{k}{sfx}"] = stack(cell, [f"i{g}" for g in gates], "kernel")
+            out[f"{rnn}weight_hh_l{k}{sfx}"] = stack(cell, [f"h{g}" for g in gates], "kernel")
+            if gates == "ifgo":
+                out[f"{rnn}bias_hh_l{k}{sfx}"] = stack(cell, [f"h{g}" for g in gates], "bias")
+            else:
+                out[f"{rnn}bias_ih_l{k}{sfx}"] = stack(cell, [f"i{g}" for g in gates], "bias")
+                out[f"{rnn}bias_hh_l{k}{sfx}"] = _t(cell["hn"]["bias"])
+    return out
+
+
 def baseline_state_dict_from_jax(params: Tree, batch_stats: Tree, kan_state: Tree | None = None,
                                  fusion_type: str = "multiscale",
                                  classifier_type: str = "mlp") -> dict[str, torch.Tensor]:
@@ -208,7 +250,10 @@ def baseline_state_dict_from_jax(params: Tree, batch_stats: Tree, kan_state: Tre
     their names follow the JAX tree (``classifier.kan1.act_coeff``,
     ``classifier.kan1.linear.weight``, ``classifier.norm.weight``;
     ``classifier.query``, ``classifier.attn.*`` as ``nn.MultiheadAttention``,
-    ``classifier.classifier.weight``)."""
+    ``classifier.classifier.weight``). The branches: ``tabular_encoder.net.{0,3}``,
+    ``tabular_fusion.0``, ``gate.fc.{0,2}``, ``sequence_proj`` and
+    ``global_local_proj`` as ``convert_baseline_full`` reads them, and the
+    sequence encoder as ``sequence_state_dict_from_jax`` names it."""
     img = params["image_encoder"]
     out = resnet_state_dict_from_jax({"trunk": img["trunk"]}, batch_stats["image_encoder"], "image_encoder.model.")
     for s in (2, 3, 4):
@@ -229,6 +274,18 @@ def baseline_state_dict_from_jax(params: Tree, batch_stats: Tree, kan_state: Tre
         raise ValueError(f"no converter for fusion_type={fusion_type!r}")
     out.update(head_state_dict_from_jax(params["classifier"], (kan_state or {}).get("classifier"), classifier_type,
                                         "classifier."))
+    if "tabular_encoder" in params:
+        _lin(params["tabular_encoder"]["fc1"], "tabular_encoder.net.0", out)
+        _lin(params["tabular_encoder"]["fc2"], "tabular_encoder.net.3", out)
+        _lin(params["tabular_fc"], "tabular_fusion.0", out)
+    if "gate" in params:
+        _lin(params["gate"]["fc1"], "gate.fc.0", out)
+        _lin(params["gate"]["fc2"], "gate.fc.2", out)
+    for name in ("sequence_proj", "global_local_proj"):
+        if name in params:
+            _lin(params[name], name, out)
+    if "sequence_encoder" in params:
+        out.update(sequence_state_dict_from_jax(params["sequence_encoder"], "sequence_encoder."))
     return out
 
 

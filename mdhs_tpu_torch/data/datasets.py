@@ -1,6 +1,6 @@
 """Host-side dataset join: image directory + JSON descriptions + label CSV.
 
-Counterpart of ``mdhs_tpu/data/datasets.py`` in single-image mode:
+Counterpart of ``mdhs_tpu/data/datasets.py``:
 - JSON records keyed by the basename of image_info / image_name /
   image_path, the text from description / response / caption;
 - a label CSV with its *image* and *label* columns found by name, or every
@@ -9,15 +9,27 @@ Counterpart of ``mdhs_tpu/data/datasets.py`` in single-image mode:
 - each image becomes a uint8 canvas: the shortest side resized to
   ``canvas`` and center-cropped, by the native resampler
   (``mdhs_tpu_torch/native.py``) and by PIL where it does not build;
-- an image that fails to load becomes a zero canvas, with a warning.
+- the stacked modes (``datasets.py:338-382``), in JAX's precedence:
+  ``multi_view`` stacks the same canvas ``num_views`` times (the device
+  augments each view), (V, S, S, 3); ``sequence`` the canvases of the
+  neighbouring slices at ``sequence_offsets``, (T, S, S, 3);
+  ``pseudo_2p5d`` three gray neighbours as the channels, (S, S, 3). A
+  neighbour's name shifts the number before the extension (``neighbor_name``):
+  the reference-intent name, then the zero-padded one, then the centre slice
+  (``MultimodalDataset.neighbor``). Gray is PIL's ``convert("L")`` before the
+  resize, or, without PIL, its luma exactly (``luma``);
+- an image that fails to load gives zeros of the mode's own shape, with a
+  warning;
+- ``tabular_enabled``: each record's float32 ``tabular`` vector from the
+  metadata CSV (``build_tabular_map``, pandas' rules without pandas), zeros
+  for an image the CSV does not list.
 
 Images are decoded by PIL where it imports, else by ``data/png.py``, which
 reads PNG only; anything else raises there, so the record gets the zero
 canvas and the warning names PIL.
 
-The other modes of the JAX dataset (multi-view, sequence, pseudo-2.5D, the
-tabular branch, LLM hidden states, host augmentation) raise
-``NotImplementedError`` naming their ROADMAP items.
+LLM hidden states and the host augmentation raise ``NotImplementedError``
+naming their ROADMAP items.
 
 ``HOST_MS`` sums the host time of decoding, resizing and tokenizing (ms)
 over every record any dataset makes; ``reset_host_ms`` sets it to zero.
@@ -83,6 +95,22 @@ def clean_cjk(text: str) -> str:
     return re.sub(r"[一-鿿　-〿＀-￯]", "", text or "").strip()
 
 
+def neighbor_name(image_id: str, offset: int, pad: bool = False) -> str:
+    """A neighbouring slice's file name: the number before the extension shifted by
+    ``offset``, clamped at 0 (the reference's intent, ``datasets.py:74-97``), as a
+    plain int, or with the original digit width where ``pad``."""
+    if offset == 0:
+        return image_id
+    m = re.match(r"^(.*_)(\d+)(\.[^.]+)$", image_id) or re.match(r"^(.*?)(\d+)(\.[^.]+)$", image_id)
+    if not m:
+        return image_id
+    prefix, idx_str, suffix = m.groups()
+    idx = max(0, int(idx_str) + offset)
+    if pad:
+        return f"{prefix}{idx:0{len(idx_str)}d}{suffix}"
+    return f"{prefix}{idx}{suffix}"
+
+
 def _pil():
     """PIL's Image module, or None where PIL does not import."""
     try:
@@ -106,6 +134,25 @@ def open_rgb(path: str) -> np.ndarray:
     return np.ascontiguousarray(img[..., :3])
 
 
+def luma(img: np.ndarray) -> np.ndarray:
+    """uint8 (H, W) gray of an (H, W) gray, RGB or RGBA image, as PIL's ``convert("L")``:
+    ``(R * 19595 + G * 38470 + B * 7471 + 0x8000) >> 16``, alpha ignored."""
+    if img.ndim == 2:
+        return img
+    c = img[..., :3].astype(np.uint32)
+    return ((c[..., 0] * 19595 + c[..., 1] * 38470 + c[..., 2] * 7471 + 0x8000) >> 16).astype(np.uint8)
+
+
+def open_gray(path: str) -> np.ndarray:
+    """An image file as uint8 (H, W): PIL's ``convert("L")`` where PIL imports, else
+    the PNG reader and ``luma``."""
+    Image = _pil()
+    if Image is not None:
+        with Image.open(path) as img:
+            return np.asarray(img.convert("L"), np.uint8)
+    return luma(png.read_png(path))
+
+
 def _resize_center_square(img, size: int):
     """PIL bilinear: shortest side -> size, then center crop size x size."""
     Image = _pil()
@@ -121,8 +168,8 @@ def _resize_center_square(img, size: int):
 
 
 def canvas_array(img: np.ndarray, size: int) -> np.ndarray:
-    """uint8 (H, W, 3) -> (size, size, 3) canvas: the native resampler, or PIL's
-    resize where the library does not build; neither raises."""
+    """uint8 (H, W, 3) or (H, W) -> (size, size[, 3]) canvas: the native resampler, or
+    PIL's resize where the library does not build; neither raises."""
     out = native.resize_center_square(img, size)
     if out is not None:
         return out
@@ -132,30 +179,176 @@ def canvas_array(img: np.ndarray, size: int) -> np.ndarray:
     return np.asarray(_resize_center_square(Image.fromarray(img), size), np.uint8)
 
 
+# pandas' default NA strings (``pandas._libs.parsers.STR_NA_VALUES``)
+NA_VALUES = frozenset({"", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-NaN", "-nan", "1.#IND", "1.#QNAN",
+                       "<NA>", "N/A", "NA", "NULL", "NaN", "None", "n/a", "nan", "null"})
+_INT = re.compile(r"^\s*[+-]?\d+\s*$")
+_FLOAT = re.compile(r"^\s*[+-]?((\d+\.?\d*|\.\d+)([eE][+-]?\d+)?|inf|infinity)\s*$", re.IGNORECASE)
+_BOOL = {"True": True, "TRUE": True, "true": True, "False": False, "FALSE": False, "false": False}
+
+
+def _column(raw: list) -> tuple[str, list]:
+    """A CSV column's values (None for an NA string) as pandas' parser types them:
+    ("int", ints) where every value is an integer, ("float", floats with NaN) where
+    every present value is a number, ("bool", bools) where every value is a boolean
+    string, else ("object", the strings with None); an all-NA column is float."""
+    present = [v for v in raw if v is not None]
+    if len(present) == len(raw) and present and all(_INT.match(v) for v in present):
+        return "int", [int(v) for v in raw]
+    if all(_FLOAT.match(v) for v in present):
+        return "float", [float(v) if v is not None else float("nan") for v in raw]
+    if len(present) == len(raw) and all(v in _BOOL for v in present):
+        return "bool", [_BOOL[v] for v in raw]
+    return "object", raw
+
+
+def _as_str(kind: str, values: list) -> list:
+    """pandas' ``astype(str)`` of a typed column."""
+    if kind == "object":
+        return ["nan" if v is None else v for v in values]
+    return [str(v) for v in values]
+
+
+def _to_numeric(kind: str, values: list) -> np.ndarray:
+    """pandas' ``to_numeric(errors="coerce")`` as float64, NaN where a value is no number."""
+    if kind != "object":
+        return np.asarray(values, np.float64)
+    return np.asarray([float(v) if v is not None and _FLOAT.match(v) else np.nan for v in values], np.float64)
+
+
+def _nan_mean_std(vals: np.ndarray) -> tuple[float, float]:
+    """pandas' ``Series.mean()`` and ``std()`` (ddof 1) of a float64 column with NaN,
+    in its order of operations (``nanops.nanmean`` / ``nanvar``: the NaNs zeroed in
+    place, whole-array sums); the std is NaN for a single value."""
+    mask = np.isnan(vals)
+    count = int((~mask).sum())
+    filled = np.where(mask, 0.0, vals)
+    mean = filled.sum(dtype=np.float64) / count
+    if count <= 1:
+        return float(mean), float("nan")
+    sqr = np.where(mask, 0.0, (mean - filled) ** 2)
+    return float(mean), float(np.sqrt(sqr.sum(dtype=np.float64) / (count - 1)))
+
+
+def read_csv_columns(path: str) -> dict[str, list]:
+    """A CSV's columns as lists of strings, None where pandas reads NA (its default NA
+    strings, missing trailing fields); blank lines skipped."""
+    with open(path, "r", encoding="utf-8-sig", newline="") as f:
+        rows = [r for r in csv.reader(f) if r]
+    header, body = rows[0], rows[1:]
+    return {name: [None if i >= len(r) or r[i] in NA_VALUES else r[i] for r in body]
+            for i, name in enumerate(header)}
+
+
+def build_tabular_map(metadata_csv: str, fields, normalize: str = "zscore") -> tuple[dict, int]:
+    """(image id without extension -> float32 vector, its width), as the JAX
+    package's pandas version (``datasets.py:126-183``) gives it: ``age`` and every
+    field pandas reads as numeric (bool included) first, NaN filled with the mean,
+    z-scored where ``normalize == "zscore"`` (the sample std, 0 -> 1, NaN for a
+    single value; mean 0 and std 1 for a field with no value); then each other
+    field one-hot over its sorted strings plus "unknown", which takes NA and
+    unseen strings; fields in ``fields`` order within each group, fields the CSV
+    lacks left out."""
+    cols = read_csv_columns(metadata_csv)
+    typed = {name: _column(values) for name, values in cols.items()}
+    ids = _as_str(*typed["image_id"])
+    n = len(ids)
+    numeric, categorical = [], []
+    for f_ in fields:
+        if f_ not in cols:
+            continue
+        (numeric if f_ == "age" or typed[f_][0] != "object" else categorical).append(f_)
+    blocks = []
+    for f_ in numeric:
+        vals = _to_numeric(*typed[f_])
+        if np.isnan(vals).all():
+            mean, std = 0.0, 1.0
+        else:
+            mean, std = _nan_mean_std(vals)
+            std = std if std != 0.0 else 1.0
+        vals = np.where(np.isnan(vals), mean, vals)
+        blocks.append(((vals - mean) / std if normalize == "zscore" else vals).reshape(n, 1))
+    for f_ in categorical:
+        raw = typed[f_][1]
+        cats = sorted({v for v in raw if v is not None})
+        if "unknown" not in cats:
+            cats.append("unknown")
+        index = {c: i for i, c in enumerate(cats)}
+        idx = np.asarray([index["unknown"] if v is None else index.get(v, index["unknown"]) for v in raw], np.intp)
+        blocks.append(np.eye(len(cats), dtype=np.float64)[idx])
+    mat = np.concatenate(blocks, axis=1).astype(np.float32) if blocks else np.zeros((n, 0), np.float32)
+    dim = mat.shape[1]
+    return dict(zip((os.path.splitext(i)[0] for i in ids), mat)), dim
+
+
+def tabular_dim(cfg) -> int:
+    """The tabular branch's input width of a config: that of
+    ``build_tabular_map`` over ``data.metadata_csv`` where ``model.tabular`` is
+    enabled (the JAX Trainer's predict-only construction, ``trainer.py:217-236``),
+    else 0."""
+    if not cfg.get("model.tabular.enabled", False) or not cfg.get("data.metadata_csv"):
+        return 0
+    return build_tabular_map(cfg.get("data.metadata_csv"), tabular_fields(cfg),
+                             cfg.get("model.tabular.normalize", "zscore"))[1]
+
+
+def tabular_fields(cfg) -> tuple:
+    return tuple(cfg.get("model.tabular.fields", ["age", "sex", "localization"]) or [])
+
+
 @dataclass
 class DatasetOptions:
-    """The fields of the JAX ``DatasetOptions`` that single-image mode reads, and
-    the switches of the modes not ported, which must stay off."""
+    """The fields of the JAX ``DatasetOptions`` the port reads, and the switches of
+    the modes not ported, which must stay off."""
 
     max_length: int = 128
+    tabular_enabled: bool = False
+    tabular_fields: tuple = ("age", "sex", "localization")
+    tabular_normalize: str = "zscore"
+    metadata_csv: Optional[str] = None
     extra_image_dirs: tuple = ()
+    pseudo_2p5d: bool = False
+    pseudo_offsets: tuple = (-1, 0, 1)
+    sequence: bool = False
+    sequence_offsets: tuple = (-2, -1, 0, 1, 2)
+    multi_view: bool = False
+    num_views: int = 2
     clean_cjk_text: bool = False
     canvas: int = CANVAS
     cache: bool = True  # keep each canvas: made once, reused across epochs
-    multi_view: bool = False
-    sequence: bool = False
-    pseudo_2p5d: bool = False
-    tabular_enabled: bool = False
     llm_hidden_json: Optional[str] = None
     host_augment: bool = False
 
     def check_ported(self) -> None:
-        for flag, what, item in ((self.multi_view, "multi-view", "10"), (self.sequence, "sequence", "10"),
-                                 (self.pseudo_2p5d, "pseudo-2.5D", "10"), (self.tabular_enabled, "tabular", "10"),
-                                 (self.llm_hidden_json, "LLM hidden-state", "11"),
-                                 (self.host_augment, "host augmentation", "8")):
-            if flag:
-                raise NotImplementedError(f"the {what} data mode is not ported yet: ROADMAP Queue 1 item {item}")
+        if self.llm_hidden_json:
+            raise NotImplementedError("the LLM hidden-state data mode is not ported yet: ROADMAP Queue 1 item 11")
+        if self.host_augment:
+            raise NotImplementedError("the host augmentation data mode is not ported yet: ROADMAP Queue 1 item 8")
+
+    @classmethod
+    def from_config(cls, cfg, family: str, split: str, **overrides) -> "DatasetOptions":
+        """The options the JAX Trainer gives ``split``'s dataset (``trainer.py:299-373``)."""
+        d = cfg.get("data")
+        opts = dict(
+            max_length=cfg.get("tokenizer.max_length", 128),
+            tabular_enabled=bool(cfg.get("model.tabular.enabled", False)),
+            tabular_fields=tabular_fields(cfg),
+            tabular_normalize=cfg.get("model.tabular.normalize", "zscore"),
+            metadata_csv=d.get("metadata_csv"),
+            extra_image_dirs=tuple(d.get("extra_image_dirs", []) or []),
+            pseudo_2p5d=bool(d.get("pseudo_2p5d.enabled", False)),
+            pseudo_offsets=tuple(d.get("pseudo_2p5d.offsets", [-1, 0, 1]) or []),
+            sequence=bool(d.get("sequence.enabled", False)),
+            sequence_offsets=tuple(d.get("sequence.offsets", [-2, -1, 0, 1, 2]) or []),
+            multi_view=bool(d.get("multi_view.enabled", False)),
+            num_views=int(d.get("multi_view.num_views", 2)),
+            clean_cjk_text=family == "mibf",
+            canvas=int(cfg.get("data.canvas", 256)),
+            llm_hidden_json=d.get(f"{split}_llm_hidden_json") or d.get("llm_hidden_json"),
+            cache=bool(d.get("cache", True)),
+        )
+        opts.update(overrides)
+        return cls(**opts)
 
 
 class MultimodalDataset:
@@ -189,6 +382,13 @@ class MultimodalDataset:
         if not self.metadata:
             raise ValueError("dataset join produced no records; check paths")
 
+        self.tabular_map, self.tabular_dim = None, 0
+        if self.opts.tabular_enabled:
+            if not self.opts.metadata_csv:
+                raise ValueError("tabular_enabled requires metadata_csv")
+            self.tabular_map, self.tabular_dim = build_tabular_map(
+                self.opts.metadata_csv, list(self.opts.tabular_fields), self.opts.tabular_normalize)
+
     def __len__(self):
         return len(self.metadata)
 
@@ -203,33 +403,62 @@ class MultimodalDataset:
                 return p
         return None
 
-    def _load_canvas(self, image_id: str) -> np.ndarray:
-        if self.opts.cache and image_id in self._canvas_cache:
-            return self._canvas_cache[image_id]
+    def neighbor(self, image_id: str, offset: int) -> str:
+        """A neighbouring slice's id: the reference-intent name, then the zero-padded
+        one, then the centre slice itself where neither exists (``datasets.py:291-302``)."""
+        nid = neighbor_name(image_id, offset)
+        if self._find_image(nid) is not None:
+            return nid
+        padded = neighbor_name(image_id, offset, pad=True)
+        if self._find_image(padded) is not None:
+            return padded
+        return image_id
+
+    def _load_canvas(self, image_id: str, gray: bool = False) -> np.ndarray:
+        key = (image_id, gray)
+        if self.opts.cache and key in self._canvas_cache:
+            return self._canvas_cache[key]
         path = self._find_image(image_id)
         if path is None:
             raise FileNotFoundError(image_id)
         t0 = time.perf_counter()
-        img = open_rgb(path)
+        img = open_gray(path) if gray else open_rgb(path)
         t1 = time.perf_counter()
         arr = canvas_array(img, self.opts.canvas)
         HOST_MS["decode"] += (t1 - t0) * 1e3
         HOST_MS["resize"] += (time.perf_counter() - t1) * 1e3
         if self.opts.cache:
-            self._canvas_cache[image_id] = arr
+            self._canvas_cache[key] = arr
         return arr
+
+    def _image(self, image_id: str) -> np.ndarray:
+        o = self.opts
+        if o.multi_view:
+            return np.stack([self._load_canvas(image_id)] * o.num_views, axis=0)
+        if o.sequence:
+            return np.stack([self._load_canvas(self.neighbor(image_id, off)) for off in o.sequence_offsets], axis=0)
+        if o.pseudo_2p5d:
+            return np.stack([self._load_canvas(self.neighbor(image_id, off), gray=True) for off in o.pseudo_offsets],
+                            axis=2)
+        return self._load_canvas(image_id)
 
     def __getitem__(self, idx: int) -> dict:
         item = self.metadata[idx]
         image_id = item["image_id"]
-        S = self.opts.canvas
+        o = self.opts
+        S = o.canvas
         try:
-            image = self._load_canvas(image_id)
-        except Exception as exc:  # the reference's tolerance: a zero image on failure
+            image = self._image(image_id)
+        except Exception as exc:  # the reference's tolerance: zeros of the mode's shape on failure
             log.warning("image load failed for %s: %s", image_id, exc)
-            image = np.zeros((S, S, 3), np.uint8)
+            lead = (o.num_views,) if o.multi_view else (len(o.sequence_offsets),) if o.sequence else ()
+            image = np.zeros((*lead, S, S, 3), np.uint8)
         t0 = time.perf_counter()
-        input_ids, attention_mask = self.tokenizer.encode(item["description"], self.opts.max_length)
+        input_ids, attention_mask = self.tokenizer.encode(item["description"], o.max_length)
         HOST_MS["tokenize"] += (time.perf_counter() - t0) * 1e3
-        return {"image": image, "input_ids": input_ids, "attention_mask": attention_mask,
-                "label": np.int32(item["label"]), "image_id": image_id}
+        record = {"image": image, "input_ids": input_ids, "attention_mask": attention_mask,
+                  "label": np.int32(item["label"]), "image_id": image_id}
+        if self.tabular_map is not None:
+            record["tabular"] = self.tabular_map.get(os.path.splitext(image_id)[0],
+                                                     np.zeros(self.tabular_dim, np.float32))
+        return record

@@ -1,6 +1,8 @@
-"""Device resolution for the port's entry points."""
+"""Device resolution for the port's entry points, and constants made once on a device."""
 
 from __future__ import annotations
+
+from typing import Callable
 
 import torch
 
@@ -35,3 +37,19 @@ def add_device_argument(parser) -> None:
     """The entry points' ``--device`` flag."""
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (the default; raises where there is no card) or cpu")
+
+
+def device_constant(cache: dict, key, make: Callable):
+    """``cache[key]``, made by ``make()`` on its first call: a constant made from
+    host data on every call would be a synchronous host-to-device copy on the
+    card. ``make`` runs outside inference mode, so the tensors are usable in
+    training too. While ``torch.export`` traces, a constant kept from an eager
+    call is read as a constant of the program, and one made inside the trace is
+    not kept, so no traced tensor reaches a later eager call."""
+    value = cache.get(key)
+    if value is None:
+        with torch.inference_mode(False):
+            value = make()
+        if not torch.compiler.is_exporting():
+            cache[key] = value
+    return value

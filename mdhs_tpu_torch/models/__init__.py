@@ -42,7 +42,8 @@ def bert_config_from(cfg, vocab_size: int) -> BertConfig:
 
 
 def baseline_config_from(cfg, bert: BertConfig) -> BaselineConfig:
-    """``mdhs_tpu.models.baseline.BaselineConfig.from_config`` (the tabular width from the config)."""
+    """``mdhs_tpu.models.baseline.BaselineConfig.from_config`` (the tabular width from the
+    config; ``build_model`` takes the dataset's)."""
     m = cfg.get("model")
     seq, gate, gl, tab = (m.get(k, {}) for k in ("sequence_encoder", "gate", "global_local", "tabular"))
     return BaselineConfig(
@@ -113,12 +114,17 @@ def model_config(cfg, family: str, vocab_size: int):
     raise ValueError(f"unknown model family: {family}")
 
 
-def build_model(cfg, family: str, tokenizer, device=None, dtype: torch.dtype | None = None):
+def build_model(cfg, family: str, tokenizer, device=None, dtype: torch.dtype | None = None, tabular_dim: int = 0):
     """The family's model for ``cfg`` in the config's precision
-    (``training.precision``, bf16 by default), with PyTorch's default init."""
+    (``training.precision``, bf16 by default), with PyTorch's default init.
+    ``tabular_dim``, the tabular branch's input width (the dataset's, as JAX's
+    ``build_model`` takes it), replaces ``model.tabular.input_dim`` where it is
+    not 0."""
     if dtype is None:
         dtype = DTypePolicy.from_config(cfg).compute_dtype
     spec = model_config(cfg, family, tokenizer.vocab_size)
+    if family == "baseline" and tabular_dim:
+        spec = dataclasses.replace(spec, tabular_input_dim=tabular_dim)
     f = dict(device=device, dtype=dtype)
     if family == "baseline":
         return MultimodalBaselineModel(spec, **f)

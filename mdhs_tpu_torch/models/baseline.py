@@ -11,14 +11,42 @@ Submodule names are the reference's (``image_encoder.model``,
 
 Ported: the ``multiscale`` and ``mamba`` fusions and every head (``mlp``,
 ``residual``, ``attention_pooling``, ``kan``, ``moe``), served and trained:
-``configs/common/base.yml`` and the ``configs/ham/*_v1.yml`` built on those.
-``features_and_logits`` is the training forward (``baseline.py:352-358``):
-the fused feature, the logits and the MoE head's balance loss (None for the
-other heads). The fusion and head dropout is the config's clamped to 0.1, as
-in JAX; the ResNet's BatchNorm follows the module's train/eval mode. The
-gate, the sequence encoder, the tabular branch and the global/local stream
-raise ``NotImplementedError`` naming their ROADMAP item, as do the other
-fusions.
+``configs/common/base.yml`` and the ``configs/ham/*_v1.yml`` built on those;
+and the branches (``baseline.py:124-358``):
+
+- the sequence encoder (``modules/sequence.py``): a 5-D input (B, T, 3, H,
+  W), the slices of a sequence or the views of one image, goes through the
+  image tower as one B * T stack; each slice's pooled tokens make a (B, T,
+  hidden) sequence, encoded to one (B, hidden) vector (``sequence_proj``
+  where ``sequence_encoder.hidden_dim`` differs), which is the image tokens
+  as a length-1 sequence (copied to the three scales for ``multiscale``);
+- the global/local stream: the image tower runs a second time on the
+  center crop of ``crop_ratio`` (``int(H * ratio)`` at offset ``(H - ch) //
+  2``) resized back to H x W bilinearly as ``jax.image.resize`` does it
+  (``resize_weights``: its weight matrices, made on the host and applied as
+  two products), and the two token sets are averaged, or concatenated and
+  projected (``global_local_proj``, ``combine: concat``); the multiscale
+  dict is averaged under either, as in JAX. In training the tower's
+  BatchNorm sees both batches in turn, as flax's mutable ``batch_stats``;
+- the tabular branch (``modules/tabular.py``): the fused feature and the
+  encoded (B, tabular_input_dim) float32 record through ``tabular_fusion``
+  (Linear, ReLU, Dropout);
+- the dual-expert gate (``modules/gating.py``): ``forward`` computes the
+  context feature (``gate.context_mode``, "full" = no ablation) and the
+  local one (``gate.local_mode``), both logits, the entropy of the local
+  softmax in float32 (+1e-8) and alpha, and returns alpha * local + (1 -
+  alpha) * context. Out of training the two passes share one pass of the
+  image tower (XLA shares it in the JAX program); in training each runs it.
+  Training uses the ungated ``features_and_logits``, as the JAX Trainer
+  does, so the gate's parameters never train in either package.
+
+``sequence_proj`` and ``global_local_proj`` exist exactly where the JAX
+model's init creates parameters for them. ``features_and_logits`` is the
+training forward (``baseline.py:352-358``): the fused feature, the logits and
+the MoE head's balance loss (None for the other heads). The fusion and head
+dropout is the config's clamped to 0.1, as in JAX; the ResNet's BatchNorm
+follows the module's train/eval mode. The other fusions and ``remat`` raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -29,8 +57,14 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..modules.fusion import NOT_PORTED as NOT_PORTED_FUSIONS, build_fusion, pool_image
+import numpy as np
+
+from ..device import device_constant
+from ..modules.fusion import NOT_PORTED as NOT_PORTED_FUSIONS, SCALES, build_fusion, pool_image
+from ..modules.gating import DualExpertGate
 from ..modules.heads import MoEHead, build_head
+from ..modules.sequence import SequenceEncoder
+from ..modules.tabular import TabularEncoder
 from .bert import BertConfig
 from .encoders import ImageTokenEncoder, TextEncoder
 
@@ -80,16 +114,51 @@ class BaselineConfig:
     def check_ported(self) -> None:
         """Raise for the options the port does not have yet, naming the
         ROADMAP item that ports each; never ignore one silently."""
-        for flag, what in ((self.gate_enabled, "gate (dual-expert gating)"),
-                           (self.sequence_enabled, "sequence encoder"),
-                           (self.tabular_enabled, "tabular branch"),
-                           (self.global_local_enabled, "global/local dual stream")):
-            if flag:
-                raise NotImplementedError(f"baseline {what} is not ported yet: ROADMAP Queue 1 item 10")
         if self.fusion_type in NOT_PORTED_FUSIONS:
             raise NotImplementedError(f"fusion_type={self.fusion_type!r} is not ported yet: ROADMAP Queue 1 item 10")
         if self.remat != "none":
             raise NotImplementedError(f"remat={self.remat!r} is a training knob: ROADMAP Queue 1 item 8")
+
+
+_RESIZE: dict = {}
+
+
+def resize_weights(n_in: int, n_out: int, device, dtype: torch.dtype) -> torch.Tensor:
+    """(n_in, n_out) weights of ``jax.image.resize(..., "bilinear")`` along one axis
+    (``jax/_src/image/scale.py::compute_weight_mat``: the triangle kernel at
+    ``(i + 0.5) * n_in / n_out - 0.5``, unscaled when upsampling, each column
+    normalised, zero where the sample lies outside the input), in float32 on the
+    host, cast to ``dtype`` as JAX casts them to the image's; made once for each
+    (n_in, n_out, device, dtype)."""
+    def make():
+        scale = n_out / n_in
+        inv = np.float32(1.0 / scale)
+        sample = (np.arange(n_out, dtype=np.float32) + np.float32(0.5)) * inv - np.float32(0.5)
+        kscale = max(np.float32(1.0 / scale), np.float32(1.0))
+        x = np.abs(sample[None, :] - np.arange(n_in, dtype=np.float32)[:, None]) / np.float32(kscale)
+        wts = np.maximum(np.float32(0.0), np.float32(1.0) - x).astype(np.float32)
+        total = wts.sum(axis=0, keepdims=True, dtype=np.float32)
+        wts = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
+                       wts / np.where(total != 0, total, np.float32(1.0)), np.float32(0.0)).astype(np.float32)
+        wts = np.where(((sample >= -0.5) & (sample <= n_in - 0.5))[None, :], wts, np.float32(0.0))
+        return torch.from_numpy(np.ascontiguousarray(wts, np.float32)).to(device=device, dtype=dtype)
+
+    return device_constant(_RESIZE, (n_in, n_out, torch.device(device), dtype), make)
+
+
+def center_crop_resize(x: torch.Tensor, ratio: float) -> torch.Tensor:
+    """(N, C, H, W) -> the center crop of ``ratio`` (``int(H * ratio)`` rows at
+    ``(H - ch) // 2``) resized back to H x W as ``jax.image.resize`` bilinear
+    (``baseline.py:198-208``), in x's dtype and ``channels_last`` memory."""
+    H, W = x.shape[-2:]
+    ch, cw = max(1, int(H * ratio)), max(1, int(W * ratio))
+    y0, x0 = max(0, (H - ch) // 2), max(0, (W - cw) // 2)
+    crop = x[..., y0:y0 + ch, x0:x0 + cw]
+    if (ch, cw) == (H, W):
+        return crop
+    wh, ww = resize_weights(ch, H, x.device, x.dtype), resize_weights(cw, W, x.device, x.dtype)
+    out = torch.matmul(wh.transpose(0, 1), torch.matmul(crop, ww))
+    return out.contiguous(memory_format=torch.channels_last)
 
 
 class MultimodalBaselineModel(nn.Module):
@@ -101,11 +170,29 @@ class MultimodalBaselineModel(nn.Module):
         self.cfg = cfg
         f = dict(device=device, dtype=dtype)
         dropout = min(cfg.dropout, 0.1)  # fusion and head, as the JAX model clamps it
-        self.image_encoder = ImageTokenEncoder(cfg.hidden_dim, cfg.image_backbone,
-                                               multi_scale=cfg.fusion_type == "multiscale", **f)
+        multi_scale = cfg.fusion_type == "multiscale"
+        self.image_encoder = ImageTokenEncoder(cfg.hidden_dim, cfg.image_backbone, multi_scale=multi_scale, **f)
         self.text_encoder = TextEncoder(cfg.bert, **f)
+        if cfg.sequence_enabled:
+            self.sequence_encoder = SequenceEncoder(cfg.hidden_dim, cfg.sequence_hidden_dim, cfg.sequence_type,
+                                                    cfg.sequence_num_layers, cfg.sequence_bidirectional,
+                                                    cfg.sequence_dropout, cfg.sequence_num_heads, **f)
+            if cfg.sequence_hidden_dim != cfg.hidden_dim:
+                self.sequence_proj = nn.Linear(cfg.sequence_hidden_dim, cfg.hidden_dim, **f)
+        # the multiscale dict is averaged under "concat" too, so the projection is never called there
+        if cfg.global_local_enabled and cfg.global_local_combine == "concat" and not multi_scale:
+            self.global_local_proj = nn.Linear(2 * cfg.hidden_dim, cfg.hidden_dim, **f)
         self.fusion = build_fusion(cfg.fusion_type, text_dim=cfg.text_feature_dim, hidden_dim=cfg.hidden_dim,
                                    num_heads=cfg.num_heads, dropout=dropout, text_pool=cfg.text_pool, **f)
+        if cfg.tabular_enabled:
+            if cfg.tabular_input_dim <= 0:
+                raise ValueError("tabular_input_dim must be > 0 when tabular is enabled.")
+            self.tabular_encoder = TabularEncoder(cfg.tabular_input_dim, cfg.tabular_hidden_dim, cfg.tabular_dropout,
+                                                  **f)
+            self.tabular_fusion = nn.Sequential(nn.Linear(cfg.hidden_dim + cfg.tabular_hidden_dim, cfg.hidden_dim,
+                                                          **f), nn.ReLU(), nn.Dropout(dropout))
+        if cfg.gate_enabled:
+            self.gate = DualExpertGate(cfg.hidden_dim, cfg.gate_hidden_dim, cfg.gate_use_entropy, **f)
         self.classifier = build_head(cfg.classifier_type, hidden_dim=cfg.hidden_dim, num_classes=cfg.num_classes,
                                      dropout=dropout, num_heads=cfg.num_heads, kan_num_groups=cfg.kan_num_groups,
                                      kan_act_mode=cfg.kan_act_mode, moe_num_experts=cfg.moe_num_experts,
@@ -116,31 +203,81 @@ class MultimodalBaselineModel(nn.Module):
         """The dtype the image tower takes (its stem convolution's)."""
         return self.image_encoder.model.conv1.weight.dtype
 
+    def _image_tokens(self, images: torch.Tensor):
+        """The tower's tokens of (N, 3, H, W) images, with the local stream combined in."""
+        tokens, _ = self.image_encoder(images)
+        if not self.cfg.global_local_enabled:
+            return tokens
+        local, _ = self.image_encoder(center_crop_resize(images, self.cfg.global_local_crop_ratio))
+        if isinstance(tokens, dict):
+            return {k: 0.5 * (tokens[k] + local[k]) for k in tokens}
+        if self.cfg.global_local_combine == "concat":
+            return self.global_local_proj(torch.cat([tokens, local], dim=-1))
+        return 0.5 * (tokens + local)
+
+    def encode_images(self, images: torch.Tensor):
+        """(image tokens, pooled image feature) of (B, 3, H, W) images, or of a
+        (B, T, 3, H, W) sequence through the sequence encoder."""
+        if images.ndim == 5:
+            if not self.cfg.sequence_enabled:
+                raise ValueError("Sequence input provided but sequence encoder is disabled.")
+            B, T = images.shape[:2]
+            pooled = pool_image(self._image_tokens(images.flatten(0, 1)))
+            seq = self.sequence_encoder(pooled.reshape(B, T, -1))
+            if hasattr(self, "sequence_proj"):
+                seq = self.sequence_proj(seq)
+            return seq[:, None, :], seq
+        tokens = self._image_tokens(images)
+        return tokens, pool_image(tokens)
+
     def forward_features(self, images: torch.Tensor, input_ids: torch.Tensor, attention_mask: torch.Tensor,
-                         ablation_mode: Optional[str] = None) -> torch.Tensor:
-        """The fused (B, hidden_dim) feature, or the pooled image tokens for ``image_only``."""
+                         ablation_mode: Optional[str] = None, tabular: Optional[torch.Tensor] = None,
+                         encoded=None) -> torch.Tensor:
+        """The fused (B, hidden_dim) feature, or the pooled image feature for
+        ``image_only``; ``encoded`` is ``encode_images``' result where the caller has it."""
         if ablation_mode not in ABLATION_MODES:
             raise ValueError(f"ablation_mode={ablation_mode!r}: expected one of {ABLATION_MODES}")
-        tokens, _ = self.image_encoder(images)
+        tokens, pooled = encoded if encoded is not None else self.encode_images(images)
         if ablation_mode == "image_only":
-            return pool_image(tokens)
+            return pooled
         text_tokens, _ = self.text_encoder(input_ids, attention_mask)
         if ablation_mode == "text_off":
             text_tokens = torch.zeros_like(text_tokens)
-        return self.fusion(tokens, text_tokens, attention_mask)
+        if self.cfg.sequence_enabled and self.cfg.fusion_type == "multiscale" and not isinstance(tokens, dict):
+            tokens = dict.fromkeys(SCALES, tokens)
+        fused = self.fusion(tokens, text_tokens, attention_mask)
+        if self.cfg.tabular_enabled:
+            if tabular is None:
+                raise ValueError("tabular_input is required when tabular is enabled.")
+            fused = self.tabular_fusion(torch.cat([fused, self.tabular_encoder(tabular)], dim=-1))
+        return fused
 
     def forward(self, images: torch.Tensor, input_ids: torch.Tensor, attention_mask: torch.Tensor,
-                ablation_mode: Optional[str] = None) -> torch.Tensor:
-        """images: (B, 3, H, W). Returns float32 logits (B, num_classes)."""
-        return self.classifier(self.forward_features(images, input_ids, attention_mask, ablation_mode))
+                ablation_mode: Optional[str] = None, tabular: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """images: (B, 3, H, W) or (B, T, 3, H, W); tabular: (B, tabular_input_dim)
+        float32 where the branch is on. Returns float32 logits (B, num_classes)."""
+        c = self.cfg
+        if ablation_mode is not None or not c.gate_enabled:
+            return self.classifier(self.forward_features(images, input_ids, attention_mask, ablation_mode, tabular))
+        encoded = None if self.training else self.encode_images(images)
+        context_mode = None if c.gate_context_mode == "full" else c.gate_context_mode
+        context = self.forward_features(images, input_ids, attention_mask, context_mode, tabular, encoded)
+        local = self.forward_features(images, input_ids, attention_mask, c.gate_local_mode, tabular, encoded)
+        logits_context, logits_local = self.classifier(context), self.classifier(local)
+        entropy = None
+        if c.gate_use_entropy:
+            probs = torch.softmax(logits_local.float(), dim=1)
+            entropy = -(probs * torch.log(probs + 1e-8)).sum(dim=1, keepdim=True)
+        alpha = self.gate(local, context, entropy)
+        return alpha * logits_local + (1 - alpha) * logits_context
 
     def features_and_logits(self, images: torch.Tensor, input_ids: torch.Tensor, attention_mask: torch.Tensor,
                             ablation_mode: Optional[str] = None, generator: Optional[torch.Generator] = None,
-                            noise: Optional[torch.Tensor] = None):
+                            noise: Optional[torch.Tensor] = None, tabular: Optional[torch.Tensor] = None):
         """(fused feature, float32 logits, the MoE head's balance loss or None):
-        the training forward. ``generator`` (or a test's ``noise``) draws the
+        the training forward, ungated. ``generator`` (or a test's ``noise``) draws the
         MoE head's gating noise."""
-        feats = self.forward_features(images, input_ids, attention_mask, ablation_mode)
+        feats = self.forward_features(images, input_ids, attention_mask, ablation_mode, tabular)
         if isinstance(self.classifier, MoEHead):
             logits, balance = self.classifier.logits_and_balance(feats, generator, noise)
             return feats, logits, balance

@@ -13,6 +13,7 @@ from ..modules.heads import AttentionPoolingHead
 from ..modules.kan import GroupKANLinear, KANLinear, make_grid
 from ..modules.mamba import MambaBlock
 from ..modules.moe import MoE
+from ..modules.sequence import RNN
 from .convnext import ConvNextLayer
 
 
@@ -33,7 +34,9 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
     them to noise of that range), and the grid ``make_grid``'s, never drawn.
     GroupKAN (``kan.py:269-274``): ``act_coeff`` normal with std 0.1 /
     grid_size, ``act_base`` one. The attention-pooling head's ``query``:
-    normal with std 1. MoE: ``w_gate`` and ``w_noise`` zero. ConvNeXt's layer scale: its
+    normal with std 1. The recurrent cells (flax's ``OptimizedLSTMCell`` / ``GRUCell``
+    defaults): input kernels normal with std 1/sqrt(fan_in), each gate's recurrent
+    kernel orthogonal, biases zero. MoE: ``w_gate`` and ``w_noise`` zero. ConvNeXt's layer scale: its
     ``layer_scale_init`` (1e-6). Values are drawn on the generator's
     device in float32 and cast to each parameter's dtype and device.
     """
@@ -77,6 +80,16 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
             m.act_base.fill_(1.0)
         elif isinstance(m, AttentionPoolingHead):
             normal_(m.query, 1.0)
+        elif isinstance(m, RNN):
+            for name, p in m.named_parameters(recurse=False):
+                if name.startswith("weight_ih"):
+                    normal_(p, 1.0 / math.sqrt(p.shape[1]))
+                elif name.startswith("weight_hh"):
+                    for block in p.split(m.hidden_size):
+                        block.copy_(nn.init.orthogonal_(torch.empty(block.shape, device=generator.device),
+                                                        generator=generator))
+                else:
+                    p.zero_()
         elif isinstance(m, MoE):
             m.w_gate.zero_()
             m.w_noise.zero_()

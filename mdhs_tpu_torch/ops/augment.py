@@ -222,7 +222,14 @@ def train_pipeline(images_uint8: torch.Tensor, generator: torch.Generator, out_s
     crop, flips and rotation (by default the MIBF mode's degrees 15 and no vflip),
     then the colour jitter where ``color_jitter``, then ImageNet normalisation
     where ``normalize``. ``params`` and ``jitter`` replace the draws from
-    ``generator`` with given values."""
+    ``generator`` with given values. A 5-D stack (B, T, S, S, 3) goes through as
+    one batch of B * T images, with one draw over the whole stack, and comes back
+    as (B, T, 3, out, out) (``trainer.py:450-455``)."""
+    if images_uint8.ndim == 5:
+        out = train_pipeline(images_uint8.flatten(0, 1), generator, out_size, degrees=degrees, vflip=vflip,
+                             dtype=dtype, params=params, color_jitter=color_jitter, jitter=jitter,
+                             normalize=normalize, stain=stain)
+        return out.unflatten(0, images_uint8.shape[:2])
     x = images_uint8.to(torch.float32) / 255.0
     if stain is not None:
         x = stain_normalize(x, *stain)

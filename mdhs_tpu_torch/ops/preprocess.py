@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from ..device import device_constant
+
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
@@ -18,20 +20,9 @@ _STATS: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def imagenet_stats(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
-    """(mean, std) float32 on ``device``, made once: a tensor made from Python
-    numbers on each call is a synchronous host-to-device copy on the card.
-
-    While ``torch.export`` traces, the pair kept for the device is read as two
-    constants of the program, and a pair made inside the trace is not kept, so
-    no traced tensor reaches a later eager call."""
-    stats = _STATS.get(device)
-    if stats is None:
-        with torch.inference_mode(False):  # usable outside inference mode too
-            stats = (torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=device),
-                     torch.tensor(IMAGENET_STD, dtype=torch.float32, device=device))
-        if not torch.compiler.is_exporting():
-            _STATS[device] = stats
-    return stats
+    """(mean, std) float32 on ``device``, made once (``device_constant``)."""
+    return device_constant(_STATS, device, lambda: (torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=device),
+                                                    torch.tensor(IMAGENET_STD, dtype=torch.float32, device=device)))
 
 
 def normalize_imagenet(x: torch.Tensor, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
@@ -56,8 +47,12 @@ def eval_pipeline(images_uint8: torch.Tensor, image_size: int = 224,
                   normalize: bool = True, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """uint8 NHWC canvas batch -> center-cropped float NCHW (channels_last).
 
-    ``normalize=False`` is the MIBF pipeline, which has no Normalize.
+    ``normalize=False`` is the MIBF pipeline, which has no Normalize. A 5-D
+    stack (B, T, S, S, 3) comes back as (B, T, 3, size, size).
     """
+    if images_uint8.ndim == 5:
+        return eval_pipeline(images_uint8.flatten(0, 1), image_size, normalize, dtype).unflatten(
+            0, images_uint8.shape[:2])
     x = to_float(center_crop(images_uint8, image_size)).contiguous()
     x = normalize_imagenet(x, dtype) if normalize else x.to(dtype)
     return x.permute(0, 3, 1, 2)

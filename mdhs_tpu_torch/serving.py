@@ -1,7 +1,8 @@
 """Serving runtime: a live model of any family, or an exported artifact.
 
 Counterpart of ``mdhs_tpu/serving.py::ServingModel``. ``ServeFunction`` is
-the served step, (uint8 image, input_ids, attention_mask) -> float32 logits:
+the served step, (uint8 image, input_ids, attention_mask[, tabular]) ->
+float32 logits:
 the eval preprocessing on the device (``ops/preprocess.py::eval_pipeline``),
 with ``tta`` (a tuple of ``ops/tta.py``'s transforms) the original and the
 variants as one batch with their logits averaged, and the family's logits:
@@ -30,8 +31,11 @@ model code. A serving process:
     pinned buffer, and the host waits only on the event of the request it
     fetches.
 
-A request is a dict of numpy arrays: ``image`` uint8 ``(n, H, W, 3)``,
-``input_ids`` and ``attention_mask`` ``(n, L)``, with ``n <= batch_size``.
+A request is a dict of numpy arrays: ``image`` uint8 ``(n, H, W, 3)`` (a live
+baseline with a sequence encoder also takes ``(n, T, H, W, 3)``),
+``input_ids`` and ``attention_mask`` ``(n, L)``, with ``n <= batch_size``,
+and for a baseline with the tabular branch ``tabular`` float32 ``(n,
+width)``. An artifact takes what its ``meta.json`` lists.
 
 The artifact is one file, ``torch.export.save``'s archive of the exported
 program (the weights inside it, the int8 weights and the stacked MoE bank as
@@ -62,10 +66,20 @@ META = "meta.json"
 _INPUTS = {"image": torch.uint8, "input_ids": torch.int64, "attention_mask": torch.int64}
 
 
+def model_inputs(model: nn.Module) -> dict:
+    """{name: dtype} of the inputs the served step of ``model`` takes: the image
+    and the tokens, and ``tabular`` for a baseline with the tabular branch."""
+    cfg = getattr(model, "cfg", None)
+    return {**_INPUTS, "tabular": torch.float32} if getattr(cfg, "tabular_enabled", False) else dict(_INPUTS)
+
+
 class ServeFunction(nn.Module):
-    """The served step of ``model``: ``forward(image, input_ids, attention_mask)``
-    takes the uint8 canvases ``(B, H, W, 3)`` and the tokens ``(B, L)`` on the
-    device and returns the float32 logits ``(B, labels)``."""
+    """The served step of ``model``: ``forward(image, input_ids, attention_mask,
+    tabular=None)`` takes the uint8 canvases ``(B, H, W, 3)`` (or a 5-D stack),
+    the tokens ``(B, L)`` and, for the tabular branch, the float32 records on the
+    device and returns the float32 logits ``(B, labels)``. A model without the
+    branch ignores ``tabular``, as JAX's eval step does (an artifact of such a
+    model exported from a config with ``model.tabular`` on takes the input)."""
 
     def __init__(self, model: nn.Module, image_size: int = 224, tta: Sequence[str] = (),
                  ablation_mode: Optional[str] = None):
@@ -76,21 +90,24 @@ class ServeFunction(nn.Module):
         self.dtype = model.input_dtype
         self.tta = tuple(tta)
         self.forward_kwargs = {} if ablation_mode is None else {"ablation_mode": ablation_mode}
+        self.takes_tabular = "tabular" in model_inputs(model)
 
-    def _logits(self, images, input_ids, attention_mask) -> torch.Tensor:
+    def _logits(self, images, input_ids, attention_mask, tabular=None) -> torch.Tensor:
         """The model's float32 logits of a preprocessed batch."""
-        logits = self.model(images, input_ids, attention_mask, **self.forward_kwargs)
+        kwargs = {**self.forward_kwargs, "tabular": tabular} if self.takes_tabular else self.forward_kwargs
+        logits = self.model(images, input_ids, attention_mask, **kwargs)
         if isinstance(logits, dict):  # MIBF-Net's three heads
             return logits["image_text"]
         if isinstance(logits, tuple):  # ConNexT's (logits, balance loss)
             return logits[0]
         return logits
 
-    def forward(self, image: torch.Tensor, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, image: torch.Tensor, input_ids: torch.Tensor, attention_mask: torch.Tensor,
+                tabular: Optional[torch.Tensor] = None) -> torch.Tensor:
         images = eval_pipeline(image, self.image_size, normalize=self.normalize, dtype=self.dtype)
         if self.tta:
-            return tta_logits(self._logits, images, input_ids, attention_mask, transforms=self.tta)
-        return self._logits(images, input_ids, attention_mask)
+            return tta_logits(self._logits, images, input_ids, attention_mask, tabular, transforms=self.tta)
+        return self._logits(images, input_ids, attention_mask, tabular)
 
 
 def read_meta(path: str) -> dict:
@@ -117,6 +134,7 @@ class ServingModel:
         self.model = model.to(device=self.device, memory_format=torch.channels_last).eval()
         self.fn = ServeFunction(self.model, image_size, tta, ablation_mode)
         self.dtype, self.normalize, self.tta = self.fn.dtype, self.fn.normalize, self.fn.tta
+        self.inputs = model_inputs(self.model)
         self.input_spec: Optional[dict] = None  # a live model takes the first request's shapes
         self._slots: list[dict] = []  # host staging buffers, one per in-flight request
 
@@ -137,6 +155,7 @@ class ServingModel:
         self.dtype, self.normalize = getattr(torch, meta["image_dtype"]), bool(meta["normalize"])
         self.tta = tuple(meta["tta"])
         self.input_spec = {k: (tuple(shape), dtype) for k, (shape, dtype) in meta["inputs"].items()}
+        self.inputs = {k: getattr(torch, dtype) for k, (_, dtype) in self.input_spec.items()}
         self.meta = meta
         self._slots = []
         return self
@@ -149,7 +168,7 @@ class ServingModel:
             pin = self.device.type == "cuda"
             shape = ((lambda k: self.input_spec[k][0]) if self.input_spec else
                      (lambda k: (self.batch_size,) + np.shape(batch[k])[1:]))
-            self._slots.append({k: torch.zeros(shape(k), dtype=dt, pin_memory=pin) for k, dt in _INPUTS.items()})
+            self._slots.append({k: torch.zeros(shape(k), dtype=dt, pin_memory=pin) for k, dt in self.inputs.items()})
         return self._slots[i]
 
     def _dispatch(self, batch: dict, slot: int):
@@ -157,7 +176,7 @@ class ServingModel:
         n = int(np.shape(batch["image"])[0])
         if not 1 <= n <= self.batch_size:
             raise ValueError(f"request of {n} rows; the static batch is {self.batch_size}")
-        for k in _INPUTS:
+        for k in self.inputs:
             if k not in batch:
                 raise KeyError(f"serving request missing input {k!r}")
         bufs = self._slot(slot, batch)
@@ -168,7 +187,7 @@ class ServingModel:
             buf[:n].copy_(v)
             buf[n:].zero_()
         with torch.inference_mode():
-            dev = [bufs[k].to(self.device, non_blocking=True) for k in _INPUTS]
+            dev = [bufs[k].to(self.device, non_blocking=True) for k in self.inputs]
             logits = self.fn(*dev)
             if self.device.type != "cuda":
                 return logits, n

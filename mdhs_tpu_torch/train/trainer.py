@@ -11,9 +11,11 @@ checkpoints, pretrained towers, ``training.resume_from``), ``train_step``
 anything is built, for what is not ported yet, naming its ROADMAP item.
 
 A step takes a host batch of numpy arrays as ``data/loader.py`` yields it
-(``image`` uint8 (B, S, S, 3), ``input_ids``, ``attention_mask``, ``label``,
-optional ``n_valid``), copies it to the device through pinned staging
-buffers, augments on the device (``ops/augment.py``: crop, flips, the 3-shear
+(``image`` uint8 (B, S, S, 3), or (B, T, S, S, 3) for the sequence and
+multi-view modes, ``input_ids``, ``attention_mask``, ``label``, optional
+``tabular`` float32 (B, width) and ``n_valid``), copies it to the device
+through pinned staging buffers, augments on the device (a 5-D stack as one
+B * T batch with one draw, as ``trainer.py:407-456``) (``ops/augment.py``: crop, flips, the 3-shear
 rotation through the ``shear_sublane`` kernel; for the baseline and ConNexT
 colour jitter and ImageNet normalisation too; ``data.stain_normalization``
 before the crop, ``ops/stain_norm.py``), runs the training forward, the
@@ -94,7 +96,7 @@ from ..core.checkpoint import (TopKCheckpointManager, host_state_dict, is_flax_m
                                merge_tolerant)
 from ..core.config import Config
 from ..core.pretrained import load_pretrained
-from ..data.datasets import DatasetOptions, MultimodalDataset
+from ..data.datasets import DatasetOptions, MultimodalDataset, tabular_dim
 from ..data.loader import DataLoader
 from ..data.tokenizer import load_tokenizer
 from ..device import resolve_device
@@ -204,29 +206,13 @@ def preset_from_config(cfg: Config, family: str, bert: BertConfig) -> TrainPrese
     )
 
 
-def dataset_options(cfg: Config, family: str, split: str) -> DatasetOptions:
-    """``trainer.py:299-343``'s dataset options for ``split``."""
-    d = cfg.get("data")
-    return DatasetOptions(
-        max_length=cfg.get("tokenizer.max_length", 128),
-        tabular_enabled=bool(cfg.get("model.tabular.enabled", False)),
-        extra_image_dirs=tuple(d.get("extra_image_dirs", []) or []),
-        pseudo_2p5d=bool(d.get("pseudo_2p5d.enabled", False)),
-        sequence=bool(d.get("sequence.enabled", False)),
-        multi_view=bool(d.get("multi_view.enabled", False)),
-        clean_cjk_text=family == "mibf",
-        canvas=int(cfg.get("data.canvas", 256)),
-        llm_hidden_json=d.get(f"{split}_llm_hidden_json") or d.get("llm_hidden_json"),
-        cache=bool(d.get("cache", True)),
-    )
-
-
 def check_trainable(cfg: Config, family: str) -> None:
     """Raise for what the port does not train yet, before anything is built:
-    the host augmentation, Muon and the other data modes (the dataset's own
+    the host augmentation, Muon, the LLM hidden states (the dataset's own
     check), ``parallel.n_model`` > 1, and for the baseline family the model's
-    own check (the other fusions, the gate, sequence, tabular and global/local
-    branches), each naming its ROADMAP item."""
+    own check (the other fusions, ``remat``), each naming its ROADMAP item; and
+    a stacked data mode (multi-view, sequence) for a family without a sequence
+    encoder, whose towers take 4-D images."""
     if family not in FAMILIES:
         raise ValueError(f"unknown model family: {family}")
     if (cfg.get("data.augment", {}) or {}).get("host", False):
@@ -237,7 +223,11 @@ def check_trainable(cfg: Config, family: str) -> None:
     if int(cfg.get("parallel.n_model", 1)) > 1:
         raise NotImplementedError("parallel.n_model > 1 is not ported yet: ROADMAP Queue 1 item 12")
     if cfg.get("data") is not None:
-        dataset_options(cfg, family, "train").check_ported()
+        opts = DatasetOptions.from_config(cfg, family, "train")
+        opts.check_ported()
+        if family != "baseline" and (opts.multi_view or opts.sequence):
+            raise ValueError("data.multi_view and data.sequence make (B, T, ...) image stacks, which only the "
+                             f"baseline family's sequence encoder takes, not {family!r}")
     if family == "baseline":
         model_config(cfg, family, 30522).check_ported()  # any vocabulary: the check reads none
     flatten = cfg.get("training.flatten_optimizer", False)
@@ -246,7 +236,7 @@ def check_trainable(cfg: Config, family: str) -> None:
 
 
 _INPUTS = {"image": torch.uint8, "input_ids": torch.int64, "attention_mask": torch.int64,
-           "label": torch.int64}
+           "label": torch.int64, "tabular": torch.float32}
 # float32 parameters inside a bf16 module: every one of these modules' own, and Mamba's named ones
 _FLOAT32_MODULES = (nn.BatchNorm2d, KANLinear, MoE, GroupKANLinear)
 _FLOAT32_MAMBA = ("dt_bias", "A_log", "D")
@@ -317,8 +307,11 @@ class Trainer:
                 self.train_loader = self._make_loader("train")
                 self.val_loader = self._make_loader("val")
             if model is None:
+                # the tabular width from a loader's dataset, else from the metadata CSV (trainer.py:217-236)
+                src = self.train_loader or self.val_loader
+                width = src.dataset.tabular_dim if src is not None else tabular_dim(cfg)
                 model = init_parameters(build_model(cfg, self.family, self.tokenizer, device=self.device,
-                                                    dtype=torch.float32),
+                                                    dtype=torch.float32, tabular_dim=width),
                                         torch.Generator(device=self.device).manual_seed(int(cfg.get("training.seed", 0))))
             text = model.text_encoder
             preset = preset_from_config(cfg, self.family, (text.model if self.family == "baseline" else text.bert).cfg)
@@ -378,7 +371,7 @@ class Trainer:
         if image_dir is None:
             return None
         ds = MultimodalDataset(image_dir, d.get(f"{split}_json_path"), d.get(f"{split}_label_csv"), self.tokenizer,
-                               dataset_options(cfg, self.family, split))
+                               DatasetOptions.from_config(cfg, self.family, split))
         is_train = split == "train"
         return DataLoader(ds, batch_size=int(cfg.get("training.batch_size", 32)), shuffle=is_train,
                           weighted=is_train and cfg.get("training.sampler") == "weighted",
@@ -510,14 +503,15 @@ class Trainer:
         """Host batch -> device tensors. On the card each array goes through a
         pinned buffer and a non-blocking copy on the current stream; a ring of
         two buffer sets is reused once the copies out of it have run."""
+        keys = {k: dt for k, dt in _INPUTS.items() if k in batch}
         if self.device.type != "cuda":
-            return {k: torch.as_tensor(np.asarray(batch[k])).to(dt) for k, dt in _INPUTS.items()}
+            return {k: torch.as_tensor(np.asarray(batch[k])).to(dt) for k, dt in keys.items()}
         slot = self._staging[self._n_staged % len(self._staging)]
         self._n_staged += 1
         if slot["copied"] is not None:
             slot["copied"].synchronize()
         out = {}
-        for k, dt in _INPUTS.items():
+        for k, dt in keys.items():
             v = torch.from_numpy(np.ascontiguousarray(batch[k]))
             buf = slot["bufs"].get(k)
             if buf is None or buf.shape != v.shape:
@@ -576,17 +570,17 @@ class Trainer:
     def _forward(self, images, dev, train: bool, noise=None):
         """(what the criterion takes, the joint logits, the balance loss or None,
         the baseline's fused feature in training or None)."""
-        ids, mask = dev["input_ids"], dev["attention_mask"]
+        ids, mask, tab = dev["input_ids"], dev["attention_mask"], dev.get("tabular")
         if self.family == "mibf":
             out = self.model(images, ids, mask)
             return out, out["image_text"], None, None
         gen = self.gating_generator if train else None
         if self.family == "baseline":
             if not train:
-                logits = self.model(images, ids, mask, self.preset.ablation_mode)
+                logits = self.model(images, ids, mask, self.preset.ablation_mode, tabular=tab)
                 return logits, logits, None, None
             feats, logits, balance = self.model.features_and_logits(images, ids, mask, self.preset.ablation_mode,
-                                                                    generator=gen, noise=noise)
+                                                                    generator=gen, noise=noise, tabular=tab)
             return logits, logits, balance, feats
         logits, balance = self.model(images, ids, mask, train=train, generator=gen, noise=noise)
         return logits, logits, balance, None

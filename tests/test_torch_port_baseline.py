@@ -229,8 +229,8 @@ def test_baseline_config_mirrors_the_jax_fields():
 
 
 @pytest.mark.parametrize("field, value, match", [
-    ("gate_enabled", True, "gate"), ("sequence_enabled", True, "sequence"), ("tabular_enabled", True, "tabular"),
-    ("global_local_enabled", True, "global/local"), ("remat", "full", "item 8"),
+    ("fusion_type", "weighted_concat", "item 10"), ("fusion_type", "hadamard", "item 10"),
+    ("remat", "selective", "item 8"), ("image_backbone", "mamba_vision_S", "item 11"), ("remat", "full", "item 8"),
     ("fusion_type", "basic", "item 10"), ("fusion_type", "vmamba", "item 10"), ("fusion_type", "hierarchical", "item 10"),
     ("fusion_type", "concat", "item 10"), ("fusion_type", "bilinear", "item 10"),
     ("image_backbone", "mamba_vision_T", "item 11"),

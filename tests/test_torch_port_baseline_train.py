@@ -689,11 +689,11 @@ def test_a_last_pt_of_another_configuration_gives_its_weights_only(tmp_path):
 @pytest.mark.parametrize("overrides, exc, match", [
     (["model.fusion_type=concat"], NotImplementedError, "Queue 1 item 10"),
     (["model.fusion_type=vmamba"], NotImplementedError, "Queue 1 item 10"),
-    (["model.gate.enabled=true"], NotImplementedError, "Queue 1 item 10"),
-    (["model.sequence_encoder.enabled=true"], NotImplementedError, "Queue 1 item 10"),
-    (["model.global_local.enabled=true"], NotImplementedError, "Queue 1 item 10"),
-    (["model.tabular.enabled=true"], NotImplementedError, "Queue 1 item 10"),
-    (["data.multi_view.enabled=true"], NotImplementedError, "Queue 1 item 10"),
+    (["model.fusion_type=basic"], NotImplementedError, "Queue 1 item 10"),
+    (["model.fusion_type=weighted_concat"], NotImplementedError, "Queue 1 item 10"),
+    (["model.fusion_type=hadamard"], NotImplementedError, "Queue 1 item 10"),
+    (["model.fusion_type=hierarchical"], NotImplementedError, "Queue 1 item 10"),
+    (["data.train_llm_hidden_json=hidden.json"], NotImplementedError, "Queue 1 item 11"),
     (["training.optimizer=Muon"], NotImplementedError, "Queue 1 item 8"),
     (["data.augment.host=true"], NotImplementedError, "Queue 1 item 8"),
     (["parallel.n_model=2"], NotImplementedError, "Queue 1 item 12"),

@@ -265,8 +265,8 @@ def test_tolerant_merge_warns_about_the_names_merge_tolerant_does(cases, name):
 # --- refusals --------------------------------------------------------------------------------
 @pytest.mark.parametrize("overrides, item", [
     (["model.fusion_type=concat"], "item 10"), (["model.fusion_type=bilinear"], "item 10"),
-    (["data.multi_view.enabled=true"], "item 10"), (["model.image_encoder.backbone=mamba_vision_T"], "item 11"),
-    (["model.tabular.enabled=true"], "item 10"),
+    (["model.fusion_type=hadamard"], "item 10"), (["model.image_encoder.backbone=mamba_vision_T"], "item 11"),
+    (["data.test_llm_hidden_json=hidden.json"], "item 11"),
 ])
 def test_unported_options_raise_naming_their_roadmap_item(tmp_path, overrides, item):
     paths = generate_synthetic_dataset(str(tmp_path), num_images=2, image_size=16)

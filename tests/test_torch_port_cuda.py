@@ -1521,3 +1521,86 @@ def test_baseline_trainer_step_launches_its_kernels(dev, fusion, head, kernel, p
     if kernel:
         want[kernel] = per_step
     assert got == want and bool(torch.isfinite(m["loss"]))
+
+
+# --------------------------------------------------------------------------- the baseline's branches (Spine)
+# The Spine sequence configurations augment a (64, 5) stack of slices as one batch of 320: the
+# shear at N = 320, both of its pads, bit for bit against its plain version. The branch modules in
+# bf16 on the card against their float32 plain forms on the same weights: max |d| within 2^-5 of the
+# largest float32 output and mean |d| within 2^-8 of it (a few bf16 steps of rounding through
+# the recurrence's five steps, the transformer's layer, the resize's two products).
+from mdhs_tpu_torch.models.baseline import center_crop_resize  # noqa: E402
+from mdhs_tpu_torch.modules.gating import DualExpertGate  # noqa: E402
+from mdhs_tpu_torch.modules.sequence import SequenceEncoder  # noqa: E402
+from mdhs_tpu_torch.modules.tabular import TabularEncoder  # noqa: E402
+
+
+@pytest.mark.parametrize("pad", [49, 82])
+def test_shear_kernel_at_the_spine_stack_of_320_is_bit_exact(dev, pad):
+    rng = np.random.default_rng(320 + pad)
+    x = torch.zeros((320, 3, 224 + 2 * pad, 224), dtype=torch.float32)
+    x[:, :, pad:pad + 224] = torch.from_numpy(rng.random((320, 3, 224, 224), dtype=np.float32))
+    d = torch.from_numpy((rng.uniform(-1, 1, (320, 224)) * (pad - 0.01)).astype(np.float32))
+    x, d = x.to(dev), d.to(dev)
+    assert sh.supports(tuple(x.shape), x.dtype, pad)
+    n = sh.shear_sublane.launches
+    out = sh.shear_sublane(x, d, pad)
+    torch.cuda.synchronize()
+    assert sh.shear_sublane.launches == n + 1
+    assert torch.equal(out, sh.shear_reference(x, d, pad))
+
+
+def test_five_d_stack_augments_through_the_kernel_as_one_batch(dev):
+    """A (B, T) stack's augmentation launches three shears over B * T images, bit for bit
+    the plain shear's, and comes back as (B, T, 3, out, out)."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    imgs = torch.randint(0, 256, (4, 5, 72, 72, 3), dtype=torch.uint8, device=dev, generator=g)
+    p = aug.sample_crop_flip_rotate(20, 72, g, vflip=True, degrees=45.0)
+    n = sh.shear_sublane.launches
+    out = aug.train_pipeline(imgs, g, 64, degrees=45.0, vflip=True, params=p, normalize=True)
+    assert sh.shear_sublane.launches == n + 3 and out.shape == (4, 5, 3, 64, 64)
+    real = aug.shear_sublane
+    aug.shear_sublane = sh.shear_reference
+    try:
+        ref = aug.train_pipeline(imgs, g, 64, degrees=45.0, vflip=True, params=p, normalize=True)
+    finally:
+        aug.shear_sublane = real
+    assert torch.equal(out, ref)
+
+
+def _bf16_close(out, ref):
+    out, ref = out.float().cpu(), ref.float().cpu()
+    scale = ref.abs().max().item()
+    d = (out - ref).abs()
+    assert torch.isfinite(out).all() and d.max().item() <= 2.0 ** -5 * scale and d.mean().item() <= 2.0 ** -8 * scale, \
+        (d.max().item(), d.mean().item(), scale)
+
+
+@pytest.mark.parametrize("kind, bi, layers", [("lstm", True, 1), ("lstm", False, 2), ("gru", True, 1),
+                                              ("transformer", True, 1)])
+def test_sequence_encoder_in_bf16_matches_float32(dev, kind, bi, layers):
+    g = torch.Generator().manual_seed(7)
+    f32 = init_parameters(SequenceEncoder(256, 256, kind, layers, bi, 0.0, 4), g).eval()
+    bf16 = init_parameters(SequenceEncoder(256, 256, kind, layers, bi, 0.0, 4), torch.Generator().manual_seed(7))
+    bf16 = bf16.to(dev, torch.bfloat16).eval()
+    x = torch.randn((64, 5, 256), generator=torch.Generator().manual_seed(8))
+    with torch.inference_mode():
+        out = bf16(x.to(dev, torch.bfloat16))
+        ref = f32(x)
+    assert out.dtype == torch.bfloat16 and out.shape == (64, 256)
+    _bf16_close(out, ref)
+
+
+def test_tabular_encoder_gate_and_resize_in_bf16_match_float32(dev):
+    g = torch.Generator().manual_seed(9)
+    x = torch.randn((32, 13), generator=g)
+    tab = init_parameters(TabularEncoder(13, 128, 0.0), g).eval()
+    gate = init_parameters(DualExpertGate(256, 128, True), g).eval()
+    loc, ctx, ent = torch.randn((32, 256), generator=g), torch.randn((32, 256), generator=g), torch.rand((32, 1))
+    img = torch.rand((8, 3, 224, 224), generator=g)
+    with torch.inference_mode():
+        _bf16_close(tab.to(dev, torch.bfloat16)(x.to(dev)), tab.float().cpu()(x))
+        alpha = gate.to(dev, torch.bfloat16)(loc.to(dev, torch.bfloat16), ctx.to(dev, torch.bfloat16), ent.to(dev))
+        assert alpha.dtype == torch.float32
+        _bf16_close(alpha, gate.float().cpu()(loc, ctx, ent))
+        _bf16_close(center_crop_resize(img.to(dev, torch.bfloat16), 0.6), center_crop_resize(img, 0.6))

@@ -297,8 +297,7 @@ def test_dataset_without_pil_reads_png_and_zeroes_what_it_cannot_read(synth, tmp
             np.testing.assert_array_equal(r["image"], ref["image"])
 
 
-@pytest.mark.parametrize("opt, item", [("multi_view", "10"), ("sequence", "10"), ("pseudo_2p5d", "10"),
-                                       ("tabular_enabled", "10"), ("host_augment", "8")])
+@pytest.mark.parametrize("opt, item", [("llm_hidden_json", "11"), ("host_augment", "8")])
 def test_unported_dataset_modes_raise_naming_their_item(synth, opt, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}"):
         tdata.MultimodalDataset(synth["image_dir"], synth["json_path"], synth["label_csv"],

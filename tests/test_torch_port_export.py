@@ -46,6 +46,7 @@ import torch
 
 from mdhs_tpu.cli import export_serving as jexport
 from mdhs_tpu.cli import run_serve as jserve
+from mdhs_tpu.data.datasets import build_tabular_map as jtabular_map
 from mdhs_tpu_torch.cli import export_serving as texport
 from mdhs_tpu_torch.cli import run_serve as tserve
 from mdhs_tpu_torch.models.baseline import BaselineConfig, MultimodalBaselineModel
@@ -234,11 +235,31 @@ def test_port_artifact_matches_the_jax_artifact(cases, port_artifacts, name, tmp
     assert len(ids) == len(preds) == 10 and _rows(tcsv) == _rows(jcsv) and len(_rows(tcsv)) == 11
 
 
-def test_export_refuses_a_tabular_config_naming_its_roadmap_item(cases, tmp_path):
+def test_an_mibf_config_with_tabular_exports_the_jax_artifacts_tabular_input(cases, tmp_path, monkeypatch):
+    """The tabular width comes from the metadata CSV for every family, as the JAX Trainer's predict-only
+    construction takes it: an MIBF config with ``model.tabular`` on exports with JAX's ``tabular`` input,
+    which MIBF-Net ignores in both packages; the logits within the CLI bound, the run_serve CSVs equal."""
     case = cases("mibf")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        texport.main(case.argv("--output", str(tmp_path / "t.pt2"), "--family", "mibf", "--device", "cpu",
-                               "--set", "model.tabular.enabled=true"))
+    sets = ("--set", "model.tabular.enabled=true")
+    cfg = json.loads(Path(case.cfg).read_text())
+    width = jtabular_map(cfg["data"]["metadata_csv"], ["age", "sex", "localization"])[1]
+    monkeypatch.setattr(case.trainer, "_tabular_dim", width)  # what JAX's build_trainer(setup_data=False) gives
+    jart, tart = str(tmp_path / "model.jaxexport"), str(tmp_path / "model.pt2")
+    jinfo = case.jax_cli(monkeypatch, jexport, case.argv("--output", jart, "--family", "mibf", "--batch_size", "4",
+                                                         *sets))
+    info = texport.main(case.argv("--output", tart, "--family", "mibf", "--batch_size", "4", "--device", "cpu",
+                                  *sets))
+    assert width > 0 and info["inputs"]["tabular"] == jinfo["inputs"]["tabular"] == [[4, width], "float32"]
+    batch = {**_jax_batch(0), "tabular": np.random.default_rng(1).standard_normal((4, width)).astype(np.float32)}
+    loaded = ServingModel.load(tart, "cpu")
+    got = loaded.predict(batch)
+    np.testing.assert_allclose(got, np.asarray(jexport.load_and_run(jart, batch), np.float32), atol=ATOL, rtol=RTOL)
+    assert np.array_equal(loaded.predict({**batch, "tabular": batch["tabular"] + 1.0}), got)
+    jcsv, tcsv = str(tmp_path / "jax.csv"), str(tmp_path / "port.csv")
+    jserve.main(["--artifact", jart, "--config", case.cfg, "--output_path", jcsv, "--family", "mibf", *sets])
+    ids, _ = tserve.main(["--artifact", tart, "--config", case.cfg, "--output_path", tcsv, "--family", "mibf",
+                          "--device", "cpu", *sets])
+    assert len(ids) == 10 and _rows(tcsv) == _rows(jcsv)
 
 
 # --- (d) the runtime around a loaded artifact --------------------------------------------------
@@ -337,6 +358,7 @@ def test_a_process_without_model_code_loads_and_serves_an_artifact(cases, port_a
     """)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(REPO)
+    env["OMP_NUM_THREADS"] = "2"  # as this process's two: the suite's other workers share the cores
     proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True, cwd=REPO, env=env,
                           timeout=300)
     assert proc.returncode == 0, proc.stderr

@@ -224,6 +224,7 @@ def test_package_imports_no_jax_and_runs_the_slice():
     """)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(REPO)
+    env["OMP_NUM_THREADS"] = "2"  # as this process's two: the suite's other workers share the cores
     proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
                           cwd=REPO, env=env, timeout=300)
     assert proc.returncode == 0, proc.stderr

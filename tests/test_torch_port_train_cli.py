@@ -460,9 +460,9 @@ def test_run_train_then_predict_and_resume(tmp_path, monkeypatch):
 
 # --------------------------------------------------------------------------- refusals
 @pytest.mark.parametrize("overrides, exc, match", [
-    (["data.multi_view.enabled=true"], NotImplementedError, "Queue 1 item 10"),
+    (["data.multi_view.enabled=true"], ValueError, "sequence encoder"),
     (["data.augment.host=true"], NotImplementedError, "Queue 1 item 8"),
-    (["model.tabular.enabled=true"], NotImplementedError, "Queue 1 item 10"),
+    (["model.tabular.enabled=true"], ValueError, "metadata_csv"),
     (["training.flatten_optimizer=sideways"], ValueError, "flatten_optimizer"),
     (["training.optimizer=Muon"], NotImplementedError, "Queue 1 item 8"),
     (["parallel.n_model=2"], NotImplementedError, "Queue 1 item 12"),
