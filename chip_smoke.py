@@ -342,11 +342,31 @@ Phases, each printing JSON lines:
               trained 2 steps, exported with its tabular input at batch 64,
               loaded by ServingModel.load: launches and logits as the live
               model's bit for bit, run_serve's CSV run_predict's
+ 18. fusion   (after spine) the baseline's seven remaining fusions through the
+              configurations that name them (mdhs_tpu_torch/configs/
+              ham_fusion_{crossattn,weighted,hadamard,bilinear,vmamba}_v1,
+              ham_tta_attention_basic_mlp_v1, spine_hierarchical_v1), on 256
+              records over 64 seeded 600 x 450 PNGs (FUSION_DIR, removed
+              after): each served live at full width, batch 64, seq 128 (the
+              TTA configuration one fused forward of 256 rows): 12 + 12
+              launches a forward and 2 selective_scan with vmamba; the logits
+              against BERT's two sublayers on their plain versions (vmamba:
+              selective_scan alone) at the spine phase's bounds; CUDA-event
+              and device ms, busy share, sync_free. run_train of
+              ham_fusion_vmamba_v1 (3 steps: 3 shears and 2 scans a step, the
+              scans' backward the associative VJP) with a step against the
+              plain scan (BASELINE_TRAIN_LOSS_REL, BASELINE_TRAIN_GRAD_COS),
+              step ms and device ms; of ham_fusion_crossattn_v1 and
+              spine_hierarchical_v1 (2 steps); run_predict of the TTA
+              configuration over the crossattn run's best checkpoint, bit for
+              bit the live TTA server; the vmamba and hierarchical artifacts
+              bit for bit their live models with the same launches. The
+              kernels phase holds selective_scan at (64, 49, 64), N 16 too
 Every device breakdown (device_profile) comes from a trace checked to hold
 whole calls: a census of one call against two names the kernels every call
 launches, and a trace that lost a record of one is taken again; the census,
 the records and the wrappers' launches of one call print beside it.
-Every served phase (slice, preset, seq512, flash, baseline, connext, export) runs one warm
+Every served phase (slice, preset, seq512, flash, baseline, connext, export, spine, fusion) runs one warm
 forward from device-resident inputs under torch.cuda.set_sync_debug_mode(
 "error") ("sync_free"): a call that makes the host wait on the device fails
 the script.
@@ -1187,14 +1207,17 @@ def _kernel_cases(dev, rng, seed):
                       (x, bns.bn_stats_reference(x)[0], *grads), stem, bound_bn_stats_backward(R, C, 2), None,
                       judge_bf16_ulp))
     # the Mamba fusion's scan at batch 64: 49 layer4 tokens, d_inner 512, N 16; and the
-    # gate's other state sizes (MambaVision's N 8, the multimodal Mamba fusion's N 128)
-    for B, L, D, N in ((BASELINE_BATCH, 49, 512, 16), (BASELINE_BATCH, 196, 320, 8), (16, 64, 512, 128)):
+    # gate's other state sizes (MambaVision's N 8, the multimodal Mamba fusion's N 128); then the vmamba
+    # fusion's two scans, 49 layer4 tokens projected to 32, d_inner 64, N 16, from a generator of its
+    # own, so the cases and phases after it get the inputs they got before it was added
+    for B, L, D, N, g in ((BASELINE_BATCH, 49, 512, 16, rng), (BASELINE_BATCH, 196, 320, 8, rng),
+                          (16, 64, 512, 128, rng), (BASELINE_BATCH, 49, 64, 16, np.random.default_rng([seed, 64]))):
         f = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
-        args = (f(rng.standard_normal((B, L, D))), f(np.log1p(np.exp(rng.standard_normal((B, L, D)) - 2.0))),
+        args = (f(g.standard_normal((B, L, D))), f(np.log1p(np.exp(g.standard_normal((B, L, D)) - 2.0))),
                 -torch.arange(1, N + 1, dtype=torch.float32, device=dev).expand(D, N).contiguous(),
-                f(rng.standard_normal((B, L, N))), f(rng.standard_normal((B, L, N))), f(np.ones(D)))
-        cases.append(("selective_scan", f"B={B},L={L},D={D},N={N}", ss.selective_scan_reference, args, N == 16,
-                      bound_selective_scan(B, L, D, N), None, judge_f32))
+                f(g.standard_normal((B, L, N))), f(g.standard_normal((B, L, N))), f(np.ones(D)))
+        cases.append(("selective_scan", f"B={B},L={L},D={D},N={N}", ss.selective_scan_reference, args,
+                      (D, N) == (512, 16), bound_selective_scan(B, L, D, N), None, judge_f32))
     # the MoE head's KAN bank at batch 64: 4 experts, layer 0 (256 -> 1024, x shared) and layer 1 (1024 -> 7)
     E, H = HAM_HEAD_MOE.moe_num_experts, HAM_HEAD_MOE.hidden_dim
     for IN, OUT, shared in ((H, 4 * H, True), (4 * H, HAM_HEAD_MOE.num_classes, False)):
@@ -3773,6 +3796,277 @@ def phase_spine(dev, seed: int) -> dict:
     return {**by_path, **serve_paths, **export_paths}
 
 
+FUSION_DIR = REPO / "mdhs_tpu_torch" / "build" / "fusion_smoke"  # git-ignored; removed when the phase ends
+# the configurations that name the baseline fusions other than multiscale and mamba, served live at batch 64, seq 128
+FUSION_SERVED = ("ham_fusion_crossattn_v1", "ham_tta_attention_basic_mlp_v1", "ham_fusion_weighted_v1",
+                 "ham_fusion_hadamard_v1", "ham_fusion_bilinear_v1", "ham_fusion_vmamba_v1", "spine_hierarchical_v1")
+# the phase's records: FUSION_PNGS seeded 600 x 450 images, each under several names; 192 train
+# records (3 steps at batch 64; the first 128, 2 steps), 64 val / test records (one batch)
+FUSION_PNGS, FUSION_TRAIN, FUSION_VAL = 64, 3 * BASELINE_BATCH, BASELINE_BATCH
+
+
+def _fusion_inputs(seed: int) -> dict:
+    """FUSION_TRAIN + FUSION_VAL records over FUSION_PNGS images, a JSON of their descriptions (8-300
+    words: most past seq 128), label CSVs of 7 classes and, for the Spine configuration, of 6."""
+    rng = np.random.default_rng([seed, 80])
+    img_dir = FUSION_DIR / "images"
+    img_dir.mkdir(parents=True)
+    names = [f"ISIC_{i:07d}.png" for i in range(FUSION_TRAIN + FUSION_VAL)]
+    for i, name in enumerate(names):
+        if i < FUSION_PNGS:
+            png.write_png(str(img_dir / name), _cli_image(rng))
+        else:
+            shutil.copyfile(img_dir / names[i % FUSION_PNGS], img_dir / name)
+    (FUSION_DIR / "descriptions.json").write_text(json.dumps(
+        [{"image_info": n, "description": " ".join(rng.choice(CLI_WORDS, int(rng.integers(8, 300))))} for n in names]))
+    labels = rng.integers(0, LABELS, len(names))
+    splits = {"train": names[:FUSION_TRAIN], "train2": names[:2 * BASELINE_BATCH], "val": names[FUSION_TRAIN:]}
+    csvs = {}
+    for classes in (LABELS, 6):
+        for split, rows in splits.items():
+            path = FUSION_DIR / f"labels_{split}_{classes}.csv"
+            path.write_text("image_id,label\n" + "".join(f"{n},{labels[names.index(n)] % classes}\n" for n in rows))
+            csvs[split, classes] = str(path)
+    return {"image_dir": str(img_dir), "json_path": str(FUSION_DIR / "descriptions.json"), "label_csv": csvs}
+
+
+def _fusion_config(name: str, inputs: dict, train: str = "train", **sets) -> str:
+    """mdhs_tpu_torch/configs/<name>.json on the phase's records (the label CSVs of its class count),
+    with ``sets`` (dotted keys as ``__``), as JSON; its path."""
+    cfg = load_config(REPO / "mdhs_tpu_torch" / "configs" / f"{name}.json")
+    csv = lambda split: inputs["label_csv"][split, cfg.get("model.num_classes")]  # noqa: E731
+    for key, val in (("data.train_image_dir", inputs["image_dir"]), ("data.train_json_path", inputs["json_path"]),
+                     ("data.train_label_csv", csv(train)), ("data.val_image_dir", inputs["image_dir"]),
+                     ("data.val_json_path", inputs["json_path"]), ("data.val_label_csv", csv("val")),
+                     ("data.test_image_dir", inputs["image_dir"]), ("data.test_json_path", inputs["json_path"]),
+                     ("data.test_label_csv", csv("val")), ("output.log_dir", str(FUSION_DIR / "runs")),
+                     ("training.log_every", 1), ("training.num_epochs", 1), *sets.items()):
+        cfg.set(key.replace("__", "."), val)
+    path = FUSION_DIR / f"{name}.json"
+    cfg.save_json(path)
+    return str(path)
+
+
+def _fusion_serve(dev, seed: int) -> tuple[dict, dict]:
+    """Each FUSION_SERVED configuration at full width (ResNet18, BERT-base at seq 128, hidden 256, bf16,
+    seeded weights) through ServingModel at batch 64 (ham_tta_attention_basic_mlp_v1 with its TTA, one
+    fused forward of 256 rows): launches, the logits against the same weights with BERT's two sublayers
+    on their plain versions (vmamba: selective_scan alone, BERT's kernels kept), CUDA-event and device ms
+    a forward, the busy share, sync_free."""
+    layers = BertConfig().num_hidden_layers
+    lines, by_path = {}, {}
+    for i, name in enumerate(FUSION_SERVED):
+        cfg = load_config(REPO / "mdhs_tpu_torch" / "configs" / f"{name}.json")
+        g = torch.Generator(device=dev).manual_seed(seed + 80 + i)
+        model = init_parameters(build_model(cfg, "baseline", load_tokenizer_for(cfg), device=dev,
+                                            dtype=torch.bfloat16), g).eval()
+        tta = cli_common.tta_transforms(cfg.get("inference.tta"))
+        req = _request(np.random.default_rng([seed, 80, i]), BASELINE_BATCH, BASELINE_SEQ)
+        server = ServingModel(model, BASELINE_BATCH, dev, tta=tta)
+        zero_counts()
+        out = server.predict(req)
+        launches = read_counts()
+        vmamba = cfg.get("model.fusion_type") == "vmamba"
+        want = {**dict.fromkeys(KERNELS, 0), "attention_block": layers, "ffn_block": layers,
+                "selective_scan": 2 if vmamba else 0}
+        check(launches == want, f"{name} launches {launches}, expected {want}")
+        check(out.shape == (BASELINE_BATCH, cfg.get("model.num_classes")) and bool(np.isfinite(out).all()),
+              f"{name} logits {out.shape}")
+        # as phase spine holds its configurations: vmamba's scan alone on its plain version (a float32
+        # kernel ~1e-6 from it, a bf16 rounding flipped now and then downstream: BF16_STEPS, BF16_MEAN);
+        # the others with BERT's two sublayers on theirs (every row's CLS moves: BF16_STEPS, and the mean
+        # within CONNEXT_LOGIT_MEAN of the largest logit and under SLICE_MEAN)
+        if vmamba:
+            plain_ops, mean_frac = [(ss, "selective_scan", ss.selective_scan_reference)], BF16_MEAN
+        else:
+            plain_ops = [(ab, "attention_block", ab.attention_block_reference),
+                         (fb, "ffn_block", fb.ffn_block_reference)]
+            mean_frac = CONNEXT_LOGIT_MEAN
+        with contextlib.ExitStack() as stack:
+            for module, op, plain in plain_ops:
+                stack.enter_context(_plain_op(module, op, plain))
+            zero_counts()
+            ref = server.predict(req)
+            plain_counts = read_counts()
+        routed = [op for _, op, _ in plain_ops]
+        check(all(plain_counts[op] == 0 for op in routed) and
+              all(plain_counts[k] == launches[k] for k in KERNELS if k not in routed),
+              f"{name}: launches {plain_counts} with {routed} on their plain versions")
+        lmax, lmean = diff(torch.from_numpy(out), torch.from_numpy(ref))
+        scale = float(np.abs(ref).max())
+        bound, mean_bound = BF16_STEPS * scale, min(SLICE_MEAN, mean_frac * scale)
+        check(lmax <= bound and lmean <= mean_bound,
+              f"{name} logits kernels vs plain {routed}: max {lmax} (bound {bound}) mean {lmean} "
+              f"(bound {mean_bound}), max |logit| {scale}")
+        dev_in = [torch.from_numpy(req[k]).to(dev, dt) for k, dt in server.inputs.items()]
+        with torch.inference_mode():
+            fwd = lambda: server.fn(*dev_in)  # noqa: E731
+            forward_ms = cuda_ms(fwd, reps=10)
+            device = device_profile(fwd, forward_ms, top=6)
+        lines[name] = {"fusion": cfg.get("model.fusion_type"), "tta": list(tta), "launches": launches,
+                       "logits_vs_plain": {"plain": routed, "max_abs": lmax, "mean_abs": lmean, "max_abs_logit": scale,
+                                           "max_abs_over_max_logit": lmax / scale, "max_abs_bound": bound,
+                                           "mean_abs_bound": mean_bound},
+                       "sync_free": sync_free_call(fwd), "forward_ms_b64": forward_ms,
+                       "device_ms_b64": device["kernel_ms"], "busy_share": device["busy_share"], "device": device}
+        by_path[f"fusion_serve_{name}"] = launches
+        del model, server
+        torch.cuda.empty_cache()
+    return lines, by_path
+
+
+def _fusion_run(name: str, cfg: str, steps: int, scans_a_forward: int) -> tuple:
+    """run_train of ``cfg`` (one epoch of ``steps`` steps and a validation batch) with every count at 0
+    just before it: (the trainer, its launches, host-clock seconds, the run's files, its best checkpoint)."""
+    layers = BertConfig().num_hidden_layers
+    zero_counts()
+    t0 = time.perf_counter()
+    trainer = run_train.main(["--config", cfg, "--device", "cuda"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    want = {**dict.fromkeys(KERNELS, 0), "shear_sublane": 3 * steps, "attention_block": layers, "ffn_block": layers,
+            "selective_scan": scans_a_forward * (steps + 1)}
+    check(launches == want and trainer.step == steps, f"{name} run: step {trainer.step}, launches {launches}, "
+                                                      f"expected {want}")
+    files = _run_files(trainer.output_dir)
+    return trainer, launches, seconds, files, str(Path(trainer.output_dir, files["checkpoints"][0]["path"]))
+
+
+def _fusion_train(dev, inputs: dict, seed: int) -> tuple[dict, dict, dict]:
+    """run_train of ham_fusion_vmamba_v1 (3 steps at batch 64: the two scans under autograd, their
+    backward the associative scan's VJP) with a step against the same step on the plain scan, step ms
+    and device ms; of ham_fusion_crossattn_v1 and spine_hierarchical_v1 (2 steps each); then run_predict
+    of ham_tta_attention_basic_mlp_v1 with its TTA over the crossattn run's best checkpoint, its logits
+    bit for bit the live ServingModel's with the same TTA. Returns the lines, the launches of each path
+    and the best checkpoints by configuration."""
+    lines, by_path, best = {}, {}, {}
+    name = "ham_fusion_vmamba_v1"
+    cfg = _fusion_config(name, inputs)
+    trainer, launches, seconds, files, best[name] = _fusion_run(name, cfg, 3, 2)
+    batch = next(iter(trainer.train_loader))
+    groups = {"fusion.vmamba": [p for n, p in trainer.model.named_parameters() if n.startswith("fusion.vmamba.")],
+              "text_encoder": list(trainer.model.text_encoder.parameters())}
+    vs_plain = _kernel_vs_plain_step(trainer, batch, ss, "selective_scan", ss.selective_scan_reference, groups, seed)
+    trainer.model.zero_grad(set_to_none=True)
+    zero_counts()
+    trainer.train_step(batch)
+    torch.cuda.synchronize()
+    step_launches = read_counts()
+    check(step_launches == {**dict.fromkeys(KERNELS, 0), "shear_sublane": 3, "selective_scan": 2},
+          f"{name} step launches {step_launches}")
+    parts = _step_parts_ms(trainer, batch, reps=3)
+    device = device_profile(lambda: trainer.train_step(batch), parts["step_ms"], reps=2, top=8)
+    lines[name] = {"run_s": seconds, "launches_run": launches, "launches_step": step_launches,
+                   "run_files": files["tags"], "step_vs_plain_scan": vs_plain, "step_parts_ms": parts,
+                   "device_ms_per_step": device["kernel_ms"], "busy_share": device["busy_share"], "device": device,
+                   "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+    by_path["fusion_train_vmamba"] = launches
+    del trainer, batch, groups
+    torch.cuda.empty_cache()
+    for name, path in (("ham_fusion_crossattn_v1", "fusion_train_basic"),
+                       ("spine_hierarchical_v1", "fusion_train_hierarchical")):
+        trainer, launches, seconds, files, best[name] = _fusion_run(name, _fusion_config(name, inputs, "train2"),
+                                                                    2, 0)
+        lines[name] = {"run_s": seconds, "launches_run": launches, "run_files": files["tags"],
+                       "losses": [r["value"] for r in map(json.loads, Path(trainer.output_dir, "metrics.jsonl")
+                                                          .read_text().splitlines()) if r["tag"] == "Loss/Train_Batch"]}
+        by_path[path] = launches
+        del trainer
+        torch.cuda.empty_cache()
+    # run_predict with the TTA configuration over the basic fusion's trained checkpoint
+    layers = BertConfig().num_hidden_layers
+    name = "ham_tta_attention_basic_mlp_v1"
+    cfg = _fusion_config(name, inputs)
+    out_csv = FUSION_DIR / "tta.csv"
+    zero_counts()
+    t0 = time.perf_counter()
+    pred = run_predict.main(["--config", cfg, "--model_path", best["ham_fusion_crossattn_v1"], "--output_path",
+                             str(out_csv), "--device", "cuda"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    check(launches == {**dict.fromkeys(KERNELS, 0), "attention_block": layers, "ffn_block": layers},
+          f"{name} run_predict launches {launches}")
+    predictor = cli_common.build_predictor(cfg, device=dev)
+    predictor.load_weights(best["ham_fusion_crossattn_v1"])
+    tta = cli_common.tta_transforms(predictor.cfg.get("inference.tta"))
+    check(tta == CLI_TTA, f"{name}: TTA {tta}")
+    b = next(iter(predictor.make_test_loader()))
+    live = predictor.server(tta).predict(b)[: int(b["n_valid"])]
+    rows = out_csv.read_text().splitlines()
+    check(pred["logits"].shape == (FUSION_VAL, LABELS) and len(rows) == FUSION_VAL + 1
+          and np.array_equal(pred["logits"], live), f"{name}: run_predict's logits against the live TTA server")
+    lines[name] = {"checkpoint": "ham_fusion_crossattn_v1's best", "tta": list(tta), "seconds": seconds,
+                   "images_per_s": FUSION_VAL / seconds, "launches": launches, "logits_equal_live_tta_server": True}
+    by_path["fusion_predict_tta"] = launches
+    del predictor
+    torch.cuda.empty_cache()
+    return lines, by_path, best
+
+
+def _fusion_export(dev, inputs: dict, best: dict, seed: int) -> tuple[dict, dict]:
+    """ham_fusion_vmamba_v1 and spine_hierarchical_v1 exported from their trained best checkpoints by
+    cli/export_serving.py at batch 64, loaded by ServingModel.load, and held against the live
+    ServingModel of the same checkpoint: launches, logits bit for bit, device ms a forward."""
+    layers = BertConfig().num_hidden_layers
+    lines, by_path = {}, {}
+    for i, name in enumerate(("ham_fusion_vmamba_v1", "spine_hierarchical_v1")):
+        cfg = _fusion_config(name, inputs)
+        art = str(FUSION_DIR / f"{name}.pt2")
+        t0 = time.perf_counter()
+        info = export_serving.main(["--config", cfg, "--model_path", best[name], "--output", art, "--batch_size",
+                                    str(BASELINE_BATCH), "--device", "cuda"])
+        export_s = time.perf_counter() - t0
+        loaded = ServingModel.load(art, dev)
+        predictor = cli_common.build_predictor(cfg, device=dev)
+        predictor.load_weights(best[name])
+        req = _request(np.random.default_rng([seed, 90, i]), BASELINE_BATCH, BASELINE_SEQ)
+        out = {}
+        for which, server in (("live", predictor.server()), ("artifact", loaded)):
+            zero_counts()
+            out[which] = server.predict(req)
+            out[f"{which}_launches"] = read_counts()
+        want = {**dict.fromkeys(KERNELS, 0), "attention_block": layers, "ffn_block": layers,
+                "selective_scan": 2 if name == "ham_fusion_vmamba_v1" else 0}
+        check(out["live_launches"] == out["artifact_launches"] == want,
+              f"{name} artifact launches {out['artifact_launches']}, live {out['live_launches']}, expected {want}")
+        check(np.array_equal(out["live"], out["artifact"]), f"{name}: the artifact's logits are not the live model's")
+        dev_in = [torch.from_numpy(req[k]).to(dev, dt) for k, dt in loaded.inputs.items()]
+        with torch.inference_mode():
+            fwd = lambda: loaded.fn(*dev_in)  # noqa: E731
+            ms = cuda_ms(fwd, reps=10)
+            device = device_profile(fwd, ms)
+        lines[name] = {"export_s": export_s, "bytes": info["bytes"], "launches": out["artifact_launches"],
+                       "logits_bit_equal": True, "forward_ms_b64": ms, "device_ms_b64": device["kernel_ms"],
+                       "sync_free": sync_free_call(fwd)}
+        by_path[f"fusion_export_{name}"] = out["artifact_launches"]
+        del loaded, predictor
+        torch.cuda.empty_cache()
+    return lines, by_path
+
+
+def phase_fusion(dev, seed: int) -> dict:
+    """The seven configurations of the baseline's remaining fusions on the card (FUSION_DIR, removed
+    after), a line for each part; returns each path's launches."""
+    shutil.rmtree(FUSION_DIR, ignore_errors=True)
+    FUSION_DIR.mkdir(parents=True)
+    t_phase = time.perf_counter()
+    try:
+        inputs = _fusion_inputs(seed)
+        serve, by_path = _fusion_serve(dev, seed)
+        emit({"phase": "fusion", "part": "serve", "configs": serve})
+        torch.cuda.reset_peak_memory_stats(dev)
+        train, train_paths, best = _fusion_train(dev, inputs, seed)
+        emit({"phase": "fusion", "part": "train", "runs": train})
+        export, export_paths = _fusion_export(dev, inputs, best, seed)
+        emit({"phase": "fusion", "part": "export", "artifacts": export,
+              "phase_seconds": time.perf_counter() - t_phase})
+    finally:
+        shutil.rmtree(FUSION_DIR, ignore_errors=True)
+    return {**by_path, **train_paths, **export_paths}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3804,6 +4098,7 @@ def main() -> int:
     finally:
         shutil.rmtree(CLI_DIR, ignore_errors=True)
     spine = phase_spine(dev, seed)
+    fusion = phase_fusion(dev, seed)
     main_path = {"attention_block": slice_launches, "ffn_block": slice_launches,
                  "fused_attention": seq512_launches, "int8_ffn_block": preset_launches,
                  "int8_attention_block": preset_launches, "shear_sublane": train["launches"],
@@ -3816,7 +4111,7 @@ def main() -> int:
                "train": train["launches"], "train_bn_stats": train["ab_launches"], "flash": flash_launches,
                "train_flash": train_flash, "ablate": {"attention_ablate": ablate_launches},
                "connext": connext["launches"], "train_connext": train_connext, **train_baseline, **cli, **export,
-               **spine}
+               **spine, **fusion}
     kan_by_layer = {**baseline["kan_forward_by_layer"], **connext["kan_forward_by_layer"]}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -12,7 +12,8 @@ that ``load_state_dict`` takes. Layouts:
 - flax Conv kernel HWIO        -> nn.Conv2d weight OIHW (a depthwise (7, 7, 1, C) -> (C, 1, 7, 7))
 - BatchNorm scale/bias + batch_stats mean/var -> weight/bias/running_mean/running_var
 - LayerNorm scale -> weight; Embed embedding -> weight
-- MultiHeadAttention q/k/v_proj -> in_proj_weight (3E, E), in_proj_bias
+- MultiHeadAttention q/k/v_proj -> in_proj_weight (3E, E) where all three are
+  E -> E, else q_proj_weight, k_proj_weight, v_proj_weight (E, width); in_proj_bias
 - Mamba's depthwise conv HIO (d_conv, 1, d_inner) -> nn.Conv1d weight (d_inner, 1, d_conv)
 - a vmapped KAN bank (leaves with a leading expert axis) -> experts.{e}.layers.{i}.*
 - flax LSTM / GRU cells (``ii``..``io`` / ``ir``..``in`` input kernels,
@@ -131,11 +132,16 @@ def mibf_state_dict_from_jax(params: Tree, batch_stats: Tree) -> dict[str, torch
 
 
 def mha_state_dict_from_jax(params: Tree, prefix: str = "") -> dict[str, torch.Tensor]:
-    """``MultiHeadAttention`` params -> nn.MultiheadAttention names (packed q/k/v)."""
+    """``MultiHeadAttention`` params -> nn.MultiheadAttention names: q/k/v packed
+    where each is E -> E, else one weight each (keys and values of another width)."""
     names = ("q_proj", "k_proj", "v_proj")
     w = [np.transpose(np.asarray(params[n]["kernel"]), (1, 0)) for n in names]
-    out = {f"{prefix}in_proj_weight": _t(np.concatenate(w, axis=0)),
-           f"{prefix}in_proj_bias": _t(np.concatenate([np.asarray(params[n]["bias"]) for n in names]))}
+    out = {f"{prefix}in_proj_bias": _t(np.concatenate([np.asarray(params[n]["bias"]) for n in names]))}
+    E = w[0].shape[0]
+    if all(a.shape == (E, E) for a in w):
+        out[f"{prefix}in_proj_weight"] = _t(np.concatenate(w, axis=0))
+    else:
+        out.update({f"{prefix}{n}_weight": _t(a) for n, a in zip(names, w)})
     _lin(params["out_proj"], f"{prefix}out_proj", out)
     return out
 
@@ -236,15 +242,64 @@ def sequence_state_dict_from_jax(params: Tree, prefix: str = "") -> dict[str, to
     return out
 
 
+def fusion_state_dict_from_jax(fusion: Tree, fusion_type: str, prefix: str = "fusion.") -> dict[str, torch.Tensor]:
+    """A baseline fusion's params -> ``modules/fusion.py``'s names under ``prefix``:
+    the inverse of ``_convert_fusion`` for ``basic``, ``multiscale``, ``concat``,
+    ``weighted_concat``, ``hadamard`` and ``bilinear``; ``hierarchical`` as
+    ``multiscale`` plus ``scale_weights``, ``mamba`` and ``vmamba`` after the JAX
+    tree, their Mamba blocks in mamba_ssm's names (``_convert_fusion`` maps none
+    of the three)."""
+    out: dict[str, torch.Tensor] = {}
+    if fusion_type == "basic":
+        p, name = fusion["block"], f"{prefix}transformer_block"
+        for n in ("norm1", "norm2", "norm3"):
+            _ln(p[n], f"{name}.{n}", out)
+        for n in ("attn1", "attn2"):
+            out.update(mha_state_dict_from_jax(p[n], f"{name}.{n}."))
+        _lin(p["ff_up"], f"{name}.ff.0", out)
+        _lin(p["ff_down"], f"{name}.ff.3", out)
+    elif fusion_type in ("multiscale", "hierarchical"):
+        for s in (2, 3, 4):
+            p, name = fusion[f"cross_layer{s}"], f"{prefix}cross_l{s}"
+            _lin(p["txt_proj"], f"{name}.txt_proj", out)
+            out.update(mha_state_dict_from_jax(p["attn"], f"{name}.attn."))
+            _ln(p["norm"], f"{name}.norm", out)
+        if fusion_type == "hierarchical":
+            out[f"{prefix}scale_weights"] = _t(fusion["scale_weights"])
+    elif fusion_type in ("concat", "weighted_concat"):
+        _lin(fusion["proj"], f"{prefix}proj", out)
+        if fusion_type == "weighted_concat":
+            out[f"{prefix}w_img"] = _t(fusion["w_img"])
+            out[f"{prefix}w_txt"] = _t(fusion["w_txt"])
+    elif fusion_type in ("hadamard", "bilinear"):
+        for n in ("img_proj", "txt_proj") + (("out_proj",) if fusion_type == "bilinear" else ()):
+            _lin(fusion[n], f"{prefix}{n}", out)
+        _ln(fusion["norm"], f"{prefix}norm", out)
+    elif fusion_type == "mamba":
+        _lin(fusion["txt_proj"], f"{prefix}txt_proj", out)
+        out.update(mamba_state_dict_from_jax(fusion["mamba"], f"{prefix}mamba."))
+    elif fusion_type == "vmamba":
+        for n in ("txt_proj", "in_proj", "out_proj"):
+            _lin(fusion[n], f"{prefix}{n}", out)
+        vm = fusion["vmamba"]
+        _ln(vm["norm"], f"{prefix}vmamba.norm", out)
+        for n in ("fwd", "bwd"):
+            out.update(mamba_state_dict_from_jax(vm[n], f"{prefix}vmamba.{n}."))
+    else:
+        raise ValueError(f"no converter for fusion_type={fusion_type!r}")
+    return out
+
+
 def baseline_state_dict_from_jax(params: Tree, batch_stats: Tree, kan_state: Tree | None = None,
                                  fusion_type: str = "multiscale",
                                  classifier_type: str = "mlp") -> dict[str, torch.Tensor]:
     """``mdhs_tpu.models.baseline.MultimodalBaselineModel`` (params,
     batch_stats, kan_state) -> state_dict of
     ``mdhs_tpu_torch.models.baseline.MultimodalBaselineModel``: the inverse of
-    ``convert_baseline_full`` for ``multiscale`` with the ``mlp`` and
-    ``residual`` heads, with the ``mamba`` fusion in mamba_ssm's names
-    (``convert_baseline_full`` does not map it), and every head as
+    ``convert_baseline_full`` for the fusions it maps (``basic``,
+    ``multiscale``, ``concat``, ``weighted_concat``, ``hadamard``,
+    ``bilinear``) with the ``mlp`` and ``residual`` heads; the others as
+    ``fusion_state_dict_from_jax`` names them, and every head as
     ``head_state_dict_from_jax`` names it. The ``kan`` and
     ``attention_pooling`` heads have no torch converter in the JAX package;
     their names follow the JAX tree (``classifier.kan1.act_coeff``,
@@ -260,18 +315,7 @@ def baseline_state_dict_from_jax(params: Tree, batch_stats: Tree, kan_state: Tre
         if f"proj_layer{s}" in img:
             _lin(img[f"proj_layer{s}"], f"image_encoder.proj{s}", out)
     out.update(bert_state_dict_from_jax(params["text_encoder"]["bert"], "text_encoder.model."))
-    fusion = params["fusion"]
-    if fusion_type == "multiscale":
-        for s in (2, 3, 4):
-            p, name = fusion[f"cross_layer{s}"], f"fusion.cross_l{s}"
-            _lin(p["txt_proj"], f"{name}.txt_proj", out)
-            out.update(mha_state_dict_from_jax(p["attn"], f"{name}.attn."))
-            _ln(p["norm"], f"{name}.norm", out)
-    elif fusion_type == "mamba":
-        _lin(fusion["txt_proj"], "fusion.txt_proj", out)
-        out.update(mamba_state_dict_from_jax(fusion["mamba"], "fusion.mamba."))
-    else:
-        raise ValueError(f"no converter for fusion_type={fusion_type!r}")
+    out.update(fusion_state_dict_from_jax(params["fusion"], fusion_type))
     out.update(head_state_dict_from_jax(params["classifier"], (kan_state or {}).get("classifier"), classifier_type,
                                         "classifier."))
     if "tabular_encoder" in params:

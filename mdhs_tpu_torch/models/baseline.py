@@ -9,17 +9,25 @@ Submodule names are the reference's (``image_encoder.model``,
 ``image_encoder.proj{2,3,4}``, ``text_encoder.model``, ``fusion``,
 ``classifier``), which ``mdhs_tpu.core.convert.convert_baseline_full`` reads.
 
-Ported: the ``multiscale`` and ``mamba`` fusions and every head (``mlp``,
-``residual``, ``attention_pooling``, ``kan``, ``moe``), served and trained:
-``configs/common/base.yml`` and the ``configs/ham/*_v1.yml`` built on those;
-and the branches (``baseline.py:124-358``):
+Ported: all nine fusions (``modules/fusion.py``: ``basic``, ``multiscale``,
+``concat``, ``weighted_concat``, ``hadamard``, ``bilinear``,
+``hierarchical``, ``mamba``, ``vmamba``; their state-dict keys under
+``fusion.`` are listed there) and every head (``mlp``, ``residual``,
+``attention_pooling``, ``kan``, ``moe``), served and trained:
+``configs/common/base.yml`` and the ``configs/ham/*_v1.yml`` and
+``configs/spine/*_v1.yml`` built on those. The tower is multi-scale for
+``multiscale`` and ``hierarchical``; ``hierarchical`` cross-attends to BERT's
+hidden states ``round(L * i / 3)`` (at least 1) for i = 1, 2, 3, (4, 8, 12)
+for BERT-base, all of them zeroed under ``text_off``. And the branches
+(``baseline.py:124-358``):
 
 - the sequence encoder (``modules/sequence.py``): a 5-D input (B, T, 3, H,
   W), the slices of a sequence or the views of one image, goes through the
   image tower as one B * T stack; each slice's pooled tokens make a (B, T,
   hidden) sequence, encoded to one (B, hidden) vector (``sequence_proj``
   where ``sequence_encoder.hidden_dim`` differs), which is the image tokens
-  as a length-1 sequence (copied to the three scales for ``multiscale``);
+  as a length-1 sequence (copied to the three scales for ``multiscale`` and
+  ``hierarchical``);
 - the global/local stream: the image tower runs a second time on the
   center crop of ``crop_ratio`` (``int(H * ratio)`` at offset ``(H - ch) //
   2``) resized back to H x W bilinearly as ``jax.image.resize`` does it
@@ -45,8 +53,8 @@ model's init creates parameters for them. ``features_and_logits`` is the
 training forward (``baseline.py:352-358``): the fused feature, the logits and
 the MoE head's balance loss (None for the other heads). The fusion and head
 dropout is the config's clamped to 0.1, as in JAX; the ResNet's BatchNorm
-follows the module's train/eval mode. The other fusions and ``remat`` raise
-``NotImplementedError`` naming their ROADMAP item.
+follows the module's train/eval mode. ``remat`` raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -60,7 +68,7 @@ from torch import nn
 import numpy as np
 
 from ..device import device_constant
-from ..modules.fusion import NOT_PORTED as NOT_PORTED_FUSIONS, SCALES, build_fusion, pool_image
+from ..modules.fusion import SCALES, build_fusion, pool_image
 from ..modules.gating import DualExpertGate
 from ..modules.heads import MoEHead, build_head
 from ..modules.sequence import SequenceEncoder
@@ -69,6 +77,7 @@ from .bert import BertConfig
 from .encoders import ImageTokenEncoder, TextEncoder
 
 ABLATION_MODES = (None, "image_only", "text_off")
+MULTI_SCALE_FUSIONS = ("multiscale", "hierarchical")  # the fusions that take the {layer2, layer3, layer4} dict
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,8 +123,6 @@ class BaselineConfig:
     def check_ported(self) -> None:
         """Raise for the options the port does not have yet, naming the
         ROADMAP item that ports each; never ignore one silently."""
-        if self.fusion_type in NOT_PORTED_FUSIONS:
-            raise NotImplementedError(f"fusion_type={self.fusion_type!r} is not ported yet: ROADMAP Queue 1 item 10")
         if self.remat != "none":
             raise NotImplementedError(f"remat={self.remat!r} is a training knob: ROADMAP Queue 1 item 8")
 
@@ -170,7 +177,7 @@ class MultimodalBaselineModel(nn.Module):
         self.cfg = cfg
         f = dict(device=device, dtype=dtype)
         dropout = min(cfg.dropout, 0.1)  # fusion and head, as the JAX model clamps it
-        multi_scale = cfg.fusion_type == "multiscale"
+        multi_scale = cfg.fusion_type in MULTI_SCALE_FUSIONS
         self.image_encoder = ImageTokenEncoder(cfg.hidden_dim, cfg.image_backbone, multi_scale=multi_scale, **f)
         self.text_encoder = TextEncoder(cfg.bert, **f)
         if cfg.sequence_enabled:
@@ -182,8 +189,10 @@ class MultimodalBaselineModel(nn.Module):
         # the multiscale dict is averaged under "concat" too, so the projection is never called there
         if cfg.global_local_enabled and cfg.global_local_combine == "concat" and not multi_scale:
             self.global_local_proj = nn.Linear(2 * cfg.hidden_dim, cfg.hidden_dim, **f)
+        L = cfg.bert.num_hidden_layers  # hierarchical taps thirds of BERT's stack, as the JAX model does
         self.fusion = build_fusion(cfg.fusion_type, text_dim=cfg.text_feature_dim, hidden_dim=cfg.hidden_dim,
-                                   num_heads=cfg.num_heads, dropout=dropout, text_pool=cfg.text_pool, **f)
+                                   num_heads=cfg.num_heads, dropout=dropout, text_pool=cfg.text_pool,
+                                   text_layers=tuple(max(1, round(L * i / 3)) for i in (1, 2, 3)), **f)
         if cfg.tabular_enabled:
             if cfg.tabular_input_dim <= 0:
                 raise ValueError("tabular_input_dim must be > 0 when tabular is enabled.")
@@ -240,12 +249,16 @@ class MultimodalBaselineModel(nn.Module):
         tokens, pooled = encoded if encoded is not None else self.encode_images(images)
         if ablation_mode == "image_only":
             return pooled
-        text_tokens, _ = self.text_encoder(input_ids, attention_mask)
+        text_tokens, text_hidden = self.text_encoder(input_ids, attention_mask)
         if ablation_mode == "text_off":
             text_tokens = torch.zeros_like(text_tokens)
-        if self.cfg.sequence_enabled and self.cfg.fusion_type == "multiscale" and not isinstance(tokens, dict):
+            text_hidden = tuple(torch.zeros_like(h) for h in text_hidden)
+        if self.cfg.sequence_enabled and self.cfg.fusion_type in MULTI_SCALE_FUSIONS and not isinstance(tokens, dict):
             tokens = dict.fromkeys(SCALES, tokens)
-        fused = self.fusion(tokens, text_tokens, attention_mask)
+        if self.cfg.fusion_type == "hierarchical":
+            fused = self.fusion(tokens, text_tokens, attention_mask, text_hidden_states=text_hidden)
+        else:
+            fused = self.fusion(tokens, text_tokens, attention_mask)
         if self.cfg.tabular_enabled:
             if tabular is None:
                 raise ValueError("tabular_input is required when tabular is enabled.")

@@ -9,6 +9,7 @@ import torch
 from torch import nn
 
 from ..modules.attention import MultiHeadAttention
+from ..modules.fusion import HierarchicalFusion, WeightedConcatFusion
 from ..modules.heads import AttentionPoolingHead
 from ..modules.kan import GroupKANLinear, KANLinear, make_grid
 from ..modules.mamba import MambaBlock
@@ -26,7 +27,8 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
     1/sqrt(fan_in), the scale of flax's lecun-normal default; biases are
     zero; embeddings are normal with std 0.02 (BERT's initializer range);
     LayerNorm and BatchNorm are the identity (weight 1, bias 0, running mean
-    0, running variance 1). Mamba (``mdhs_tpu/modules/mamba.py:27-45``):
+    0, running variance 1). Mamba, the VMamba block's two included
+    (``mdhs_tpu/modules/mamba.py:27-45``):
     ``A_log = log(1..N)``, ``D = 1``, ``dt_bias`` the inverse softplus of a
     step drawn log-uniformly in [1e-3, 1e-1]. KAN (``modules/kan.py:78-108``):
     base weights and spline scalers uniform in +-scale / sqrt(in), spline
@@ -36,7 +38,9 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
     grid_size, ``act_base`` one. The attention-pooling head's ``query``:
     normal with std 1. The recurrent cells (flax's ``OptimizedLSTMCell`` / ``GRUCell``
     defaults): input kernels normal with std 1/sqrt(fan_in), each gate's recurrent
-    kernel orthogonal, biases zero. MoE: ``w_gate`` and ``w_noise`` zero. ConvNeXt's layer scale: its
+    kernel orthogonal, biases zero. MoE: ``w_gate`` and ``w_noise`` zero. The weighted-concat fusion's
+    ``w_img`` and ``w_txt`` and the hierarchical fusion's ``scale_weights``:
+    zero. ConvNeXt's layer scale: its
     ``layer_scale_init`` (1e-6). Values are drawn on the generator's
     device in float32 and cast to each parameter's dtype and device.
     """
@@ -53,7 +57,9 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, MultiHeadAttention):
-            normal_(m.in_proj_weight, 1.0 / math.sqrt(m.embed_dim))
+            for name, w in m.named_parameters(recurse=False):
+                if name.endswith("weight"):  # the packed (3E, E) or each of q, k, v by its own input width
+                    normal_(w, 1.0 / math.sqrt(w.shape[1]))
             m.in_proj_bias.zero_()
         elif isinstance(m, nn.Embedding):
             normal_(m.weight, 0.02)
@@ -95,4 +101,7 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
             m.w_noise.zero_()
         elif isinstance(m, ConvNextLayer):
             m.layer_scale_parameter.fill_(m.layer_scale_init)
+        elif isinstance(m, (WeightedConcatFusion, HierarchicalFusion)):
+            for p in m.parameters(recurse=False):
+                p.zero_()
     return model

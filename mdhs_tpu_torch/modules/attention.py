@@ -1,9 +1,12 @@
 """Attention modules, counterparts of ``mdhs_tpu/modules/attention.py``.
 
 - ``MultiHeadAttention``: the baseline fusions' attention, with
-  ``nn.MultiheadAttention``'s parameter names (``in_proj_weight``,
-  ``in_proj_bias``, ``out_proj``), which
-  ``mdhs_tpu.core.convert.convert_torch_mha`` reads. Scores are divided by
+  ``nn.MultiheadAttention``'s parameter names, which
+  ``mdhs_tpu.core.convert.convert_torch_mha`` reads: ``in_proj_weight`` (3E,
+  E) where the keys and values are E wide, else ``q_proj_weight``,
+  ``k_proj_weight`` (E, kdim) and ``v_proj_weight`` (E, vdim) (the JAX module
+  infers those widths from its inputs); ``in_proj_bias`` (3E) and
+  ``out_proj`` in both. Scores are divided by
   sqrt(head_dim) in the module's dtype, then the -1e9 key-padding bias is
   added and the softmax taken in float32, as the JAX module does.
 - ``JointKVCrossAttention``: MIBF-Net's "IBFA" attention: Q from stream x,
@@ -32,30 +35,47 @@ NEG_INF = -1e9
 
 
 class MultiHeadAttention(nn.Module):
-    """Separate q/k/v projections of one width packed as (3E, E), a key
-    padding mask (B, Lk) with 1 = valid, 0 = pad; in training, dropout on the
+    """Separate q/k/v projections, packed as (3E, E) where ``kdim`` and
+    ``vdim`` (the key and value widths, E by default) are E; a key padding
+    mask (B, Lk) with 1 = valid, 0 = pad; in training, dropout on the
     attention probabilities (``dropout``, the JAX module's)."""
 
-    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0, device=None, dtype=None):
+    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0, kdim: Optional[int] = None,
+                 vdim: Optional[int] = None, device=None, dtype=None):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError("embed_dim must be divisible by num_heads")
         f = dict(device=device, dtype=dtype)
         self.embed_dim, self.num_heads = embed_dim, num_heads
+        self.kdim, self.vdim = kdim or embed_dim, vdim or embed_dim
         self.dropout = nn.Dropout(dropout)
-        self.in_proj_weight = nn.Parameter(torch.empty((3 * embed_dim, embed_dim), **f))
+        if self.kdim == self.vdim == embed_dim:
+            self.in_proj_weight = nn.Parameter(torch.empty((3 * embed_dim, embed_dim), **f))
+        else:
+            self.q_proj_weight = nn.Parameter(torch.empty((embed_dim, embed_dim), **f))
+            self.k_proj_weight = nn.Parameter(torch.empty((embed_dim, self.kdim), **f))
+            self.v_proj_weight = nn.Parameter(torch.empty((embed_dim, self.vdim), **f))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim, **f))
+        for name, w in self.named_parameters():  # nn.MultiheadAttention's default init, not torch.empty's bits
+            if name.endswith("proj_weight"):
+                nn.init.xavier_uniform_(w)
         self.out_proj = nn.Linear(embed_dim, embed_dim, **f)
         # sqrt(head_dim) in the module's dtype, made once: a tensor made from a Python
         # number inside forward is a synchronous host-to-device copy on the card, and
         # dividing by a Python number runs there as a product with its reciprocal
         self.register_buffer("head_scale", torch.tensor((embed_dim // num_heads) ** 0.5, **f), persistent=False)
 
+    def projection_weights(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The q, k and v projections' (E, width) weights."""
+        if hasattr(self, "in_proj_weight"):
+            return self.in_proj_weight.chunk(3)
+        return self.q_proj_weight, self.k_proj_weight, self.v_proj_weight
+
     def forward(self, query, key, value, key_padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         E, h = self.embed_dim, self.num_heads
         D = E // h
-        w, b = self.in_proj_weight, self.in_proj_bias
-        q, k, v = (F.linear(t, w[i * E:(i + 1) * E], b[i * E:(i + 1) * E]) for i, t in enumerate((query, key, value)))
+        b = self.in_proj_bias.chunk(3)
+        q, k, v = (F.linear(t, w, b[i]) for i, (t, w) in enumerate(zip((query, key, value), self.projection_weights())))
 
         def split(t):
             return t.reshape(t.shape[0], t.shape[1], h, D).transpose(1, 2)

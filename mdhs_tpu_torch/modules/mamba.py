@@ -14,8 +14,12 @@ float32 (``dt_bias``, ``A_log`` and ``D`` are float32 parameters in a
 bf16 module too), as flax keeps them; the trainer keeps them float32 beside
 its bf16 working copies. In training the scan's gradient is the associative
 scan's VJP (``ops/_library.py``), as JAX's custom VJP; the block has no
-dropout. ``VMambaBlock`` waits for the ``vmamba`` fusion (ROADMAP Queue 1
-item 10).
+dropout.
+
+``VMambaBlock`` (``mdhs_tpu/modules/mamba.py:106-124``), the ``vmamba``
+fusion's: a LayerNorm (``norm``), then the ``fwd`` block on the tokens and
+the ``bwd`` block on them reversed along L (reversed back after), and
+``tokens + 0.5 * (fwd + bwd)``; two scans a forward.
 """
 
 from __future__ import annotations
@@ -30,6 +34,8 @@ from ..ops import selective_scan as _ss
 
 
 class MambaBlock(nn.Module):
+    float32_params = ("dt_bias", "A_log", "D")  # float32 in a bf16 module, and in the trainer's
+
     def __init__(self, d_model: int, d_state: int = 16, d_conv: int = 4, expand: int = 2,
                  dt_rank: int | None = None, device=None, dtype=None):
         super().__init__()
@@ -60,3 +66,20 @@ class MambaBlock(nn.Module):
                                Cm.float().contiguous(), self.D.float())
         y = y.to(u.dtype) * F.silu(z)
         return self.out_proj(y)
+
+
+class VMambaBlock(nn.Module):
+    """``num_heads`` is kept for the configuration's sake and unused, as in JAX."""
+
+    def __init__(self, dim: int, num_heads: int = 2, device=None, dtype=None):
+        super().__init__()
+        f = dict(device=device, dtype=dtype)
+        self.num_heads = num_heads
+        self.norm = nn.LayerNorm(dim, eps=1e-5, **f)
+        self.fwd = MambaBlock(dim, **f)
+        self.bwd = MambaBlock(dim, **f)
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens: (B, L, dim) -> (B, L, dim)."""
+        h = self.norm(tokens)
+        return tokens + 0.5 * (self.fwd(h) + self.bwd(h.flip(1)).flip(1))

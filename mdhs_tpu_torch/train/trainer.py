@@ -35,10 +35,12 @@ updates float32 master copies of its weights, which are copied back into the
 module after each step. BatchNorm, the KAN layers and the MoE gate keep
 float32 parameters inside the bf16 module, as the served models do (a
 momentum-0.1 update in bf16 would lose most of its digits; the KAN kernel is
-float32), and so do the GroupKAN activations' coefficients and Mamba's
-``dt_bias``, ``A_log`` and ``D``, which the JAX modules use in float32
-arithmetic. ``torch.autocast`` is not used: it would leave BERT's residual
-stream in float32, and the eval kernels of ``validate`` want bf16.
+float32), and so do the GroupKAN activations' coefficients, Mamba's
+``dt_bias``, ``A_log`` and ``D``, the weighted-concat fusion's ``w_img`` and
+``w_txt`` and the hierarchical fusion's ``scale_weights``, which the JAX
+modules use in float32 arithmetic. ``torch.autocast`` is not used: it would
+leave BERT's residual stream in float32, and the eval kernels of
+``validate`` want bf16.
 
 Random streams: dropout draws from torch's default generators, which the
 trainer seeds from ``training.seed``; the augmentation and the MoE's gating
@@ -105,7 +107,6 @@ from ..models.bert import BertConfig
 from ..models.init import init_parameters
 from ..models.mibf import MIBFNet
 from ..modules.kan import GroupKANLinear, KANLinear, kan_update_grid
-from ..modules.mamba import MambaBlock
 from ..modules.moe import MoE
 from ..ops.augment import ColorJitter, CropFlipRotate, train_pipeline
 from ..ops.preprocess import eval_pipeline
@@ -210,7 +211,7 @@ def check_trainable(cfg: Config, family: str) -> None:
     """Raise for what the port does not train yet, before anything is built:
     the host augmentation, Muon, the LLM hidden states (the dataset's own
     check), ``parallel.n_model`` > 1, and for the baseline family the model's
-    own check (the other fusions, ``remat``), each naming its ROADMAP item; and
+    own check (``remat``), each naming its ROADMAP item; and
     a stacked data mode (multi-view, sequence) for a family without a sequence
     encoder, whose towers take 4-D images."""
     if family not in FAMILIES:
@@ -237,16 +238,16 @@ def check_trainable(cfg: Config, family: str) -> None:
 
 _INPUTS = {"image": torch.uint8, "input_ids": torch.int64, "attention_mask": torch.int64,
            "label": torch.int64, "tabular": torch.float32}
-# float32 parameters inside a bf16 module: every one of these modules' own, and Mamba's named ones
+# float32 parameters inside a bf16 module: every one of these modules' own, and those a module
+# names in its ``float32_params`` (Mamba's dt_bias, A_log and D; the fusions' scalar weights)
 _FLOAT32_MODULES = (nn.BatchNorm2d, KANLinear, MoE, GroupKANLinear)
-_FLOAT32_MAMBA = ("dt_bias", "A_log", "D")
 # the configuration that makes a run its own: a last.pt written under another loads its weights only
 RUN_KEYS = ("model", "training")
 _RUN_KEYS_FREE = ("resume_from", "num_epochs", "log_every", "log_per_class", "profile", "early_stopping")
 
 
 def _keeps_float32(m: nn.Module, name: str) -> bool:
-    return isinstance(m, _FLOAT32_MODULES) or (isinstance(m, MambaBlock) and name in _FLOAT32_MAMBA)
+    return isinstance(m, _FLOAT32_MODULES) or name in getattr(m, "float32_params", ())
 
 
 def _split_precision(model: nn.Module, dtype: torch.dtype) -> list[tuple[torch.Tensor, torch.Tensor]]:

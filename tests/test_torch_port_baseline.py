@@ -229,16 +229,25 @@ def test_baseline_config_mirrors_the_jax_fields():
 
 
 @pytest.mark.parametrize("field, value, match", [
-    ("fusion_type", "weighted_concat", "item 10"), ("fusion_type", "hadamard", "item 10"),
     ("remat", "selective", "item 8"), ("image_backbone", "mamba_vision_S", "item 11"), ("remat", "full", "item 8"),
-    ("fusion_type", "basic", "item 10"), ("fusion_type", "vmamba", "item 10"), ("fusion_type", "hierarchical", "item 10"),
-    ("fusion_type", "concat", "item 10"), ("fusion_type", "bilinear", "item 10"),
     ("image_backbone", "mamba_vision_T", "item 11"),
 ])
 def test_unported_options_raise(field, value, match):
     cfg = dataclasses.replace(_cfg(tbase, "multiscale", "mlp"), **{field: value})
     with pytest.raises(NotImplementedError, match=match):
         tbase.MultimodalBaselineModel(cfg)
+
+
+@pytest.mark.parametrize("fusion", ["weighted_concat", "hadamard", "basic", "vmamba", "hierarchical", "concat",
+                                    "bilinear"])
+def test_every_fusion_builds_and_runs(fusion):
+    """The fusions that once raised build and give finite logits in each ablation mode
+    (tests/test_torch_port_fusion.py holds each against the JAX package)."""
+    model = tbase.MultimodalBaselineModel(_cfg(tbase, fusion, "mlp")).eval()
+    with torch.no_grad():
+        for mode in tbase.ABLATION_MODES:
+            out = model(*_torch_args(*_inputs(1)), ablation_mode=mode)
+            assert out.shape == (B, 7) and bool(torch.isfinite(out).all()), mode
 
 
 def test_float32_islands_in_a_bf16_model():

@@ -8,8 +8,8 @@ family: one step against the JAX Trainer's loss function (multiscale + kan,
 mamba + mlp, multiscale + moe, focal, SupCon), validation, the re-grid,
 the pretrained towers, ``fit``, ``run_train --family baseline`` ->
 ``run_predict`` -> a resume, a resume under another configuration (the
-SupCon recipe's stage 2 from stage 1's ``last.pt``), and the refusals that
-remain.
+SupCon recipe's stage 2 from stage 1's ``last.pt``), one epoch of
+``run_train`` with each of the other fusions, and the refusals that remain.
 
 Weights come from the JAX ``init`` with biases, affines, ``act_coeff`` /
 ``act_base``, spline scalers and BatchNorm statistics moved off their init
@@ -686,13 +686,26 @@ def test_a_last_pt_of_another_configuration_gives_its_weights_only(tmp_path):
     assert again.step == 3 and again.epoch == 1 and again.optimizer.state_dict()["state"]
 
 
+@pytest.mark.parametrize("fusion", ["concat", "vmamba", "basic", "weighted_concat", "hadamard", "hierarchical"])
+def test_run_train_trains_every_fusion(tmp_path, fusion):
+    """run_train's check lets each fusion through, and one epoch of 3 steps trains it:
+    finite losses, every fusion parameter moved, a checkpoint written."""
+    cfg, _ = _cli_config(tmp_path, num_epochs=1)
+    cfg["model"]["fusion_type"] = fusion
+    path = str(tmp_path / "fusion.json")
+    Config(cfg).save_json(path)
+    init = Trainer(Config(cfg), "baseline", output_dir=str(tmp_path / "init"), device="cpu").model
+    before = {n: p.detach().clone() for n, p in init.named_parameters() if n.startswith("fusion.")}
+    trainer = trun_train.main(["--config", path, "--device", "cpu"])
+    assert trainer.step == 3 and before
+    losses = [json.loads(line) for line in open(os.path.join(trainer.output_dir, "metrics.jsonl"))]
+    assert all(np.isfinite(r["value"]) for r in losses if r["tag"] == "Loss/Train_Batch")
+    after = dict(trainer.model.named_parameters())
+    assert all(not torch.equal(p, after[n].detach().to(p.dtype)) for n, p in before.items())
+    assert any(name.startswith("epoch_1_") for name in os.listdir(trainer.output_dir))
+
+
 @pytest.mark.parametrize("overrides, exc, match", [
-    (["model.fusion_type=concat"], NotImplementedError, "Queue 1 item 10"),
-    (["model.fusion_type=vmamba"], NotImplementedError, "Queue 1 item 10"),
-    (["model.fusion_type=basic"], NotImplementedError, "Queue 1 item 10"),
-    (["model.fusion_type=weighted_concat"], NotImplementedError, "Queue 1 item 10"),
-    (["model.fusion_type=hadamard"], NotImplementedError, "Queue 1 item 10"),
-    (["model.fusion_type=hierarchical"], NotImplementedError, "Queue 1 item 10"),
     (["data.train_llm_hidden_json=hidden.json"], NotImplementedError, "Queue 1 item 11"),
     (["training.optimizer=Muon"], NotImplementedError, "Queue 1 item 8"),
     (["data.augment.host=true"], NotImplementedError, "Queue 1 item 8"),

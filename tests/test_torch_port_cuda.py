@@ -800,7 +800,7 @@ def _scan_args(rng, B, L, D, N, dev):
 
 
 @pytest.mark.parametrize("B, L, D, N", [(64, 49, 512, 16), (3, 100, 72, 8), (5, 33, 130, 32), (4, 20, 64, 64),
-                                        (2, 70, 512, 128), (1, 1, 1, 1)])
+                                        (2, 70, 512, 128), (1, 1, 1, 1), (64, 49, 64, 16)])  # the last vmamba's
 def test_selective_scan_kernel_matches_plain(dev, B, L, D, N):
     args = _scan_args(np.random.default_rng(L + N), B, L, D, N, dev)
     n = ss.selective_scan.launches
@@ -1604,3 +1604,38 @@ def test_tabular_encoder_gate_and_resize_in_bf16_match_float32(dev):
         assert alpha.dtype == torch.float32
         _bf16_close(alpha, gate.float().cpu()(loc, ctx, ent))
         _bf16_close(center_crop_resize(img.to(dev, torch.bfloat16), 0.6), center_crop_resize(img, 0.6))
+
+
+# --------------------------------------------------------------------------- the vmamba fusion
+from mdhs_tpu_torch.modules.fusion import VMambaFusion  # noqa: E402
+
+
+@pytest.mark.parametrize("B", [64, 3])
+def test_vmamba_fusion_forward_and_backward_match_the_plain_scan(dev, monkeypatch, B):
+    """The vmamba fusion at its served widths (49 layer-4 tokens 256 wide, BERT-base's 768-wide
+    text; the scans at D 64, N 16), float32: the forward launches selective_scan twice (the second
+    on the tokens reversed along L) and matches the same weights on the plain scan, and the
+    backward (the associative scan's VJP of both, the second back through the flip) gives every
+    parameter's gradient, each within 1e-4 of its largest entry."""
+    kernel = ss.selective_scan
+    fusion = init_parameters(VMambaFusion(768, 256, device=dev), torch.Generator(device=dev).manual_seed(1))
+    rng = np.random.default_rng(B)
+    img, txt, w = (torch.tensor(rng.standard_normal(shape), dtype=torch.float32, device=dev)
+                   for shape in ((B, 49, 256), (B, 16, 768), (B, 256)))
+    got = {}
+    for which in ("kernel", "plain"):
+        with monkeypatch.context() as m:
+            if which == "plain":
+                m.setattr(mamba_mod._ss, "selective_scan", ss.selective_scan_reference)
+            fusion.zero_grad(set_to_none=True)
+            n = kernel.launches
+            out = fusion(img, txt)
+            (out * w).sum().backward()
+            torch.cuda.synchronize()
+            got[which] = (out.detach(), {k: p.grad for k, p in fusion.named_parameters()}, kernel.launches - n)
+    (out, grads, launched), (ref, ref_grads, plain_launched) = got["kernel"], got["plain"]
+    assert (launched, plain_launched) == (2, 0)
+    _close_f32(out, ref)
+    assert set(grads) == set(ref_grads) and all(g is not None for g in grads.values())
+    for k in grads:
+        _close_f32(grads[k], ref_grads[k])

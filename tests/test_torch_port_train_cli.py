@@ -478,14 +478,15 @@ def test_unported_training_options_raise(tmp_path, overrides, exc, match):
 
 def test_run_train_refuses_the_baseline_family_and_a_multi_process_launch(monkeypatch, tmp_path):
     """The baseline family trains (tests/test_torch_port_baseline_train.py); what it
-    still lacks, here a fusion, raises before anything is built, as a multi-process
-    launch does."""
+    still lacks, here the Muon optimizer, raises before anything is built, as a
+    multi-process launch does."""
     path = str(tmp_path / "c.json")
-    Config({"model": {"fusion_type": "concat"}}).save_json(path)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    cfg = {"model": {"fusion_type": "concat"}, "training": {"optimizer": "Muon"}}
+    Config(cfg).save_json(path)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         trun_train.main(["--config", path, "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        Trainer(Config({"model": {"fusion_type": "concat"}}), "baseline", device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        Trainer(Config(cfg), "baseline", device="cpu")
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
         trun_train.main(["--config", "never_read.json", "--family", "mibf", "--device", "cpu"])
