@@ -362,18 +362,43 @@ Phases, each printing JSON lines:
               bit the live TTA server; the vmamba and hierarchical artifacts
               bit for bit their live models with the same launches. The
               kernels phase holds selective_scan at (64, 49, 64), N 16 too
+ 19. mamba    (after fusion) 64 seeded 600 x 450 PNGs under 256 names and a
+              seeded hidden-state JSON (3,584-wide first and last vectors of
+              ConNexT's 96 records, one left out); ham_mamba_vision_v1
+              (MambaVision-T at 224 + BERT-base, basic fusion, mlp head) served
+              at batch 64, seq 128: 12 + 12 launches and 6 selective_scan a
+              forward, the logits against BERT's sublayers on plain
+              (BF16_STEPS, min(SLICE_MEAN, CONNEXT_LOGIT_MEAN) of the largest
+              logit) and against the scan alone on plain (BF16_STEPS,
+              BF16_MEAN); ConNexT with the multimodal Mamba fusion served at
+              batch 32, seq 512 with hidden vectors: 12 fused_attention, 12
+              ffn_block, 1 selective_scan and 3 kan_forward a forward, the
+              logits against BERT on plain (CONNEXT_LOGIT_MAX / _MEAN) and
+              against the scan and kan_forward on plain (BF16_STEPS,
+              BF16_MEAN), the fusion's output in float32 against its plain ops
+              (F32_FRAC); ms, device ms, busy share, sync_free. run_train of
+              both (3 steps at batch 64; 2 at batch 32 over the hidden JSON, the
+              left-out record's vectors zeros) with a step against the plain
+              ops (BASELINE_TRAIN_LOSS_REL, BASELINE_TRAIN_GRAD_COS); run_predict
+              of the fusion with TTA and the hidden vectors, bit for bit the
+              live TTA server; both exported and held bit for bit against their
+              live models (the fusion's artifact takes no hidden input). The
+              kernels phase holds selective_scan at (64, 196, 160) and (64, 49,
+              320), N 8, and (32, 52, 512), N 128, and kan_forward as one layer
+              at (1664, 256) -> 256
 Every device breakdown (device_profile) comes from a trace checked to hold
 whole calls: a census of one call against two names the kernels every call
 launches, and a trace that lost a record of one is taken again; the census,
 the records and the wrappers' launches of one call print beside it.
-Every served phase (slice, preset, seq512, flash, baseline, connext, export, spine, fusion) runs one warm
+Every served phase (slice, preset, seq512, flash, baseline, connext, export, spine, fusion, mamba) runs one warm
 forward from device-resident inputs under torch.cuda.set_sync_debug_mode(
 "error") ("sync_free"): a call that makes the host wait on the device fails
 the script.
-Then a JSON line of the kernels (each with its launches on every path that
-launched it, "launches_by_path"; kan_forward's entry with its six layers'
-numbers under "layers", each with the launches the baseline or the connext
-run counted for its (IN, OUT)), the nvidia-smi line, and the result line.
+Then a JSON line of each phase's seconds (host clock, "phase_seconds"), a
+JSON line of the kernels (each with its launches on every path that
+launched it, "launches_by_path"; kan_forward's entry with its seven layers'
+numbers under "layers", each with the launches the baseline, connext or
+mamba phase counted for its (IN, OUT)), the nvidia-smi line, and the result line.
 Each path sets every launch count to 0 just before it runs and reads them
 just after. Any failure raises: the exit code is not 0 and no result line is
 printed.
@@ -421,7 +446,7 @@ from mdhs_tpu_torch.models.connext import ConNexTClassifier
 from mdhs_tpu_torch.models.init import init_parameters
 from mdhs_tpu_torch.models.mibf import MIBFNet
 from mdhs_tpu_torch.models.norm import BatchNorm2d
-from mdhs_tpu_torch.modules.kan import make_grid
+from mdhs_tpu_torch.modules.kan import KANLinear, make_grid
 from mdhs_tpu_torch.modules.moe import noisy_top_k_gating
 from mdhs_tpu_torch.ops import _build
 from mdhs_tpu_torch.ops import attention_ablate as aa
@@ -566,8 +591,21 @@ KERNELS = {  # name: (module, source, TPU kernel it replaces)
 }
 
 
+# host seconds between marks: each emitted line (or an explicit mark) closes the span since the
+# previous one, under its label; the phase-seconds line prints them
+SPANS: list = []
+_SPAN_START = [time.perf_counter()]
+
+
+def mark(label: str) -> None:
+    now = time.perf_counter()
+    SPANS.append([label, now - _SPAN_START[0]])
+    _SPAN_START[0] = now
+
+
 def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
+    mark("/".join(str(obj[k]) for k in ("phase", "part", "kernel", "shape", "config") if k in obj))
 
 
 def check(cond: bool, msg: str) -> None:
@@ -585,7 +623,7 @@ def read_counts() -> dict:
     return {name: fn.launches for name, (fn, _, _) in KERNELS.items()}
 
 
-def cuda_ms(fn, warmup: int = 3, reps: int = 20) -> float:
+def cuda_ms(fn, warmup: int = 2, reps: int = 10) -> float:
     """Median of per-call CUDA-event times after warm-up."""
     for _ in range(warmup):
         fn()
@@ -670,7 +708,8 @@ def device_profile(fn, forward_ms: float, reps: int = 3, top: int = 0) -> dict:
         by[next((f for f, frags in _FAMILIES.items() if any(x in low for x in frags)), "other")] += ms
     busy = sum(by.values())
     out = {"kernel_ms": busy, "busy_share": busy / forward_ms, "by_family_ms": by,
-           "records_a_call": len(events) / reps, "census": census, "launches_a_call": launches}
+           "records_a_call": len(events) / reps, "census": census, "launches_a_call": launches,
+           "markers_held": events.held}
     if top:
         out["top_kernels"] = [{"name": n[:120], "ms": ms, "launches": c}
                               for n, ms, c in sorted(kernels, key=lambda k: -k[1])[:top]]
@@ -864,6 +903,8 @@ def _kan_products(x, grid, base_w, spline_w):
     bases made beforehand (timing only): the yardstick of its products, since no one
     PyTorch call computes the layer."""
     check(not torch.backends.cuda.matmul.allow_tf32, "the float32 yardstick needs allow_tf32 off")
+    if base_w.dim() == 2:  # one layer: a bank of one
+        grid, base_w, spline_w = grid[None], base_w[None], spline_w[None]
     E, OUT, IN = base_w.shape
     xs = x if x.dim() == 3 else x.expand(E, *x.shape)
     silu_x = F.silu(xs)
@@ -1239,6 +1280,22 @@ def _kernel_cases(dev, rng, seed):
                 f(g.uniform(-1, 1, (E, OUT, IN)) / np.sqrt(IN)), f(g.standard_normal((E, OUT, IN, 8)) * 0.01))
         cases.append(("kan_forward", f"E={E},x={tuple(x.shape)},OUT={OUT}", ks.kan_forward_reference, args, False,
                       bound_kan_forward(E, CONNEXT_BATCH, IN, OUT, i == 0), None, judge_f32))
+    # the Mamba slice (a generator of its own): MambaVision-T's stage-3 and stage-4 mixers at batch 64
+    # (d_inner 160 over 196 tokens, 320 over 49, N 8), ConNexT's fusion Mamba at batch 32 (52 tokens,
+    # d_inner 512, N 128), and the fusion's KAN attention q / k / v: one layer (E 1), 1,664 rows, 256 -> 256
+    g = np.random.default_rng([seed, 23])
+    f = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+    for B, L, D, N in ((BASELINE_BATCH, 196, 160, 8), (BASELINE_BATCH, 49, 320, 8), (CONNEXT_BATCH, 52, 512, 128)):
+        args = (f(g.standard_normal((B, L, D))), f(np.log1p(np.exp(g.standard_normal((B, L, D)) - 2.0))),
+                -torch.arange(1, N + 1, dtype=torch.float32, device=dev).expand(D, N).contiguous(),
+                f(g.standard_normal((B, L, N))), f(g.standard_normal((B, L, N))), f(np.ones(D)))
+        cases.append(("selective_scan", f"B={B},L={L},D={D},N={N}", ss.selective_scan_reference, args, False,
+                      bound_selective_scan(B, L, D, N), None, judge_f32))
+    rows, IN = CONNEXT_BATCH * 52, 256
+    args = (f(g.standard_normal((rows, IN)) * 0.7), make_grid(IN, 5, 3, device=dev),
+            f(g.uniform(-1, 1, (IN, IN)) / np.sqrt(IN)), f(g.standard_normal((IN, IN, 8)) * 0.01))
+    cases.append(("kan_forward", f"E=1,x={(rows, IN)},OUT={IN}", ks.kan_forward_reference, args, False,
+                  bound_kan_forward(1, rows, IN, IN, False), None, judge_f32))
     return cases
 
 
@@ -1483,7 +1540,7 @@ def _p50_ms(model, request, dev) -> float:
     for r in single[:3]:
         one.predict(r)
     lat = []
-    for i in range(40):
+    for i in range(20):
         t0 = time.perf_counter()
         one.predict(single[i % len(single)])
         lat.append((time.perf_counter() - t0) * 1e3)
@@ -1944,7 +2001,7 @@ def _forward_flops(model, images, ids, mask) -> float:
     return total[0] + 4.0 * B * L * L * cfg.hidden_size * cfg.num_hidden_layers
 
 
-def _step_parts_ms(trainer, batch, reps: int = 5) -> dict:
+def _step_parts_ms(trainer, batch, reps: int = 3) -> dict:
     """Median CUDA-event times of one step's parts: augmentation, forward +
     backward, optimizer (H2D staged before the first event)."""
     parts = {"augment_ms": [], "forward_backward_ms": [], "optimizer_ms": [], "step_ms": []}
@@ -1967,7 +2024,7 @@ def _step_parts_ms(trainer, batch, reps: int = 5) -> dict:
     return {k: statistics.median(v) for k, v in parts.items()}
 
 
-def _images_per_s(trainer, batches, steps: int = 8) -> float:
+def _images_per_s(trainer, batches, steps: int = 4) -> float:
     """Host clock over ``steps`` whole train_steps (H2D, augmentation, forward,
     backward, Adam) after two of warm-up."""
     for b in batches[:2]:
@@ -2538,9 +2595,11 @@ def _baseline_trainer(name: str, run_dir: Path, dev) -> Trainer:
     return trainer
 
 
-def _kernel_vs_plain_step(trainer, batch, module, name: str, plain, groups: dict, seed: int, noise=None) -> dict:
+def _kernel_vs_plain_step(trainer, batch, module, name: str, plain, groups: dict, seed: int, noise=None,
+                          more=()) -> dict:
     """One step's loss and gradients with ``module.name`` launching its kernel against the same step
-    with it routed to ``plain``: the same augmented batch, dropout masks (torch's seed) and gating noise."""
+    with it (and each (module, name, plain) of ``more``) routed to its plain version: the same augmented
+    batch, dropout masks (torch's seed) and gating noise."""
     dev_b = trainer.to_device(batch)
     valid = trainer.valid_mask(batch, dev_b["label"].shape[0])
     with torch.no_grad():
@@ -2549,7 +2608,8 @@ def _kernel_vs_plain_step(trainer, batch, module, name: str, plain, groups: dict
     for which in ("kernel", "plain"):
         with contextlib.ExitStack() as stack:
             if which == "plain":
-                stack.enter_context(_plain_op(module, name, plain))
+                for m, op, fn in ((module, name, plain), *more):
+                    stack.enter_context(_plain_op(m, op, fn))
             torch.manual_seed(seed)
             loss, _ = trainer.forward_backward(images, dev_b, valid, noise=noise)
         step[which] = (loss.item(), {k: torch.cat([p.grad.double().flatten() for p in ps]) for k, ps in groups.items()})
@@ -2739,9 +2799,10 @@ CLI_DIR = REPO / "mdhs_tpu_torch" / "build" / "cli_smoke"  # git-ignored; remove
 
 def _cli_image(rng) -> np.ndarray:
     """A seeded 450 x 600 RGB image: a skin-toned field, a darker blob, pixel noise."""
-    yy, xx = np.mgrid[0:CLI_H, 0:CLI_W].astype(np.float32)
+    yy, xx = np.arange(CLI_H, dtype=np.float32)[:, None], np.arange(CLI_W, dtype=np.float32)[None, :]
     cy, cx, r = rng.uniform(0.3, 0.7) * CLI_H, rng.uniform(0.3, 0.7) * CLI_W, rng.uniform(60, 160)
-    blob = np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * r * r))[..., None]
+    # separable: exp(-(dy^2 + dx^2) / 2r^2) = exp(-dy^2 / 2r^2) exp(-dx^2 / 2r^2)
+    blob = (np.exp(-(yy - cy) ** 2 / (2 * r * r)) * np.exp(-(xx - cx) ** 2 / (2 * r * r)))[..., None]
     img = rng.uniform(150, 230, 3) * (1 - blob) + rng.uniform(30, 120, 3) * blob
     return np.clip(img + rng.normal(0, 6, (CLI_H, CLI_W, 3)), 0, 255).astype(np.uint8)
 
@@ -3218,7 +3279,7 @@ EXPORT_CASES = {
 }
 
 
-def _p50_one_row(server, request, reps: int = 20) -> float:
+def _p50_one_row(server, request, reps: int = 10) -> float:
     """Median host-clock ms of ``server.predict`` of one-row requests (padded to its static batch)."""
     single = [{k: v[i:i + 1] for k, v in request.items()} for i in range(min(8, len(request["image"])))]
     for r in single[:3]:
@@ -3301,7 +3362,7 @@ def _export_case(dev, rng, name: str, made: dict) -> tuple[dict, dict]:
     rates, p50 = {"live": [], "artifact": []}, {"live": [], "artifact": []}
     servers = {"live": live, "artifact": art}
     for side in ("live", "artifact", "artifact", "live"):
-        rates[side].append(_stream_rate(servers[side], [full, full2], 6 if batch > 64 else 12))
+        rates[side].append(_stream_rate(servers[side], [full, full2], 4 if batch > 64 else 8))
         p50[side].append(_p50_one_row(servers[side], full))
     line = {"config": config, "family": family, "batch": batch, "seq": seq, "flags": flags,
             "export_s": info["seconds"], "export_cli_wall_s": export_wall_s, "load_s": load_s,
@@ -3370,7 +3431,7 @@ def dispatch_cost(dev, rng, seed: int) -> dict:
     """What the dispatcher adds at batch 1. Host time a call of the ffn_block and attention_block
     ops (BERT-base, seq 128) against their CUDA implementations called directly: 200 calls back
     to back (the device finishes each in under 0.03 ms, so the host bounds the loop), op and
-    direct in turns. Then the live batch-1 p50 (40 one-row requests through ServingModel(batch
+    direct in turns. Then the live batch-1 p50 (20 one-row requests through ServingModel(batch
     1), host clock) of the exact MIBF model and of ham_fusion_ssm_v1, full width, with the
     wrappers calling the ops and calling the launches directly (_direct_launches), in turns."""
     H, Di, L = 768, 3072, 128
@@ -3404,7 +3465,7 @@ def dispatch_cost(dev, rng, seed: int) -> dict:
 
 def p50_op_and_direct(dev, rng, seed: int) -> dict:
     """The live batch-1 p50 of three served models, the wrappers calling the ops and calling
-    the launches directly in turns (four of each), each with a Python profile of 20 requests."""
+    the launches directly in turns (two of each), each with a Python profile of 20 requests."""
     out = {}
     g = torch.Generator(device=dev).manual_seed(seed + 40)
     models = {"mibf_exact": lambda: MIBFNet(LABELS, BertConfig(), device=dev, dtype=torch.bfloat16),
@@ -3415,9 +3476,9 @@ def p50_op_and_direct(dev, rng, seed: int) -> dict:
         request = _request(rng, 8, SEQ)
         one = {k: v[:1] for k, v in request.items()}
         p50, python = {"op": [], "direct": []}, {}
-        for side in ("op", "direct", "direct", "op") * 2:
+        for side in ("op", "direct", "direct", "op"):
             with _direct_launches() if side == "direct" else contextlib.nullcontext():
-                p50[side].append(_p50_one_row(server, request, reps=40))
+                p50[side].append(_p50_one_row(server, request, reps=20))
                 python[side] = python_profile(lambda: server.predict(one))
         out[f"p50_b1_{name}"] = {**p50, "op_over_direct": statistics.median(p50["op"]) / statistics.median(p50["direct"]),
                                  "python_profile": python}
@@ -3435,6 +3496,7 @@ def phase_export(dev, seed: int, made: dict) -> dict:
     try:
         for name in EXPORT_CASES:
             lines[name], by_path[f"export_{name}"] = _export_case(dev, rng, name, made)
+            mark(f"export/{name}")
     finally:
         shutil.rmtree(EXPORT_DIR, ignore_errors=True)
     emit({"phase": "export", "artifacts": lines, "dispatch_cost_b1": dispatch_cost(dev, rng, seed)})
@@ -3463,12 +3525,13 @@ SPINE_SERVED = (("spine_gate_entropy_v1", None, {}), ("spine_global_local_v1", N
 def _spine_slice(rng, mode: str) -> np.ndarray:
     """A seeded 288 x 320 MR-like sagittal slice: a dark field, a bright vertebral column of
     blocks, pixel noise; gray, RGB or RGBA."""
-    yy, xx = np.mgrid[0:SPINE_H, 0:SPINE_W].astype(np.float32)
-    img = 20.0 + 10.0 * np.sin(xx / rng.uniform(20, 40))
+    yy, xx = np.arange(SPINE_H, dtype=np.float32)[:, None], np.arange(SPINE_W, dtype=np.float32)[None, :]
+    img = np.broadcast_to(20.0 + 10.0 * np.sin(xx / rng.uniform(20, 40)), (SPINE_H, SPINE_W)).astype(np.float32)
     cx = rng.uniform(0.4, 0.6) * SPINE_W
-    for k in range(5):
+    across = np.exp(-((xx - cx) / 40.0) ** 4)
+    for k in range(5):  # each block separable: exp(-(a^4 + b^4)) = exp(-a^4) exp(-b^4)
         cy = (k + 0.5) * SPINE_H / 5 + rng.normal(0, 4)
-        img += 150.0 * np.exp(-(((yy - cy) / 22.0) ** 4 + ((xx - cx) / 40.0) ** 4))
+        img += 150.0 * (np.exp(-((yy - cy) / 22.0) ** 4) * across)
     img = np.clip(img + rng.normal(0, 8, img.shape), 0, 255).astype(np.uint8)
     if mode == "L":
         return img
@@ -3797,19 +3860,31 @@ def phase_spine(dev, seed: int) -> dict:
 
 
 FUSION_DIR = REPO / "mdhs_tpu_torch" / "build" / "fusion_smoke"  # git-ignored; removed when the phase ends
+MAMBA_DIR = REPO / "mdhs_tpu_torch" / "build" / "mamba_smoke"  # the same for phase mamba
 # the configurations that name the baseline fusions other than multiscale and mamba, served live at batch 64, seq 128
 FUSION_SERVED = ("ham_fusion_crossattn_v1", "ham_tta_attention_basic_mlp_v1", "ham_fusion_weighted_v1",
                  "ham_fusion_hadamard_v1", "ham_fusion_bilinear_v1", "ham_fusion_vmamba_v1", "spine_hierarchical_v1")
-# the phase's records: FUSION_PNGS seeded 600 x 450 images, each under several names; 192 train
-# records (3 steps at batch 64; the first 128, 2 steps), 64 val / test records (one batch)
+# the records of phases fusion and mamba: FUSION_PNGS seeded 600 x 450 images, each under several names;
+# 192 train records (3 steps at batch 64; the first 128, 2 steps; the first 64, 2 steps at batch 32),
+# 64 val / test records (one batch; the first 32, one batch at 32)
 FUSION_PNGS, FUSION_TRAIN, FUSION_VAL = 64, 3 * BASELINE_BATCH, BASELINE_BATCH
+PHASE_SPLITS = {"train": slice(0, FUSION_TRAIN), "train2": slice(0, 2 * BASELINE_BATCH),
+                "val": slice(FUSION_TRAIN, None), "train_cx": slice(0, 2 * CONNEXT_BATCH),
+                "val_cx": slice(FUSION_TRAIN, FUSION_TRAIN + CONNEXT_BATCH)}
+MAMBA_VISION = "ham_mamba_vision_v1"  # MambaVision-T at 224, BERT-base at seq 128, basic fusion, mlp head
+MV_SCANS = 6  # selective_scan a MambaVision-T forward: stage 3's mixers 0-3, stage 4's mixers 0-1
+LLM_HIDDEN = 3584  # the LLM hidden-state width (connext_ham's data.llm_hidden_dim)
+# ConNexT with the multimodal Mamba fusion: connext_ham.json and these overrides
+FUSION_SETS = {"model.mamba_fusion.enabled": True, "data.llm_hidden_dim": LLM_HIDDEN}
+FUSION_KAN = 3  # kan_forward a fusion forward: the KAN attention's q, k and v
 
 
-def _fusion_inputs(seed: int) -> dict:
-    """FUSION_TRAIN + FUSION_VAL records over FUSION_PNGS images, a JSON of their descriptions (8-300
-    words: most past seq 128), label CSVs of 7 classes and, for the Spine configuration, of 6."""
-    rng = np.random.default_rng([seed, 80])
-    img_dir = FUSION_DIR / "images"
+def _phase_inputs(root: Path, rng, classes=(LABELS,), hidden=()) -> dict:
+    """FUSION_TRAIN + FUSION_VAL records over FUSION_PNGS images drawn from ``rng`` in ``root``, a JSON
+    of their descriptions (8-300 words: most past seq 128), a label CSV of each PHASE_SPLITS split for
+    each class count, and where ``hidden`` names splits, a hidden-state JSON (LLM_HIDDEN-wide first and
+    last vectors, rounded to 4 decimals) of their records, the first (``left_out``) left out."""
+    img_dir = root / "images"
     img_dir.mkdir(parents=True)
     names = [f"ISIC_{i:07d}.png" for i in range(FUSION_TRAIN + FUSION_VAL)]
     for i, name in enumerate(names):
@@ -3817,148 +3892,280 @@ def _fusion_inputs(seed: int) -> dict:
             png.write_png(str(img_dir / name), _cli_image(rng))
         else:
             shutil.copyfile(img_dir / names[i % FUSION_PNGS], img_dir / name)
-    (FUSION_DIR / "descriptions.json").write_text(json.dumps(
+    (root / "descriptions.json").write_text(json.dumps(
         [{"image_info": n, "description": " ".join(rng.choice(CLI_WORDS, int(rng.integers(8, 300))))} for n in names]))
     labels = rng.integers(0, LABELS, len(names))
-    splits = {"train": names[:FUSION_TRAIN], "train2": names[:2 * BASELINE_BATCH], "val": names[FUSION_TRAIN:]}
-    csvs = {}
-    for classes in (LABELS, 6):
-        for split, rows in splits.items():
-            path = FUSION_DIR / f"labels_{split}_{classes}.csv"
-            path.write_text("image_id,label\n" + "".join(f"{n},{labels[names.index(n)] % classes}\n" for n in rows))
-            csvs[split, classes] = str(path)
-    return {"image_dir": str(img_dir), "json_path": str(FUSION_DIR / "descriptions.json"), "label_csv": csvs}
+    inputs = {"root": root, "image_dir": str(img_dir), "json_path": str(root / "descriptions.json"), "label_csv": {}}
+    for n_classes in classes:
+        for split, rows in PHASE_SPLITS.items():
+            path = root / f"labels_{split}_{n_classes}.csv"
+            path.write_text("image_id,label\n" + "".join(f"{n},{c % n_classes}\n"
+                                                          for n, c in zip(names[rows], labels[rows])))
+            inputs["label_csv"][split, n_classes] = str(path)
+    if hidden:
+        rows = [n for split in hidden for n in names[PHASE_SPLITS[split]]]
+        (root / "hidden.json").write_text(json.dumps(
+            {f"llm_out/{n}": {k: np.round(rng.standard_normal(LLM_HIDDEN), 4).tolist()
+                              for k in ("first_hidden_state", "last_hidden_state")} for n in rows[1:]}))
+        inputs.update(hidden_json=str(root / "hidden.json"), left_out=rows[0])
+    return inputs
 
 
-def _fusion_config(name: str, inputs: dict, train: str = "train", **sets) -> str:
-    """mdhs_tpu_torch/configs/<name>.json on the phase's records (the label CSVs of its class count),
-    with ``sets`` (dotted keys as ``__``), as JSON; its path."""
+def _phase_config(name: str, inputs: dict, train: str = "train", val: str = "val", tag: str | None = None,
+                  **sets) -> str:
+    """mdhs_tpu_torch/configs/<name>.json on a phase's records (the ``train`` and ``val`` label CSVs of
+    its class count; the test split ``val``'s), with ``sets`` (dotted keys, ``__`` for a dot), as JSON
+    under ``tag`` (the name by default); its path."""
+    root = inputs["root"]
     cfg = load_config(REPO / "mdhs_tpu_torch" / "configs" / f"{name}.json")
     csv = lambda split: inputs["label_csv"][split, cfg.get("model.num_classes")]  # noqa: E731
-    for key, val in (("data.train_image_dir", inputs["image_dir"]), ("data.train_json_path", inputs["json_path"]),
-                     ("data.train_label_csv", csv(train)), ("data.val_image_dir", inputs["image_dir"]),
-                     ("data.val_json_path", inputs["json_path"]), ("data.val_label_csv", csv("val")),
-                     ("data.test_image_dir", inputs["image_dir"]), ("data.test_json_path", inputs["json_path"]),
-                     ("data.test_label_csv", csv("val")), ("output.log_dir", str(FUSION_DIR / "runs")),
-                     ("training.log_every", 1), ("training.num_epochs", 1), *sets.items()):
-        cfg.set(key.replace("__", "."), val)
-    path = FUSION_DIR / f"{name}.json"
+    for key, value in (("data.train_image_dir", inputs["image_dir"]), ("data.train_json_path", inputs["json_path"]),
+                       ("data.train_label_csv", csv(train)), ("data.val_image_dir", inputs["image_dir"]),
+                       ("data.val_json_path", inputs["json_path"]), ("data.val_label_csv", csv(val)),
+                       ("data.test_image_dir", inputs["image_dir"]), ("data.test_json_path", inputs["json_path"]),
+                       ("data.test_label_csv", csv(val)), ("output.log_dir", str(root / "runs")),
+                       ("training.log_every", 1), ("training.num_epochs", 1), *sets.items()):
+        cfg.set(key.replace("__", "."), value)
+    path = root / f"{tag or name}.json"
     cfg.save_json(path)
     return str(path)
 
 
-def _fusion_serve(dev, seed: int) -> tuple[dict, dict]:
-    """Each FUSION_SERVED configuration at full width (ResNet18, BERT-base at seq 128, hidden 256, bf16,
-    seeded weights) through ServingModel at batch 64 (ham_tta_attention_basic_mlp_v1 with its TTA, one
-    fused forward of 256 rows): launches, the logits against the same weights with BERT's two sublayers
-    on their plain versions (vmamba: selective_scan alone, BERT's kernels kept), CUDA-event and device ms
-    a forward, the busy share, sync_free."""
-    layers = BertConfig().num_hidden_layers
-    lines, by_path = {}, {}
-    for i, name in enumerate(FUSION_SERVED):
-        cfg = load_config(REPO / "mdhs_tpu_torch" / "configs" / f"{name}.json")
-        g = torch.Generator(device=dev).manual_seed(seed + 80 + i)
-        model = init_parameters(build_model(cfg, "baseline", load_tokenizer_for(cfg), device=dev,
-                                            dtype=torch.bfloat16), g).eval()
-        tta = cli_common.tta_transforms(cfg.get("inference.tta"))
-        req = _request(np.random.default_rng([seed, 80, i]), BASELINE_BATCH, BASELINE_SEQ)
-        server = ServingModel(model, BASELINE_BATCH, dev, tta=tta)
+def _vs_plain(server, req: dict, out: np.ndarray, launches: dict, routes: list, max_frac: float, mean_frac: float,
+              what: str, mean_cap: float = float("inf")) -> dict:
+    """The served logits against the same weights with ``routes`` [(module, op, plain)] on their plain
+    versions (every other kernel's launches unchanged): max |d| <= max_frac of the largest logit and
+    mean |d| <= the least of mean_frac of it and mean_cap."""
+    with contextlib.ExitStack() as stack:
+        for module, op, plain in routes:
+            stack.enter_context(_plain_op(module, op, plain))
         zero_counts()
-        out = server.predict(req)
-        launches = read_counts()
-        vmamba = cfg.get("model.fusion_type") == "vmamba"
-        want = {**dict.fromkeys(KERNELS, 0), "attention_block": layers, "ffn_block": layers,
-                "selective_scan": 2 if vmamba else 0}
-        check(launches == want, f"{name} launches {launches}, expected {want}")
-        check(out.shape == (BASELINE_BATCH, cfg.get("model.num_classes")) and bool(np.isfinite(out).all()),
-              f"{name} logits {out.shape}")
-        # as phase spine holds its configurations: vmamba's scan alone on its plain version (a float32
-        # kernel ~1e-6 from it, a bf16 rounding flipped now and then downstream: BF16_STEPS, BF16_MEAN);
-        # the others with BERT's two sublayers on theirs (every row's CLS moves: BF16_STEPS, and the mean
-        # within CONNEXT_LOGIT_MEAN of the largest logit and under SLICE_MEAN)
-        if vmamba:
-            plain_ops, mean_frac = [(ss, "selective_scan", ss.selective_scan_reference)], BF16_MEAN
+        ref = server.predict(req)
+        plain_counts = read_counts()
+    routed = [op for _, op, _ in routes]
+    check(all(plain_counts[op] == 0 for op in routed) and
+          all(plain_counts[k] == launches[k] for k in KERNELS if k not in routed),
+          f"{what}: launches {plain_counts} with {routed} on their plain versions")
+    lmax, lmean = diff(torch.from_numpy(out), torch.from_numpy(ref))
+    scale = float(np.abs(ref).max())
+    bound, mean_bound = max_frac * scale, min(mean_cap, mean_frac * scale)
+    check(lmax <= bound and lmean <= mean_bound, f"{what} logits kernels vs plain {routed}: max {lmax} (bound {bound})"
+                                                 f" mean {lmean} (bound {mean_bound}), max |logit| {scale}")
+    return {"plain": routed, "max_abs": lmax, "mean_abs": lmean, "max_abs_logit": scale,
+            "max_abs_over_max_logit": lmax / scale, "max_abs_bound": bound, "mean_abs_bound": mean_bound}
+
+
+BERT_PLAIN_128 = [(ab, "attention_block", ab.attention_block_reference), (fb, "ffn_block", fb.ffn_block_reference)]
+BERT_PLAIN_512 = [(fa, "fused_attention", fa.attention_reference), (fb, "ffn_block", fb.ffn_block_reference)]
+SCAN_PLAIN = [(ss, "selective_scan", ss.selective_scan_reference)]
+FUSION_PLAIN = SCAN_PLAIN + [(ks, "kan_forward", ks.kan_forward_reference)]
+# the logits' bounds against each route on plain (max and mean fractions of the largest logit, mean cap):
+# BERT's sublayers move every row's CLS (BF16_STEPS, and the mean within CONNEXT_LOGIT_MEAN of the
+# largest logit and under SLICE_MEAN); the scan alone is a float32 kernel ~1e-6 from its plain version,
+# a bf16 rounding flipped now and then downstream (BF16_STEPS, BF16_MEAN)
+BERT_128_BOUNDS = (BERT_PLAIN_128, BF16_STEPS, CONNEXT_LOGIT_MEAN, SLICE_MEAN)
+SCAN_BOUNDS = (SCAN_PLAIN, BF16_STEPS, BF16_MEAN, SLICE_MEAN)
+
+
+def _served_line(server, req: dict, out: np.ndarray, launches: dict, **extra) -> dict:
+    """CUDA-event and device ms of a served forward (live or loaded) from device-resident inputs, the
+    busy share, sync_free, beside the launches, the logits' shape and ``extra``."""
+    dev_in = {k: torch.from_numpy(req[k]).to(server.device, dt) for k, dt in server.inputs.items()}
+    with torch.inference_mode():
+        if server.model is None:  # a loaded artifact takes its inputs by position
+            fwd = lambda: server.fn(*dev_in.values())  # noqa: E731
         else:
-            plain_ops = [(ab, "attention_block", ab.attention_block_reference),
-                         (fb, "ffn_block", fb.ffn_block_reference)]
-            mean_frac = CONNEXT_LOGIT_MEAN
-        with contextlib.ExitStack() as stack:
-            for module, op, plain in plain_ops:
-                stack.enter_context(_plain_op(module, op, plain))
-            zero_counts()
-            ref = server.predict(req)
-            plain_counts = read_counts()
-        routed = [op for _, op, _ in plain_ops]
-        check(all(plain_counts[op] == 0 for op in routed) and
-              all(plain_counts[k] == launches[k] for k in KERNELS if k not in routed),
-              f"{name}: launches {plain_counts} with {routed} on their plain versions")
-        lmax, lmean = diff(torch.from_numpy(out), torch.from_numpy(ref))
-        scale = float(np.abs(ref).max())
-        bound, mean_bound = BF16_STEPS * scale, min(SLICE_MEAN, mean_frac * scale)
-        check(lmax <= bound and lmean <= mean_bound,
-              f"{name} logits kernels vs plain {routed}: max {lmax} (bound {bound}) mean {lmean} "
-              f"(bound {mean_bound}), max |logit| {scale}")
-        dev_in = [torch.from_numpy(req[k]).to(dev, dt) for k, dt in server.inputs.items()]
-        with torch.inference_mode():
-            fwd = lambda: server.fn(*dev_in)  # noqa: E731
-            forward_ms = cuda_ms(fwd, reps=10)
-            device = device_profile(fwd, forward_ms, top=6)
-        lines[name] = {"fusion": cfg.get("model.fusion_type"), "tta": list(tta), "launches": launches,
-                       "logits_vs_plain": {"plain": routed, "max_abs": lmax, "mean_abs": lmean, "max_abs_logit": scale,
-                                           "max_abs_over_max_logit": lmax / scale, "max_abs_bound": bound,
-                                           "mean_abs_bound": mean_bound},
-                       "sync_free": sync_free_call(fwd), "forward_ms_b64": forward_ms,
-                       "device_ms_b64": device["kernel_ms"], "busy_share": device["busy_share"], "device": device}
-        by_path[f"fusion_serve_{name}"] = launches
-        del model, server
-        torch.cuda.empty_cache()
-    return lines, by_path
+            fwd = lambda: server.fn(**dev_in)  # noqa: E731
+        forward_ms = cuda_ms(fwd, reps=10)
+        device = device_profile(fwd, forward_ms, top=6)
+    return {"launches": launches, "logits": list(out.shape), **extra, "sync_free": sync_free_call(fwd),
+            "forward_ms": forward_ms, "device_ms": device["kernel_ms"], "busy_share": device["busy_share"],
+            "device": device}
 
 
-def _fusion_run(name: str, cfg: str, steps: int, scans_a_forward: int) -> tuple:
-    """run_train of ``cfg`` (one epoch of ``steps`` steps and a validation batch) with every count at 0
-    just before it: (the trainer, its launches, host-clock seconds, the run's files, its best checkpoint)."""
+def _serve_baseline(dev, name: str, g_seed: int, rng, scans: int, plain: dict) -> tuple[dict, dict]:
+    """mdhs_tpu_torch/configs/<name>.json at full width (bf16, weights seeded by ``g_seed``, the request
+    drawn from ``rng``) through ServingModel at batch 64, seq 128 with its TTA: 12 + 12 launches of
+    BERT's two sublayers and ``scans`` selective_scan, finite logits, each of ``plain`` (label: (routes,
+    max_frac, mean_frac, mean_cap)) against the same weights with those routes on plain, and
+    _served_line's times; the line and the launches."""
     layers = BertConfig().num_hidden_layers
+    cfg = load_config(REPO / "mdhs_tpu_torch" / "configs" / f"{name}.json")
+    model = init_parameters(build_model(cfg, "baseline", load_tokenizer_for(cfg), device=dev, dtype=torch.bfloat16),
+                            torch.Generator(device=dev).manual_seed(g_seed)).eval()
+    tta = cli_common.tta_transforms(cfg.get("inference.tta"))
+    req = _request(rng, BASELINE_BATCH, BASELINE_SEQ)
+    server = ServingModel(model, BASELINE_BATCH, dev, tta=tta)
+    zero_counts()
+    out = server.predict(req)
+    launches = read_counts()
+    want = {**dict.fromkeys(KERNELS, 0), "attention_block": layers, "ffn_block": layers, "selective_scan": scans}
+    check(launches == want and out.shape == (BASELINE_BATCH, cfg.get("model.num_classes"))
+          and bool(np.isfinite(out).all()), f"{name} launches {launches}, expected {want}; logits {out.shape}")
+    vs_plain = {label: _vs_plain(server, req, out, launches, routes, max_frac, mean_frac, name, mean_cap=cap)
+                for label, (routes, max_frac, mean_frac, cap) in plain.items()}
+    line = {"tower": [model.cfg.image_backbone, model.image_encoder.proj4.in_features],
+            "fusion": cfg.get("model.fusion_type"), "tta": list(tta),
+            **_served_line(server, req, out, launches, logits_vs_plain=vs_plain)}
+    del model, server
+    torch.cuda.empty_cache()
+    return line, launches
+
+
+def _fusion_run(name: str, cfg: str, steps: int, scans_a_forward: int, family: str = "baseline",
+                kan_a_forward: int = 0) -> tuple:
+    """run_train of ``cfg`` (one epoch of ``steps`` steps and a validation batch) with every count at 0
+    just before it: (the trainer, its launches, host-clock seconds, the run's files, its best checkpoint).
+    A step launches 3 shears and the scan and kan_forward as a forward does; validation BERT's kernels
+    (a connext run's BERT at seq 512: fused_attention and ffn_block) too."""
+    layers = BertConfig().num_hidden_layers
+    attention = "fused_attention" if family == "connext" else "attention_block"
     zero_counts()
     t0 = time.perf_counter()
-    trainer = run_train.main(["--config", cfg, "--device", "cuda"])
+    trainer = run_train.main(["--config", cfg, "--family", family, "--device", "cuda"])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = read_counts()
-    want = {**dict.fromkeys(KERNELS, 0), "shear_sublane": 3 * steps, "attention_block": layers, "ffn_block": layers,
-            "selective_scan": scans_a_forward * (steps + 1)}
+    want = {**dict.fromkeys(KERNELS, 0), "shear_sublane": 3 * steps, attention: layers, "ffn_block": layers,
+            "selective_scan": scans_a_forward * (steps + 1), "kan_forward": kan_a_forward * (steps + 1)}
     check(launches == want and trainer.step == steps, f"{name} run: step {trainer.step}, launches {launches}, "
                                                       f"expected {want}")
     files = _run_files(trainer.output_dir)
     return trainer, launches, seconds, files, str(Path(trainer.output_dir, files["checkpoints"][0]["path"]))
 
 
-def _fusion_train(dev, inputs: dict, seed: int) -> tuple[dict, dict, dict]:
-    """run_train of ham_fusion_vmamba_v1 (3 steps at batch 64: the two scans under autograd, their
-    backward the associative scan's VJP) with a step against the same step on the plain scan, step ms
-    and device ms; of ham_fusion_crossattn_v1 and spine_hierarchical_v1 (2 steps each); then run_predict
-    of ham_tta_attention_basic_mlp_v1 with its TTA over the crossattn run's best checkpoint, its logits
-    bit for bit the live ServingModel's with the same TTA. Returns the lines, the launches of each path
-    and the best checkpoints by configuration."""
-    lines, by_path, best = {}, {}, {}
-    name = "ham_fusion_vmamba_v1"
-    cfg = _fusion_config(name, inputs)
-    trainer, launches, seconds, files, best[name] = _fusion_run(name, cfg, 3, 2)
-    batch = next(iter(trainer.train_loader))
-    groups = {"fusion.vmamba": [p for n, p in trainer.model.named_parameters() if n.startswith("fusion.vmamba.")],
-              "text_encoder": list(trainer.model.text_encoder.parameters())}
-    vs_plain = _kernel_vs_plain_step(trainer, batch, ss, "selective_scan", ss.selective_scan_reference, groups, seed)
+def _step_line(name: str, trainer, batch, groups: dict, seed: int, want: dict, more=(), reps: int = 2) -> dict:
+    """One step of ``trainer`` on ``batch`` against the same step with selective_scan (and each of
+    ``more``) on its plain version (_kernel_vs_plain_step: ``groups``' gradient cosines), the launches
+    of one step (3 shears and ``want``), the step's parts' ms."""
+    vs_plain = _kernel_vs_plain_step(trainer, batch, ss, "selective_scan", ss.selective_scan_reference, groups, seed,
+                                     more=more)
     trainer.model.zero_grad(set_to_none=True)
     zero_counts()
     trainer.train_step(batch)
     torch.cuda.synchronize()
-    step_launches = read_counts()
-    check(step_launches == {**dict.fromkeys(KERNELS, 0), "shear_sublane": 3, "selective_scan": 2},
-          f"{name} step launches {step_launches}")
-    parts = _step_parts_ms(trainer, batch, reps=3)
-    device = device_profile(lambda: trainer.train_step(batch), parts["step_ms"], reps=2, top=8)
-    lines[name] = {"run_s": seconds, "launches_run": launches, "launches_step": step_launches,
-                   "run_files": files["tags"], "step_vs_plain_scan": vs_plain, "step_parts_ms": parts,
+    launches = read_counts()
+    check(launches == {**dict.fromkeys(KERNELS, 0), "shear_sublane": 3, **want}, f"{name} step launches {launches}")
+    return {"launches_step": launches, "step_vs_plain": vs_plain,
+            "step_parts_ms": _step_parts_ms(trainer, batch, reps=reps)}
+
+
+def _predict_line(dev, name: str, cfg: str, ckpt: str, family: str, want: dict, rows: int) -> tuple:
+    """run_predict of ``cfg`` (its TTA CLI_TTA) over ``ckpt`` with every count at 0 just before it:
+    launches ``want``, ``rows`` logits and CSV rows, bit for bit the live TTA server's on the test
+    loader's first batch. Returns the line, the predictor, that batch and the live logits."""
+    out_csv = Path(cfg).with_suffix(".csv")
+    zero_counts()
+    t0 = time.perf_counter()
+    pred = run_predict.main(["--config", cfg, "--model_path", ckpt, "--output_path", str(out_csv),
+                             "--family", family, "--device", "cuda"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    check(launches == {**dict.fromkeys(KERNELS, 0), **want}, f"{name} run_predict launches {launches}")
+    predictor = cli_common.build_predictor(cfg, family=family, device=dev)
+    predictor.load_weights(ckpt)
+    tta = cli_common.tta_transforms(predictor.cfg.get("inference.tta"))
+    check(tta == CLI_TTA, f"{name}: TTA {tta}")
+    b = next(iter(predictor.make_test_loader()))
+    live = predictor.server(tta).predict(b)[: int(b["n_valid"])]
+    check(pred["logits"].shape == (rows, LABELS) and len(out_csv.read_text().splitlines()) == rows + 1
+          and np.array_equal(pred["logits"], live), f"{name}: run_predict's logits against the live TTA server")
+    line = {"tta": list(tta), "seconds": seconds, "images_per_s": rows / seconds, "launches": launches,
+            "logits_equal_live_tta_server": True}
+    return line, predictor, b, live
+
+
+def _export_cases(dev, phase: str, cases: list, best: dict, rng_key: int, seed: int) -> tuple[dict, dict]:
+    """Each case (name, config path, family, batch, seq, launches a forward) exported from its trained
+    best checkpoint by cli/export_serving.py at its batch, loaded by ServingModel.load and held against
+    the live ServingModel of the same checkpoint given no hidden vectors (an artifact takes none and
+    the fusion reads zeros, as JAX's): the launches on both, logits bit for bit, _served_line's times."""
+    lines, by_path = {}, {}
+    for i, (name, cfg, family, batch, seq, want) in enumerate(cases):
+        art = str(Path(cfg).with_suffix(".pt2"))
+        t0 = time.perf_counter()
+        info = export_serving.main(["--config", cfg, "--model_path", best[name], "--output", art, "--batch_size",
+                                    str(batch), "--family", family, "--device", "cuda"])
+        export_s = time.perf_counter() - t0
+        loaded = ServingModel.load(art, dev)
+        predictor = cli_common.build_predictor(cfg, family=family, device=dev)
+        predictor.load_weights(best[name])
+        live = predictor.server()
+        check(not predictor.hidden and list(loaded.inputs) == list(live.inputs)
+              and list(loaded.inputs)[:3] == ["image", "input_ids", "attention_mask"],
+              f"{name} artifact inputs {list(loaded.inputs)}, live {list(live.inputs)}")
+        req = _request(np.random.default_rng([seed, rng_key, i]), batch, seq)
+        out = {}
+        for which, server in (("live", live), ("artifact", loaded)):
+            zero_counts()
+            out[which] = server.predict(req)
+            out[f"{which}_launches"] = read_counts()
+        want = {**dict.fromkeys(KERNELS, 0), **want}
+        check(out["live_launches"] == out["artifact_launches"] == want,
+              f"{name} artifact launches {out['artifact_launches']}, live {out['live_launches']}, expected {want}")
+        check(np.array_equal(out["live"], out["artifact"]), f"{name}: the artifact's logits are not the live model's")
+        lines[name] = {"export_s": export_s, "bytes": info["bytes"], "batch": batch,
+                       **_served_line(loaded, req, out["artifact"], out["artifact_launches"], logits_bit_equal=True)}
+        by_path[f"{phase}_export_{name}"] = out["artifact_launches"]
+        del loaded, predictor, live
+        torch.cuda.empty_cache()
+        mark(f"{phase}/export/{name}")
+    return lines, by_path
+
+
+def _phase(phase: str, root: Path, dev, seed: int, rng_key: int, make_inputs, serve, train, export_cases) -> dict:
+    """A phase of served, trained and exported configurations on the card in ``root`` (removed after):
+    ``make_inputs()`` its records, ``serve()`` (lines, launches by path), ``train(inputs)`` (lines,
+    launches by path, best checkpoints), _export_cases of ``export_cases(inputs)`` (requests drawn
+    from [seed, rng_key, i]); a line for each part; returns each path's launches."""
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    t_phase = time.perf_counter()
+    try:
+        inputs = make_inputs()
+        mark(f"{phase}/inputs")
+        serve_lines, by_path = serve()
+        emit({"phase": phase, "part": "serve", "configs": serve_lines})
+        torch.cuda.reset_peak_memory_stats(dev)
+        train_lines, train_paths, best = train(inputs)
+        emit({"phase": phase, "part": "train", "runs": train_lines})
+        export_lines, export_paths = _export_cases(dev, phase, export_cases(inputs), best, rng_key, seed)
+        emit({"phase": phase, "part": "export", "artifacts": export_lines,
+              "phase_seconds": time.perf_counter() - t_phase})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {**by_path, **train_paths, **export_paths}
+
+
+def _fusion_serve(dev, seed: int) -> tuple[dict, dict]:
+    """Each FUSION_SERVED configuration (ResNet18, BERT-base at seq 128, hidden 256) through
+    _serve_baseline (ham_tta_attention_basic_mlp_v1 with its TTA, one fused forward of 256 rows): the
+    logits against BERT's two sublayers on plain (vmamba: selective_scan alone, BERT's kernels kept)."""
+    lines, by_path = {}, {}
+    for i, name in enumerate(FUSION_SERVED):
+        vmamba = name == "ham_fusion_vmamba_v1"
+        lines[name], by_path[f"fusion_serve_{name}"] = _serve_baseline(
+            dev, name, seed + 80 + i, np.random.default_rng([seed, 80, i]), 2 if vmamba else 0,
+            {"scan": SCAN_BOUNDS} if vmamba else {"bert": BERT_128_BOUNDS})
+    return lines, by_path
+
+
+def _fusion_train(dev, inputs: dict, seed: int) -> tuple[dict, dict, dict]:
+    """run_train of ham_fusion_vmamba_v1 (3 steps at batch 64: the two scans under autograd, their
+    backward the associative scan's VJP) with _step_line against the plain scan and the step's device
+    ms; of ham_fusion_crossattn_v1 and spine_hierarchical_v1 (2 steps each); then run_predict of
+    ham_tta_attention_basic_mlp_v1 with its TTA over the crossattn run's best checkpoint (_predict_line).
+    Returns the lines, the launches of each path and the best checkpoints by configuration."""
+    lines, by_path, best = {}, {}, {}
+    name = "ham_fusion_vmamba_v1"
+    trainer, launches, seconds, files, best[name] = _fusion_run(name, _phase_config(name, inputs), 3, 2)
+    batch = next(iter(trainer.train_loader))
+    groups = {"fusion.vmamba": [p for n, p in trainer.model.named_parameters() if n.startswith("fusion.vmamba.")],
+              "text_encoder": list(trainer.model.text_encoder.parameters())}
+    step = _step_line(name, trainer, batch, groups, seed, {"selective_scan": 2}, reps=3)
+    device = device_profile(lambda: trainer.train_step(batch), step["step_parts_ms"]["step_ms"], reps=2, top=8)
+    lines[name] = {"run_s": seconds, "launches_run": launches, "run_files": files["tags"], **step,
                    "device_ms_per_step": device["kernel_ms"], "busy_share": device["busy_share"], "device": device,
                    "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
     by_path["fusion_train_vmamba"] = launches
@@ -3966,7 +4173,7 @@ def _fusion_train(dev, inputs: dict, seed: int) -> tuple[dict, dict, dict]:
     torch.cuda.empty_cache()
     for name, path in (("ham_fusion_crossattn_v1", "fusion_train_basic"),
                        ("spine_hierarchical_v1", "fusion_train_hierarchical")):
-        trainer, launches, seconds, files, best[name] = _fusion_run(name, _fusion_config(name, inputs, "train2"),
+        trainer, launches, seconds, files, best[name] = _fusion_run(name, _phase_config(name, inputs, "train2"),
                                                                     2, 0)
         lines[name] = {"run_s": seconds, "launches_run": launches, "run_files": files["tags"],
                        "losses": [r["value"] for r in map(json.loads, Path(trainer.output_dir, "metrics.jsonl")
@@ -3974,97 +4181,189 @@ def _fusion_train(dev, inputs: dict, seed: int) -> tuple[dict, dict, dict]:
         by_path[path] = launches
         del trainer
         torch.cuda.empty_cache()
-    # run_predict with the TTA configuration over the basic fusion's trained checkpoint
     layers = BertConfig().num_hidden_layers
     name = "ham_tta_attention_basic_mlp_v1"
-    cfg = _fusion_config(name, inputs)
-    out_csv = FUSION_DIR / "tta.csv"
-    zero_counts()
-    t0 = time.perf_counter()
-    pred = run_predict.main(["--config", cfg, "--model_path", best["ham_fusion_crossattn_v1"], "--output_path",
-                             str(out_csv), "--device", "cuda"])
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = read_counts()
-    check(launches == {**dict.fromkeys(KERNELS, 0), "attention_block": layers, "ffn_block": layers},
-          f"{name} run_predict launches {launches}")
-    predictor = cli_common.build_predictor(cfg, device=dev)
-    predictor.load_weights(best["ham_fusion_crossattn_v1"])
-    tta = cli_common.tta_transforms(predictor.cfg.get("inference.tta"))
-    check(tta == CLI_TTA, f"{name}: TTA {tta}")
-    b = next(iter(predictor.make_test_loader()))
-    live = predictor.server(tta).predict(b)[: int(b["n_valid"])]
-    rows = out_csv.read_text().splitlines()
-    check(pred["logits"].shape == (FUSION_VAL, LABELS) and len(rows) == FUSION_VAL + 1
-          and np.array_equal(pred["logits"], live), f"{name}: run_predict's logits against the live TTA server")
-    lines[name] = {"checkpoint": "ham_fusion_crossattn_v1's best", "tta": list(tta), "seconds": seconds,
-                   "images_per_s": FUSION_VAL / seconds, "launches": launches, "logits_equal_live_tta_server": True}
-    by_path["fusion_predict_tta"] = launches
+    line, predictor, _, _ = _predict_line(dev, name, _phase_config(name, inputs), best["ham_fusion_crossattn_v1"],
+                                          "baseline", {"attention_block": layers, "ffn_block": layers}, FUSION_VAL)
+    lines[name] = {"checkpoint": "ham_fusion_crossattn_v1's best", **line}
+    by_path["fusion_predict_tta"] = line["launches"]
     del predictor
     torch.cuda.empty_cache()
     return lines, by_path, best
 
 
-def _fusion_export(dev, inputs: dict, best: dict, seed: int) -> tuple[dict, dict]:
-    """ham_fusion_vmamba_v1 and spine_hierarchical_v1 exported from their trained best checkpoints by
-    cli/export_serving.py at batch 64, loaded by ServingModel.load, and held against the live
-    ServingModel of the same checkpoint: launches, logits bit for bit, device ms a forward."""
+def phase_fusion(dev, seed: int) -> dict:
+    """The seven configurations of the baseline's remaining fusions on the card (FUSION_DIR): served,
+    three trained, one predicted with TTA, vmamba's and hierarchical's exported at batch 64."""
+    layers = BertConfig().num_hidden_layers
+    return _phase(
+        "fusion", FUSION_DIR, dev, seed, 90,
+        lambda: _phase_inputs(FUSION_DIR, np.random.default_rng([seed, 80]), classes=(LABELS, 6)),
+        lambda: _fusion_serve(dev, seed), lambda inputs: _fusion_train(dev, inputs, seed),
+        lambda inputs: [(name, _phase_config(name, inputs), "baseline", BASELINE_BATCH, BASELINE_SEQ,
+                         {"attention_block": layers, "ffn_block": layers, "selective_scan": scans})
+                        for name, scans in (("ham_fusion_vmamba_v1", 2), ("spine_hierarchical_v1", 0))])
+
+
+def _fusion_model(dev, seed: int):
+    """ConNexT with the Mamba fusion at full width, bf16, seeded, its ConvNeXt layer scales at
+    LAYER_SCALE (phase connext's weights: the map holds every block)."""
+    cfg = load_config(REPO / "mdhs_tpu_torch" / "configs" / "connext_ham.json",
+                      overrides=[f"{k}={str(v).lower()}" for k, v in FUSION_SETS.items()])
+    model = init_parameters(build_model(cfg, "connext", load_tokenizer_for(cfg), device=dev, dtype=torch.bfloat16),
+                            torch.Generator(device=dev).manual_seed(seed))
+    with torch.no_grad():
+        for p in _layer_scales(model):
+            p.fill_(LAYER_SCALE)
+    return model.eval()
+
+
+def _mamba_serve(dev, seed: int) -> tuple[dict, dict]:
+    """ham_mamba_vision_v1 through _serve_baseline (its logits against BERT's sublayers and against the
+    scan alone on plain), and ConNexT with the Mamba fusion at batch 32, seq 512 with hidden vectors,
+    live at full width, bf16, seeded: launches, the logits against BERT on plain and against the scan
+    and kan_forward on plain, the fusion's output in float32 against its plain ops, _served_line's times."""
     layers = BertConfig().num_hidden_layers
     lines, by_path = {}, {}
-    for i, name in enumerate(("ham_fusion_vmamba_v1", "spine_hierarchical_v1")):
-        cfg = _fusion_config(name, inputs)
-        art = str(FUSION_DIR / f"{name}.pt2")
-        t0 = time.perf_counter()
-        info = export_serving.main(["--config", cfg, "--model_path", best[name], "--output", art, "--batch_size",
-                                    str(BASELINE_BATCH), "--device", "cuda"])
-        export_s = time.perf_counter() - t0
-        loaded = ServingModel.load(art, dev)
-        predictor = cli_common.build_predictor(cfg, device=dev)
-        predictor.load_weights(best[name])
-        req = _request(np.random.default_rng([seed, 90, i]), BASELINE_BATCH, BASELINE_SEQ)
-        out = {}
-        for which, server in (("live", predictor.server()), ("artifact", loaded)):
-            zero_counts()
-            out[which] = server.predict(req)
-            out[f"{which}_launches"] = read_counts()
-        want = {**dict.fromkeys(KERNELS, 0), "attention_block": layers, "ffn_block": layers,
-                "selective_scan": 2 if name == "ham_fusion_vmamba_v1" else 0}
-        check(out["live_launches"] == out["artifact_launches"] == want,
-              f"{name} artifact launches {out['artifact_launches']}, live {out['live_launches']}, expected {want}")
-        check(np.array_equal(out["live"], out["artifact"]), f"{name}: the artifact's logits are not the live model's")
-        dev_in = [torch.from_numpy(req[k]).to(dev, dt) for k, dt in loaded.inputs.items()]
-        with torch.inference_mode():
-            fwd = lambda: loaded.fn(*dev_in)  # noqa: E731
-            ms = cuda_ms(fwd, reps=10)
-            device = device_profile(fwd, ms)
-        lines[name] = {"export_s": export_s, "bytes": info["bytes"], "launches": out["artifact_launches"],
-                       "logits_bit_equal": True, "forward_ms_b64": ms, "device_ms_b64": device["kernel_ms"],
-                       "sync_free": sync_free_call(fwd)}
-        by_path[f"fusion_export_{name}"] = out["artifact_launches"]
-        del loaded, predictor
-        torch.cuda.empty_cache()
+    lines[MAMBA_VISION], by_path["mamba_serve_vision"] = _serve_baseline(
+        dev, MAMBA_VISION, seed + 90, np.random.default_rng([seed, 90]), MV_SCANS,
+        {"bert": BERT_128_BOUNDS, "scan": SCAN_BOUNDS})
+    check(lines[MAMBA_VISION]["tower"] == ["mamba_vision_T", 640], f"{MAMBA_VISION}: tower {lines[MAMBA_VISION]['tower']}")
+    mark("mamba/serve/vision")
+
+    model = _fusion_model(dev, seed + 91)
+    rng = np.random.default_rng([seed, 91])
+    req = _request(rng, CONNEXT_BATCH, CONNEXT_SEQ)
+    req.update({k: rng.standard_normal((CONNEXT_BATCH, LLM_HIDDEN)).astype(np.float32)
+                for k in ("first_hidden", "last_hidden")})
+    server = ServingModel(model, CONNEXT_BATCH, dev, image_size=CONNEXT_CROP, hidden=True)
+    check(list(server.inputs)[-2:] == ["first_hidden", "last_hidden"], f"fusion server inputs {list(server.inputs)}")
+    zero_counts()
+    out = server.predict(req)
+    launches = read_counts()
+    by_layer = dict(ks.kan_forward.launches_by_layer)
+    want = {**dict.fromkeys(KERNELS, 0), "fused_attention": layers, "ffn_block": layers, "selective_scan": 1,
+            "kan_forward": FUSION_KAN}
+    check(launches == want and by_layer == {(256, 256): FUSION_KAN} and out.shape == (CONNEXT_BATCH, LABELS)
+          and bool(np.isfinite(out).all()), f"connext fusion launches {launches} {by_layer}, expected {want}")
+    comparisons = {"bert": _vs_plain(server, req, out, launches, BERT_PLAIN_512, CONNEXT_LOGIT_MAX,
+                                     CONNEXT_LOGIT_MEAN, "connext fusion"),
+                   "scan_and_kan": _vs_plain(server, req, out, launches, FUSION_PLAIN, BF16_STEPS, BF16_MEAN,
+                                             "connext fusion")}
+    # the fusion alone in float32 on the served towers' outputs: kernels against plain ops, F32_FRAC
+    with torch.inference_mode():
+        images = eval_pipeline(torch.from_numpy(req["image"]).to(dev), CONNEXT_CROP, normalize=True,
+                               dtype=torch.bfloat16)
+        cls, fmap = model.towers(images, torch.from_numpy(req["input_ids"]).to(dev),
+                                 torch.from_numpy(req["attention_mask"]).to(dev))
+        f32 = copy.deepcopy(model.mamba_fusion).float()
+        for m in f32.modules():
+            if isinstance(m, KANLinear):  # its output dtype is the module's, bf16 as built
+                m.out_dtype = torch.float32
+        args = (cls.float(), fmap.float().flatten(1, 2), *(torch.from_numpy(req[k]).to(dev) for k in
+                                                              ("first_hidden", "last_hidden")))
+        fused = f32(*args)
+        with contextlib.ExitStack() as stack:
+            for module, op, plain in FUSION_PLAIN:
+                stack.enter_context(_plain_op(module, op, plain))
+            fused_plain = f32(*args)
+    fmx, fmean, fbound, ok = judge_f32(fused, fused_plain)
+    check(ok, f"connext fusion output in float32, kernels vs plain: max {fmx} (bound {fbound})")
+    comparisons["fusion_output_f32"] = {"max_abs": fmx, "mean_abs": fmean, "max_abs_bound": fbound}
+    lines["connext_mamba_fusion"] = {
+        "model": "ConNexT: ConvNeXt-base (layer scales 0.5) + BERT-base, multimodal Mamba fusion (KAN attention "
+                 "q/k/v 256 -> 256, Mamba d_inner 512 N 128 over 52 tokens), 3,584-wide hidden vectors, bf16, "
+                 "batch 32, seq 512", **_served_line(server, req, out, launches, logits_vs_plain=comparisons)}
+    by_path["mamba_serve_fusion"] = launches
+    del model, server, f32
+    torch.cuda.empty_cache()
     return lines, by_path
 
 
-def phase_fusion(dev, seed: int) -> dict:
-    """The seven configurations of the baseline's remaining fusions on the card (FUSION_DIR, removed
-    after), a line for each part; returns each path's launches."""
-    shutil.rmtree(FUSION_DIR, ignore_errors=True)
-    FUSION_DIR.mkdir(parents=True)
-    t_phase = time.perf_counter()
-    try:
-        inputs = _fusion_inputs(seed)
-        serve, by_path = _fusion_serve(dev, seed)
-        emit({"phase": "fusion", "part": "serve", "configs": serve})
-        torch.cuda.reset_peak_memory_stats(dev)
-        train, train_paths, best = _fusion_train(dev, inputs, seed)
-        emit({"phase": "fusion", "part": "train", "runs": train})
-        export, export_paths = _fusion_export(dev, inputs, best, seed)
-        emit({"phase": "fusion", "part": "export", "artifacts": export,
-              "phase_seconds": time.perf_counter() - t_phase})
-    finally:
-        shutil.rmtree(FUSION_DIR, ignore_errors=True)
-    return {**by_path, **train_paths, **export_paths}
+def _mamba_train(dev, inputs: dict, seed: int) -> tuple[dict, dict, dict]:
+    """run_train of ham_mamba_vision_v1 (3 steps at batch 64: six scans a forward under autograd, their
+    backward the associative scan's VJP) and _step_line against the plain scan; run_train --family
+    connext with the Mamba fusion (2 steps at batch 32, the hidden JSON, one image without vectors) and
+    _step_line against the plain scan and kan_forward; run_predict of the fusion with TTA and the
+    hidden vectors over its best checkpoint (_predict_line), the vectors moving its logits. Returns
+    the lines, the launches of each path and the best checkpoints."""
+    lines, by_path, best = {}, {}, {}
+    trainer, launches, seconds, files, best[MAMBA_VISION] = _fusion_run(
+        MAMBA_VISION, _phase_config(MAMBA_VISION, inputs), 3, MV_SCANS)
+    batch = next(iter(trainer.train_loader))
+    params = dict(trainer.model.named_parameters())
+    # the Mamba mixers of stages 3 and 4 (the attention blocks' mixer.qkv and mixer.proj left out)
+    groups = {"mamba_vision_mixers": [p for n, p in params.items() if n.startswith("image_encoder.model.levels.")
+                                      and ".mixer." in n and ".mixer.qkv." not in n and ".mixer.proj." not in n],
+              "text_encoder": list(trainer.model.text_encoder.parameters())}
+    lines[MAMBA_VISION] = {"run_s": seconds, "launches_run": launches, "run_files": files["tags"],
+                           **_step_line(MAMBA_VISION, trainer, batch, groups, seed, {"selective_scan": MV_SCANS}),
+                           "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+    by_path["mamba_train_vision"] = launches
+    del trainer, batch, groups, params
+    torch.cuda.empty_cache()
+    mark("mamba/train/vision")
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    fusion_sets = {**FUSION_SETS, "data.llm_hidden_json": inputs["hidden_json"]}
+    cfg = _phase_config("connext_ham", inputs, "train_cx", "val_cx", "connext_fusion", **fusion_sets)
+    trainer, launches, seconds, files, best["connext_fusion"] = _fusion_run("connext fusion", cfg, 2, 1, "connext",
+                                                                            FUSION_KAN)
+    batches = list(trainer.train_loader)
+    ids = [i for b in batches for i in b["image_id"]]
+    row = [b["first_hidden"][b["image_id"].index(inputs["left_out"])] for b in batches
+           if inputs["left_out"] in b["image_id"]]
+    check(len(ids) == 2 * CONNEXT_BATCH and batches[0]["first_hidden"].shape == (CONNEXT_BATCH, LLM_HIDDEN)
+          and len(row) == 1 and not row[0].any(), "connext fusion batches: the hidden vectors or the zero fill")
+    params = dict(trainer.model.named_parameters())
+    groups = {"kan_attention": [p for n, p in params.items() if n.startswith("mamba_fusion.attn.")],
+              "mamba": [p for n, p in params.items() if n.startswith("mamba_fusion.mamba.")],
+              "text_encoder": list(trainer.model.text_encoder.parameters())}
+    lines["connext_fusion"] = {"run_s": seconds, "launches_run": launches, "run_files": files["tags"],
+                               **_step_line("connext fusion", trainer, batches[0], groups, seed,
+                                            {"selective_scan": 1, "kan_forward": FUSION_KAN},
+                                            more=[(ks, "kan_forward", ks.kan_forward_reference)]),
+                               "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+    by_path["mamba_train_fusion"] = launches
+    del trainer, batches, groups, params
+    torch.cuda.empty_cache()
+    mark("mamba/train/fusion")
+
+    # run_predict with TTA and the test split's hidden vectors over the fusion's best checkpoint
+    layers = BertConfig().num_hidden_layers
+    cfg = _phase_config("connext_ham", inputs, "train_cx", "val_cx", "connext_fusion_tta", **fusion_sets,
+                        **{"inference.tta.enabled": True, "inference.tta.transforms": list(CLI_TTA)})
+    line, predictor, b, live = _predict_line(dev, "connext fusion", cfg, best["connext_fusion"], "connext",
+                                             {"fused_attention": layers, "ffn_block": layers, "selective_scan": 1,
+                                              "kan_forward": FUSION_KAN}, CONNEXT_BATCH)
+    zeroed = predictor.server(cli_common.tta_transforms(predictor.cfg.get("inference.tta"))).predict(
+        {**b, "first_hidden": np.zeros_like(b["first_hidden"]), "last_hidden": np.zeros_like(b["last_hidden"])}
+    )[: int(b["n_valid"])]
+    check(predictor.hidden and not np.array_equal(zeroed, live),
+          f"connext fusion predictor: hidden {predictor.hidden}, or its vectors move no logit")
+    lines["connext_fusion_predict"] = {"hidden": True, **line,
+                                       "hidden_vectors_move_logits_max_abs": float(np.abs(zeroed - live).max())}
+    by_path["mamba_predict_fusion"] = line["launches"]
+    del predictor
+    torch.cuda.empty_cache()
+    return lines, by_path, best
+
+
+def phase_mamba(dev, seed: int) -> dict:
+    """MambaVision (ham_mamba_vision_v1) and ConNexT's multimodal Mamba fusion on the card (MAMBA_DIR):
+    served, trained, the fusion predicted, both exported (MambaVision at batch 64, the fusion at batch
+    32 with no hidden input); returns each path's launches."""
+    layers = BertConfig().num_hidden_layers
+    return _phase(
+        "mamba", MAMBA_DIR, dev, seed, 96,
+        lambda: _phase_inputs(MAMBA_DIR, np.random.default_rng([seed, 95]), hidden=("train_cx", "val_cx")),
+        lambda: _mamba_serve(dev, seed), lambda inputs: _mamba_train(dev, inputs, seed),
+        lambda inputs: [
+            (MAMBA_VISION, _phase_config(MAMBA_VISION, inputs), "baseline", BASELINE_BATCH, BASELINE_SEQ,
+             {"attention_block": layers, "ffn_block": layers, "selective_scan": MV_SCANS}),
+            ("connext_fusion", _phase_config("connext_ham", inputs, "train_cx", "val_cx", "connext_fusion_export",
+                                             **FUSION_SETS), "connext", CONNEXT_BATCH, CONNEXT_SEQ,
+             {"fused_attention": layers, "ffn_block": layers, "selective_scan": 1, "kan_forward": FUSION_KAN})])
 
 
 def main() -> int:
@@ -4073,32 +4372,45 @@ def main() -> int:
     seed = parser.parse_args().seed
     rng = np.random.default_rng(seed)
 
-    dev, smi = phase_device()
-    phase_build()
-    summary = phase_kernels(dev, rng, seed)
-    summary["attention_ablate"], ablate_launches = phase_ablate(dev, rng)
-    slice_launches, model, plain = phase_slice(dev, rng, seed)
-    seq512_launches = phase_seq512(dev, rng, model, plain)
-    flash_launches = phase_flash(dev, rng, model)
+    seconds = {}
+    clock = [time.perf_counter()]
+
+    def timed(name, fn, *args):
+        out = fn(*args)
+        now = time.perf_counter()
+        seconds[name], clock[0] = now - clock[0], now
+        return out
+
+    dev, smi = timed("device", phase_device)
+    timed("build", phase_build)
+    summary = timed("kernels", phase_kernels, dev, rng, seed)
+    summary["attention_ablate"], ablate_launches = timed("ablate", phase_ablate, dev, rng)
+    slice_launches, model, plain = timed("slice", phase_slice, dev, rng, seed)
+    seq512_launches = timed("seq512", phase_seq512, dev, rng, model, plain)
+    flash_launches = timed("flash", phase_flash, dev, rng, model)
     del model, plain
     torch.cuda.empty_cache()
-    preset_launches = phase_preset(dev, rng, seed)
+    preset_launches = timed("preset", phase_preset, dev, rng, seed)
     torch.cuda.empty_cache()
-    baseline = phase_baseline(dev, rng, seed)
-    train = phase_train(dev, rng, seed)
-    train_flash = phase_train_flash(dev, rng, seed)
-    connext = phase_connext(dev, seed)
-    train_connext = phase_train_connext(dev, seed)
-    train_baseline = phase_train_baseline(dev, seed)
+    baseline = timed("baseline", phase_baseline, dev, rng, seed)
+    train = timed("train", phase_train, dev, rng, seed)
+    train_flash = timed("train_flash", phase_train_flash, dev, rng, seed)
+    connext = timed("connext", phase_connext, dev, seed)
+    train_connext = timed("train_connext", phase_train_connext, dev, seed)
+    train_baseline = timed("train_baseline", phase_train_baseline, dev, seed)
     try:
-        cli, made = phase_cli(dev, seed)
-        cli.update(phase_train_cli(dev, made["inputs"], torch.Generator(device=dev).manual_seed(seed + 35)))
-        cli.update(phase_train_baseline_cli(dev, made["inputs"]))
-        export = phase_export(dev, seed, made)
+        cli, made = timed("cli", phase_cli, dev, seed)
+        cli.update(timed("train_cli", phase_train_cli, dev, made["inputs"],
+                         torch.Generator(device=dev).manual_seed(seed + 35)))
+        cli.update(timed("train_baseline_cli", phase_train_baseline_cli, dev, made["inputs"]))
+        export = timed("export", phase_export, dev, seed, made)
     finally:
         shutil.rmtree(CLI_DIR, ignore_errors=True)
-    spine = phase_spine(dev, seed)
-    fusion = phase_fusion(dev, seed)
+    spine = timed("spine", phase_spine, dev, seed)
+    fusion = timed("fusion", phase_fusion, dev, seed)
+    mamba = timed("mamba", phase_mamba, dev, seed)
+    emit({"phase_seconds": seconds, "total_seconds": sum(seconds.values()),
+          "line_seconds": [[label, round(t, 2)] for label, t in SPANS]})
     main_path = {"attention_block": slice_launches, "ffn_block": slice_launches,
                  "fused_attention": seq512_launches, "int8_ffn_block": preset_launches,
                  "int8_attention_block": preset_launches, "shear_sublane": train["launches"],
@@ -4111,8 +4423,10 @@ def main() -> int:
                "train": train["launches"], "train_bn_stats": train["ab_launches"], "flash": flash_launches,
                "train_flash": train_flash, "ablate": {"attention_ablate": ablate_launches},
                "connext": connext["launches"], "train_connext": train_connext, **train_baseline, **cli, **export,
-               **spine, **fusion}
-    kan_by_layer = {**baseline["kan_forward_by_layer"], **connext["kan_forward_by_layer"]}
+               **spine, **fusion, **mamba}
+    # each layer's launches on the path that serves it: the baseline MoE's two, ConNexT's four, the fusion's q/k/v
+    kan_by_layer = {**baseline["kan_forward_by_layer"], **connext["kan_forward_by_layer"],
+                    (256, 256): mamba["mamba_serve_fusion"]["kan_forward"]}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": main_path[name][name], "max_abs_err": summary[name]["max_abs_err"],

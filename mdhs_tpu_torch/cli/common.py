@@ -11,7 +11,9 @@ the CJK filter for MIBF only) and the eval step (:693-748), which is
 center crop (ImageNet normalisation for every family but MIBF), the
 variants of TTA stacked on the batch when asked, the family's forward under
 ``torch.inference_mode`` (MIBF's ``image_text`` logits, the baseline with
-its ``ablation_mode``, ConNexT's logits), the float32 logits back on the
+its ``ablation_mode``, ConNexT's logits, with the test split's LLM hidden
+vectors where its Mamba fusion reads them, tiled under TTA as
+``trainer.py:726-729`` tiles them), the float32 logits back on the
 host. ``run_prediction`` keeps the first ``n_valid`` rows of each batch.
 """
 
@@ -57,6 +59,9 @@ class Predictor:
         self.model = build_model(cfg, family, self.tokenizer, device=self.device,
                                  tabular_dim=self.tabular_dim).eval()
         load_pretrained(self.model, cfg, family)  # the config's weights; --model_path loads after them
+        # the test split's LLM hidden vectors go to the model where its Mamba fusion reads them
+        self.hidden = bool(getattr(getattr(self.model, "cfg", None), "use_mamba_fusion", False)
+                           and DatasetOptions.from_config(cfg, family, "test").llm_hidden_json)
         self._output_dir = output_dir
         self._servers: dict = {}
 
@@ -90,7 +95,7 @@ class Predictor:
         key = (tuple(tta), ablation_mode)
         if key not in self._servers:
             self._servers[key] = ServingModel(self.model, self.batch_size, self.device, image_size=self.image_size,
-                                              tta=tta, ablation_mode=ablation_mode)
+                                              tta=tta, ablation_mode=ablation_mode, hidden=self.hidden)
         return self._servers[key]
 
 

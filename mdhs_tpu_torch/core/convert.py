@@ -3,7 +3,8 @@
 The exact inverse of ``mdhs_tpu.core.convert``'s torch -> flax converters
 (``convert_mibf_full``, ``convert_baseline_full``, ``convert_connext_full``,
 ``convert_bert``, ``convert_resnet_classifier``, ``convert_convnext_hf``,
-``convert_torch_mha``, ``_conv1x1``, ``_convert_kan_bank``):
+``convert_mamba_vision``, ``convert_torch_mha``, ``_conv1x1``,
+``_convert_kan_bank``):
 the input is the JAX package's ``params`` / ``batch_stats`` (/ ``kan_state``)
 trees as nested dicts of numpy arrays, the output a ``{name: Tensor}`` dict
 that ``load_state_dict`` takes. Layouts:
@@ -14,7 +15,8 @@ that ``load_state_dict`` takes. Layouts:
 - LayerNorm scale -> weight; Embed embedding -> weight
 - MultiHeadAttention q/k/v_proj -> in_proj_weight (3E, E) where all three are
   E -> E, else q_proj_weight, k_proj_weight, v_proj_weight (E, width); in_proj_bias
-- Mamba's depthwise conv HIO (d_conv, 1, d_inner) -> nn.Conv1d weight (d_inner, 1, d_conv)
+- Mamba's depthwise conv HIO (d_conv, 1, d_inner) -> nn.Conv1d weight (d_inner, 1, d_conv), and
+  MambaVision's ``conv1d_x`` / ``conv1d_z`` (k, 1, half) -> (half, 1, k)
 - a vmapped KAN bank (leaves with a leading expert axis) -> experts.{e}.layers.{i}.*
 - flax LSTM / GRU cells (``ii``..``io`` / ``ir``..``in`` input kernels,
   ``hi``..``ho`` / ``hr``..``hn`` recurrent ones) -> ``nn.LSTM`` / ``nn.GRU``
@@ -308,9 +310,18 @@ def baseline_state_dict_from_jax(params: Tree, batch_stats: Tree, kan_state: Tre
     ``classifier.classifier.weight``). The branches: ``tabular_encoder.net.{0,3}``,
     ``tabular_fusion.0``, ``gate.fc.{0,2}``, ``sequence_proj`` and
     ``global_local_proj`` as ``convert_baseline_full`` reads them, and the
-    sequence encoder as ``sequence_state_dict_from_jax`` names it."""
+    sequence encoder as ``sequence_state_dict_from_jax`` names it. A MambaVision
+    tower (a trunk with a ``patch_embed``) is NVIDIA-named under
+    ``image_encoder.model.`` by ``mamba_vision_state_dict_from_jax``, the names
+    ``convert_mamba_vision`` reads; ``convert_baseline_full`` reads a ResNet
+    trunk only."""
     img = params["image_encoder"]
-    out = resnet_state_dict_from_jax({"trunk": img["trunk"]}, batch_stats["image_encoder"], "image_encoder.model.")
+    if "patch_embed" in img["trunk"]:
+        out = mamba_vision_state_dict_from_jax(img["trunk"], batch_stats["image_encoder"]["trunk"],
+                                               "image_encoder.model.")
+    else:
+        out = resnet_state_dict_from_jax({"trunk": img["trunk"]}, batch_stats["image_encoder"],
+                                         "image_encoder.model.")
     for s in (2, 3, 4):
         if f"proj_layer{s}" in img:
             _lin(img[f"proj_layer{s}"], f"image_encoder.proj{s}", out)
@@ -330,6 +341,57 @@ def baseline_state_dict_from_jax(params: Tree, batch_stats: Tree, kan_state: Tre
             _lin(params[name], name, out)
     if "sequence_encoder" in params:
         out.update(sequence_state_dict_from_jax(params["sequence_encoder"], "sequence_encoder."))
+    return out
+
+
+def mamba_vision_state_dict_from_jax(params: Tree, batch_stats: Tree, prefix: str = "") -> dict[str, torch.Tensor]:
+    """``mdhs_tpu.models.mamba_vision.MambaVision`` (params, batch_stats) -> NVIDIA's
+    names (``models/mamba_vision.py``); the exact inverse of ``convert_mamba_vision``."""
+    out: dict[str, torch.Tensor] = {}
+    pe, pe_s = params["patch_embed"], batch_stats["patch_embed"]
+    for conv, bn, i in (("conv1", "bn1", 0), ("conv2", "bn2", 3)):
+        _conv(pe[conv], f"{prefix}patch_embed.conv_down.{i}", out)
+        _bn(pe[bn], pe_s[bn], f"{prefix}patch_embed.conv_down.{i + 1}", out)
+    for name, p in params.items():
+        if name.startswith("s") and "_conv" in name:
+            stage, block = name[1:].split("_conv")
+            base = f"{prefix}levels.{stage}.blocks.{block}."
+            st = batch_stats[name]
+            _conv(p["conv1"], base + "conv1", out)
+            _bn(p["bn1"], st["bn1"], base + "norm1", out)
+            _conv(p["conv2"], base + "conv2", out)
+            _bn(p["bn2"], st["bn2"], base + "norm2", out)
+            if "gamma" in p:
+                out[base + "gamma"] = _t(p["gamma"])
+        elif name.startswith("s") and "_block" in name:
+            stage, block = name[1:].split("_block")
+            base = f"{prefix}levels.{stage}.blocks.{block}."
+            _ln(p["norm1"], base + "norm1", out)
+            _ln(p["norm2"], base + "norm2", out)
+            _lin(p["mlp_up"], base + "mlp.fc1", out)
+            _lin(p["mlp_down"], base + "mlp.fc2", out)
+            for g in ("gamma_1", "gamma_2"):
+                if g in p:
+                    out[base + g] = _t(p[g])
+            if "attn" in p:
+                _lin(p["attn"]["qkv"], base + "mixer.qkv", out)
+                _lin(p["attn"]["proj"], base + "mixer.proj", out)
+                continue
+            m = p["mixer"]
+            for n in ("in_proj", "x_proj", "out_proj"):
+                out[f"{base}mixer.{n}.weight"] = _t(np.transpose(np.asarray(m[n]["kernel"]), (1, 0)))
+            out[base + "mixer.dt_proj.weight"] = _t(np.transpose(np.asarray(m["dt_proj_kernel"]), (1, 0)))
+            out[base + "mixer.dt_proj.bias"] = _t(m["dt_proj_bias"])
+            out[base + "mixer.A_log"] = _t(m["A_log"])
+            out[base + "mixer.D"] = _t(m["D"])
+            for n in ("conv1d_x", "conv1d_z"):
+                out[f"{base}mixer.{n}.weight"] = _t(np.transpose(np.asarray(m[n]), (2, 1, 0)))
+        elif name.startswith("ds"):
+            _conv(p, f"{prefix}levels.{int(name[2:]) - 1}.downsample.reduction.0", out)
+    if "norm" in params:
+        _bn(params["norm"], batch_stats["norm"], f"{prefix}norm", out)
+    if "head" in params:
+        _lin(params["head"], f"{prefix}head", out)
     return out
 
 
@@ -355,13 +417,53 @@ def convnext_state_dict_from_jax(params: Tree, prefix: str = "") -> dict[str, to
     return out
 
 
+def kan_state_dict_from_jax(params: Tree, kan_state: Tree, prefix: str = "") -> dict[str, torch.Tensor]:
+    """A ``KAN`` stack's params (``layer_{i}``) and kan_state (its grids) ->
+    ``modules/kan.py``'s ``layers.{i}.*``."""
+    out: dict[str, torch.Tensor] = {}
+    for name, p in params.items():
+        base = f"{prefix}layers.{name[len('layer_'):]}."
+        for leaf, a in p.items():
+            out[base + leaf] = _t(a)
+        out[base + "grid"] = _t(kan_state[name]["grid"])
+    return out
+
+
+def multimodal_mamba_state_dict_from_jax(params: Tree, kan_state: Tree | None,
+                                         prefix: str = "") -> dict[str, torch.Tensor]:
+    """``mdhs_tpu.modules.multimodal_mamba.MultimodalMamba`` (params, kan_state) ->
+    ``modules/multimodal_mamba.py``'s names, which follow the JAX tree (no torch
+    converter exists: ``convert_connext_full`` refuses the fusion)."""
+    out: dict[str, torch.Tensor] = {}
+    for name in ("proj_text", "proj_img", "proj_first", "proj_last"):
+        _lin(params[name], prefix + name, out)
+    if "attn" in params:
+        attn, grids = params["attn"], kan_state["attn"]
+        for name in ("q_proj", "k_proj", "v_proj"):
+            out.update(kan_state_dict_from_jax(attn[name], grids[name], f"{prefix}attn.{name}."))
+        _lin(attn["out_proj"], prefix + "attn.out_proj", out)
+        _ln(params["norm1"], prefix + "norm1", out)
+        _ln(params["norm2"], prefix + "norm2", out)
+    out.update(mamba_state_dict_from_jax(params["mamba"], prefix + "mamba."))
+    return out
+
+
 def connext_state_dict_from_jax(params: Tree, kan_state: Tree | None = None) -> dict[str, torch.Tensor]:
     """``mdhs_tpu.models.connext.ConNexTClassifier`` (params, kan_state) -> state_dict
     of ``mdhs_tpu_torch.models.connext.ConNexTClassifier``; the inverse of
     ``convert_connext_full`` for either head (``moe`` when the tree has one,
-    else ``fc``)."""
+    else ``fc``). A Mamba-fusion model's tree holds ``mamba_fusion`` and
+    ``mamba_fc`` and neither ``reduce_conv``, the cross-attentions nor a head
+    (flax made only what its forward called): those become
+    ``multimodal_mamba_state_dict_from_jax``'s names under ``mamba_fusion.``,
+    and ``mamba_fc``."""
     out = bert_state_dict_from_jax(params["text_encoder"], "text_encoder.bert.")
     out.update(convnext_state_dict_from_jax(params["image_encoder"], "image_encoder."))
+    if "mamba_fusion" in params:
+        out.update(multimodal_mamba_state_dict_from_jax(params["mamba_fusion"], (kan_state or {}).get("mamba_fusion"),
+                                                        "mamba_fusion."))
+        _lin(params["mamba_fc"], "mamba_fc", out)
+        return out
     _conv(params["reduce_conv"], "conv", out)
     for name in ("textbased_cross_attention", "imagbased_cross_attention"):
         for conv in ("query_conv", "key_conv", "value_conv"):

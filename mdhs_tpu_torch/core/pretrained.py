@@ -12,7 +12,11 @@ Counterpart of the JAX Trainer's ``_load_pretrained``
   1000-class ``fc`` is skipped by the tolerant merge, as a shape mismatch),
   the baseline's torchvision ResNet18 / ResNet34 (``model.image_encoder.
   backbone``) under ``image_encoder.model.``, its ``fc`` dropped, as
-  ``convert_resnet`` reads the trunk only, or ConNexT's HF ``ConvNextModel``
+  ``convert_resnet`` reads the trunk only, or its NVIDIA MambaVision
+  (``mamba_vision_*``, ``trainer.py:1124-1135``: NVIDIA's names, which the
+  port's tower carries; a ``model.`` prefix, the Hugging Face wrapper's,
+  stripped; ``norm`` and ``head`` dropped, the encoder's tower has neither),
+  or ConNexT's HF ``ConvNextModel``
   (a ``convnext.`` prefix stripped, the
   final ``layernorm`` and any ``classifier`` dropped, as
   ``convert_convnext_hf`` drops them). The torchvision ConvNeXt naming
@@ -37,6 +41,7 @@ from typing import Mapping
 
 from torch import nn
 
+from ..models.mamba_vision import MambaVision
 from .checkpoint import is_flax_msgpack, load_torch_file, load_weights, merge_tolerant
 
 log = logging.getLogger(__name__)
@@ -49,11 +54,17 @@ def _under(sd: Mapping, prefix: str) -> dict:
     return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
 
 
-def _image_tower(sd: dict, family: str) -> tuple[dict, str]:
+def _image_tower(sd: dict, family: str, model: nn.Module) -> tuple[dict, str]:
     """(the tower's state dict under the port's tower names, what the file should be)."""
     if family == "mibf":
         return sd, "torchvision resnet50"
     if family == "baseline":
+        tower = model.image_encoder.model
+        if isinstance(tower, MambaVision):
+            if any(k.startswith("model.patch_embed.") for k in sd):
+                sd = _under(sd, "model.")
+            return ({k: v for k, v in sd.items() if not k.startswith(("norm.", "head."))},
+                    f"NVIDIA mamba_vision_{tower.variant}")
         return {k: v for k, v in sd.items() if not k.startswith("fc.")}, "torchvision ResNet"
     if any(k.startswith("features.") for k in sd) and not any("patch_embeddings" in k for k in sd):
         raise NotImplementedError("a torchvision ConvNeXt (features.*) state dict is not read yet: "
@@ -74,7 +85,7 @@ def _load_tower(model: nn.Module, path: str, family: str, tower: str) -> None:
     sd = load_torch_file(path)
     baseline = family == "baseline"
     if tower == "image":
-        sub, what = _image_tower(sd, family)
+        sub, what = _image_tower(sd, family, model)
         prefix = "image_encoder.model." if baseline else "image_encoder."
     else:
         sub, what = _text_tower(sd), "HF BertModel"

@@ -28,8 +28,14 @@ Images are decoded by PIL where it imports, else by ``data/png.py``, which
 reads PNG only; anything else raises there, so the record gets the zero
 canvas and the warning names PIL.
 
-LLM hidden states and the host augmentation raise ``NotImplementedError``
-naming their ROADMAP items.
+- ``llm_hidden_json`` (``datasets.py:204-207``, ``:258-267``, ``:389-403``):
+  each record's float32 ``first_hidden`` and ``last_hidden`` vectors (an LLM's
+  first and last hidden states, read by ConNexT's Mamba fusion), looked up by
+  the image's basename without extension in a JSON of ``{key:
+  {"first_hidden_state": [...], "last_hidden_state": [...]}}``; each zero-padded
+  or truncated to ``llm_hidden_dim``, zeros for an image the JSON does not list.
+
+The host augmentation raises ``NotImplementedError`` naming its ROADMAP item.
 
 ``HOST_MS`` sums the host time of decoding, resizing and tokenizing (ms)
 over every record any dataset makes; ``reset_host_ms`` sets it to zero.
@@ -296,6 +302,24 @@ def tabular_fields(cfg) -> tuple:
     return tuple(cfg.get("model.tabular.fields", ["age", "sex", "localization"]) or [])
 
 
+def load_llm_hidden(path: str) -> dict[str, tuple[np.ndarray, np.ndarray]]:
+    """{image basename without extension: (first, last) float32 vectors} of an LLM
+    hidden-state JSON; a missing state is an empty vector."""
+    with open(path, "r", encoding="utf-8") as f:
+        raw = json.load(f)
+    return {os.path.splitext(os.path.basename(key))[0]:
+            (np.asarray(val.get("first_hidden_state", []), np.float32),
+             np.asarray(val.get("last_hidden_state", []), np.float32)) for key, val in raw.items()}
+
+
+def fit_vector(vec: np.ndarray, dim: int) -> np.ndarray:
+    """``vec`` zero-padded or truncated to ``dim``, float32."""
+    out = np.zeros(dim, np.float32)
+    n = min(dim, vec.shape[0])
+    out[:n] = vec[:n]
+    return out
+
+
 @dataclass
 class DatasetOptions:
     """The fields of the JAX ``DatasetOptions`` the port reads, and the switches of
@@ -317,11 +341,10 @@ class DatasetOptions:
     canvas: int = CANVAS
     cache: bool = True  # keep each canvas: made once, reused across epochs
     llm_hidden_json: Optional[str] = None
+    llm_hidden_dim: int = 3584
     host_augment: bool = False
 
     def check_ported(self) -> None:
-        if self.llm_hidden_json:
-            raise NotImplementedError("the LLM hidden-state data mode is not ported yet: ROADMAP Queue 1 item 11")
         if self.host_augment:
             raise NotImplementedError("the host augmentation data mode is not ported yet: ROADMAP Queue 1 item 8")
 
@@ -345,6 +368,7 @@ class DatasetOptions:
             clean_cjk_text=family == "mibf",
             canvas=int(cfg.get("data.canvas", 256)),
             llm_hidden_json=d.get(f"{split}_llm_hidden_json") or d.get("llm_hidden_json"),
+            llm_hidden_dim=int(d.get("llm_hidden_dim", 3584)),
             cache=bool(d.get("cache", True)),
         )
         opts.update(overrides)
@@ -388,6 +412,7 @@ class MultimodalDataset:
                 raise ValueError("tabular_enabled requires metadata_csv")
             self.tabular_map, self.tabular_dim = build_tabular_map(
                 self.opts.metadata_csv, list(self.opts.tabular_fields), self.opts.tabular_normalize)
+        self.llm_hidden_map = load_llm_hidden(self.opts.llm_hidden_json) if self.opts.llm_hidden_json else None
 
     def __len__(self):
         return len(self.metadata)
@@ -461,4 +486,9 @@ class MultimodalDataset:
         if self.tabular_map is not None:
             record["tabular"] = self.tabular_map.get(os.path.splitext(image_id)[0],
                                                      np.zeros(self.tabular_dim, np.float32))
+        if self.llm_hidden_map is not None:
+            empty = np.zeros(0, np.float32)
+            first, last = self.llm_hidden_map.get(os.path.splitext(image_id)[0], (empty, empty))
+            record["first_hidden"] = fit_vector(first, o.llm_hidden_dim)
+            record["last_hidden"] = fit_vector(last, o.llm_hidden_dim)
         return record

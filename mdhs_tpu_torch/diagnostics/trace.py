@@ -12,6 +12,23 @@ check by the same count every time: two training steps of MIBF-Net (about
 kernel launched on some calls only, which the census taken before counted
 as launched on every call, would do that, so ``whole_trace`` then takes the
 census again.
+
+The profiler also loses the first records of a window: a census of one
+ConNexT training step lacked that step's first six records (its four
+host-to-device copies, the ``arange`` and the compare of its row mask) in
+both of its traces, and a trace of two steps that lost one more record than
+the census had (a kernel every call launches) failed in every try, the
+census taken again losing the same six. So each window opens with
+``LEAD_IN`` marker kernels (``torch.cuda._sleep``'s ``spin_kernel``, which
+nothing else launches) before the calls, and closes with ``LEAD_OUT`` after
+them: a loss at either end takes markers, not the function's records. Late
+in a long process the loss at the end grows: 32 closing markers were all
+lost in some windows of the last phases, and in one run every try lost
+records of the calls too, so the window closes with 1,024 (about 5 ms of
+launches). The markers are dropped from the trace. A trace whose first or
+last record is not a marker lost more than they cover and is taken again;
+where every try lost them, the last try that passes the caller's check is
+taken, as without the markers, and says so (``Trace.held`` False).
 """
 
 from __future__ import annotations
@@ -23,6 +40,27 @@ import torch
 
 PAD_S = 0.02
 TRIES = 3
+LEAD_IN = 32  # marker kernels before the calls
+LEAD_OUT = 1024  # marker kernels after them
+MARKER = "spin_kernel"
+MARKER_CYCLES = 1000
+
+
+def markers(n: int = LEAD_IN) -> None:
+    """``n`` marker kernels on the current stream."""
+    for _ in range(n):
+        torch.cuda._sleep(MARKER_CYCLES)
+
+
+def _is_marker(e) -> bool:
+    return MARKER in e.name
+
+
+class Trace(list):
+    """A trace's kernel records; ``held`` is whether the markers at both ends of its
+    window survived (so no record of the calls was lost there)."""
+
+    held = True
 
 
 def whole_calls(reps: int, irregular=()) -> Callable[[list], bool]:
@@ -39,25 +77,37 @@ def whole_calls(reps: int, irregular=()) -> Callable[[list], bool]:
 def kernel_events(fn, reps: int = 1, complete: Callable[[list], bool] | None = None) -> list:
     """The CUDA kernel records (``FunctionEvent``s, user annotations left
     out) of ``reps`` calls of ``fn`` after one warm-up call, in the order
-    they started on the device. ``complete(events)`` says whether a trace
-    holds the whole run; a trace that fails it is taken again, and after
-    ``TRIES`` failures this raises. ``None`` takes the first trace."""
+    they started on the device, the window's markers left out, as a
+    ``Trace``. ``complete(events)`` says whether a trace holds the whole run
+    (``None``: any does); a trace that fails it, or that lost every marker
+    at either end, is taken again. After ``TRIES`` tries the last one that
+    passed ``complete`` is returned with ``held`` False, and where none did
+    this raises."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    passed = None
     for _ in range(TRIES):
         with torch.profiler.profile(activities=acts) as prof:
             time.sleep(PAD_S)
+            markers()
             for _ in range(reps):
                 fn()
+            markers(LEAD_OUT)
             torch.cuda.synchronize()
             time.sleep(PAD_S)
         # a user annotation (torch.optim's "Optimizer.step#Adam.step") spans kernels counted on their own
-        events = sorted((e for e in prof.events()
+        traced = sorted((e for e in prof.events()
                          if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation),
                         key=lambda e: e.time_range.start)
+        events = Trace(e for e in traced if not _is_marker(e))
         if complete is None or complete(events):
-            return events
+            if traced and _is_marker(traced[0]) and _is_marker(traced[-1]):
+                return events
+            passed = events
+    if passed is not None:
+        passed.held = False
+        return passed
     raise RuntimeError(f"the profiler lost kernel records in each of {TRIES} traces; the last held "
                        f"{len(events)}")
 

@@ -1,6 +1,7 @@
 """MultimodalBaselineModel, the configurable baseline family.
 
-Counterpart of ``mdhs_tpu/models/baseline.py``: ResNet tokens + BERT text
+Counterpart of ``mdhs_tpu/models/baseline.py``: ResNet or MambaVision
+(``mamba_vision_*``, ``models/mamba_vision.py``) tokens + BERT text
 tokens -> a fusion (``modules/fusion.py``) -> a classifier head
 (``modules/heads.py``), with the ablation modes ``image_only`` (the pooled
 image tokens straight to the head) and ``text_off`` (the text tokens
@@ -210,7 +211,7 @@ class MultimodalBaselineModel(nn.Module):
     @property
     def input_dtype(self) -> torch.dtype:
         """The dtype the image tower takes (its stem convolution's)."""
-        return self.image_encoder.model.conv1.weight.dtype
+        return self.image_encoder.stem.weight.dtype
 
     def _image_tokens(self, images: torch.Tensor):
         """The tower's tokens of (N, 3, H, W) images, with the local stream combined in."""

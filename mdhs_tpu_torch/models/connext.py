@@ -19,8 +19,17 @@ and ``fc`` or ``moe.*``. ``forward(..., train=True, generator=g)`` is the
 training forward of ``mdhs_tpu/models/connext.py:85-120``: the MoE gates with
 noise drawn from ``g`` and returns its balance loss; BERT's dropout is live
 where the module is in training mode (``model.train()``), drawing from
-torch's default generator. The multimodal-Mamba fusion is not ported:
-ROADMAP Queue 1 item 11.
+torch's default generator.
+
+``use_mamba_fusion`` (``mdhs_tpu/models/connext.py:57-66``, ``:97-105``)
+replaces the cross-attention fusion and the head: the ConvNeXt map's 49
+tokens (NHWC order, ``img_dim`` its last width, 1024 for base), BERT's CLS
+vector and the LLM's first and last hidden-state vectors (zeros where none
+are given) go through ``mamba_fusion`` (``modules/multimodal_mamba.py``,
+KAN attention then Mamba), and the logits are ``mamba_fc`` of the sequence's
+mean, in float32, with a balance loss of 0. Only what that forward uses is
+built (no ``conv``, cross-attention, ``fc`` or ``moe``), as flax creates
+only the parameters of the submodules it calls.
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ from torch import nn
 
 from ..modules.attention import ConvCrossAttention2D
 from ..modules.moe import MoE
+from ..modules.multimodal_mamba import MultimodalMamba
 from .bert import BertConfig
 from .convnext import CONVNEXT_SPECS, ConvNeXt
 from .mibf import TextEncoder
@@ -57,9 +67,6 @@ class ConNexTConfig:
     remat: str = "none"
 
     def check_ported(self) -> None:
-        if self.use_mamba_fusion:
-            raise NotImplementedError("ConNexT's multimodal Mamba fusion (use_mamba_fusion) is not ported yet: "
-                                      "ROADMAP Queue 1 item 11")
         if self.remat != "none":
             raise NotImplementedError(f"remat={self.remat!r} is a training knob: ROADMAP Queue 1 item 8")
 
@@ -75,7 +82,14 @@ class ConNexTClassifier(nn.Module):
         D = cfg.fusion_dim
         self.text_encoder = TextEncoder(cfg.bert, **f)
         self.image_encoder = ConvNeXt(cfg.convnext_variant, **f)
-        self.conv = nn.Conv2d(CONVNEXT_SPECS[cfg.convnext_variant][1][-1], D, 1, **f)
+        img_dim = CONVNEXT_SPECS[cfg.convnext_variant][1][-1]
+        if cfg.use_mamba_fusion:
+            self.mamba_fusion = MultimodalMamba(text_dim=cfg.bert.hidden_size, img_dim=img_dim,
+                                                hidden_dim=cfg.llm_hidden_dim, proj_dim=256, use_kan_attention=True,
+                                                **f)
+            self.mamba_fc = nn.Linear(256, cfg.num_labels, **f)
+            return
+        self.conv = nn.Conv2d(img_dim, D, 1, **f)
         text = cfg.bert.hidden_size  # BERT's CLS as a 1x1 map of this many channels
         self.textbased_cross_attention = ConvCrossAttention2D(D, y_dim=text, **f)
         self.imagbased_cross_attention = ConvCrossAttention2D(D, x_dim=text, **f)
@@ -102,20 +116,42 @@ class ConNexTClassifier(nn.Module):
         p2 = self.imagbased_cross_attention(text_map, reduced).mean(dim=(1, 2))
         return p1 + p2
 
-    def forward_features(self, images: torch.Tensor, input_ids: torch.Tensor,
-                         attention_mask: torch.Tensor) -> torch.Tensor:
-        return self.fuse(*self.towers(images, input_ids, attention_mask))
+    def mamba_features(self, text_cls: torch.Tensor, fmap: torch.Tensor, first_hidden: Optional[torch.Tensor] = None,
+                       last_hidden: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The Mamba fusion's (B, 256) feature, the mean of its (B, N + 3, 256)
+        sequence; zeros stand in for a hidden vector not given."""
+        B = fmap.shape[0]
+        zeros = None
+        if first_hidden is None or last_hidden is None:
+            zeros = fmap.new_zeros((B, self.cfg.llm_hidden_dim))
+        fh = zeros if first_hidden is None else first_hidden.to(fmap.dtype)
+        lh = zeros if last_hidden is None else last_hidden.to(fmap.dtype)
+        return self.mamba_fusion(text_cls.to(fmap.dtype), fmap.reshape(B, -1, fmap.shape[-1]), fh, lh).mean(dim=1)
+
+    def forward_features(self, images: torch.Tensor, input_ids: torch.Tensor, attention_mask: torch.Tensor,
+                         first_hidden: Optional[torch.Tensor] = None,
+                         last_hidden: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The feature the head takes: the fused cross-attention feature, or the Mamba fusion's."""
+        towers = self.towers(images, input_ids, attention_mask)
+        if self.cfg.use_mamba_fusion:
+            return self.mamba_features(*towers, first_hidden, last_hidden)
+        return self.fuse(*towers)
 
     def classify(self, fused: torch.Tensor, train: bool = False, generator: Optional[torch.Generator] = None,
                  noise: Optional[torch.Tensor] = None):
         """(logits (B, num_labels) float32, balance loss); ``train`` gates the MoE
         with noise from ``generator`` (or the given ``noise``)."""
+        if self.cfg.use_mamba_fusion:
+            return self.mamba_fc(fused).float(), torch.zeros((), dtype=torch.float32, device=fused.device)
         if self.cfg.head == "moe":
             return self.moe(fused, train=train, generator=generator, noise=noise)
         return self.fc(fused).float(), torch.zeros((), dtype=torch.float32, device=fused.device)
 
     def forward(self, images: torch.Tensor, input_ids: torch.Tensor, attention_mask: torch.Tensor,
                 train: bool = False, generator: Optional[torch.Generator] = None,
-                noise: Optional[torch.Tensor] = None):
-        """images: (B, 3, H, W). Returns (logits (B, num_labels) float32, balance loss)."""
-        return self.classify(self.forward_features(images, input_ids, attention_mask), train, generator, noise)
+                noise: Optional[torch.Tensor] = None, first_hidden: Optional[torch.Tensor] = None,
+                last_hidden: Optional[torch.Tensor] = None):
+        """images: (B, 3, H, W); first / last_hidden (B, llm_hidden_dim), read by the
+        Mamba fusion only. Returns (logits (B, num_labels) float32, balance loss)."""
+        fused = self.forward_features(images, input_ids, attention_mask, first_hidden, last_hidden)
+        return self.classify(fused, train, generator, noise)

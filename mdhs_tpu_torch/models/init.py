@@ -16,6 +16,8 @@ from ..modules.mamba import MambaBlock
 from ..modules.moe import MoE
 from ..modules.sequence import RNN
 from .convnext import ConvNextLayer
+from .mamba_vision import Block as MambaVisionBlock
+from .mamba_vision import MambaVisionMixer
 
 
 @torch.no_grad()
@@ -30,7 +32,11 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
     0, running variance 1). Mamba, the VMamba block's two included
     (``mdhs_tpu/modules/mamba.py:27-45``):
     ``A_log = log(1..N)``, ``D = 1``, ``dt_bias`` the inverse softplus of a
-    step drawn log-uniformly in [1e-3, 1e-1]. KAN (``modules/kan.py:78-108``):
+    step drawn log-uniformly in [1e-3, 1e-1]; the MambaVision mixer
+    (``mdhs_tpu/models/mamba_vision.py:132-150``) the same for its ``A_log``,
+    ``D`` and ``dt_proj``'s bias, its depthwise conv1d and ``dt_proj`` weights
+    normal with std 1/sqrt(fan_in) as every kernel, its blocks' ``gamma_1`` /
+    ``gamma_2`` the variant's layer scale. KAN (``modules/kan.py:78-108``):
     base weights and spline scalers uniform in +-scale / sqrt(in), spline
     coefficients uniform in +-scale_noise / (2 grid_size) (the JAX layer fits
     them to noise of that range), and the grid ``make_grid``'s, never drawn.
@@ -51,6 +57,15 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
     def uniform(shape, bound: float) -> torch.Tensor:
         return (torch.rand(shape, generator=generator, device=generator.device) * 2.0 - 1.0) * bound
 
+    def mamba_init(A_log: torch.Tensor, D: torch.Tensor, dt_bias: torch.Tensor) -> None:
+        d_inner, d_state = A_log.shape
+        # numpy's float32 log, as the JAX init takes it (torch's differs by an ulp at some n)
+        A_log.copy_(torch.from_numpy(np.log(np.arange(1, d_state + 1, dtype=np.float32))).expand(d_inner, -1))
+        D.fill_(1.0)
+        u = torch.rand((d_inner,), generator=generator, device=generator.device)
+        dt = torch.exp(u * (math.log(1e-1) - math.log(1e-3)) + math.log(1e-3)).clamp(min=1e-4)
+        dt_bias.copy_(dt + torch.log(-torch.expm1(-dt)))
+
     for m in model.modules():
         if isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d)):
             normal_(m.weight, 1.0 / math.sqrt(m.weight[0].numel()))
@@ -69,12 +84,7 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
             if isinstance(m, nn.BatchNorm2d):
                 m.reset_running_stats()
         elif isinstance(m, MambaBlock):
-            # numpy's float32 log, as the JAX init takes it (torch's differs by an ulp at some n)
-            m.A_log.copy_(torch.from_numpy(np.log(np.arange(1, m.d_state + 1, dtype=np.float32))).expand(m.d_inner, -1))
-            m.D.fill_(1.0)
-            u = torch.rand((m.d_inner,), generator=generator, device=generator.device)
-            dt = torch.exp(u * (math.log(1e-1) - math.log(1e-3)) + math.log(1e-3)).clamp(min=1e-4)
-            m.dt_bias.copy_(dt + torch.log(-torch.expm1(-dt)))
+            mamba_init(m.A_log, m.D, m.dt_bias)
         elif isinstance(m, KANLinear):
             bound = 1.0 / math.sqrt(m.in_features)
             m.base_weight.copy_(uniform(m.base_weight.shape, m.scale_base * bound))
@@ -104,4 +114,10 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
         elif isinstance(m, (WeightedConcatFusion, HierarchicalFusion)):
             for p in m.parameters(recurse=False):
                 p.zero_()
+        elif isinstance(m, MambaVisionBlock) and m.layer_scale is not None:
+            m.gamma_1.fill_(m.layer_scale)
+            m.gamma_2.fill_(m.layer_scale)
+    for m in model.modules():  # after the loop, which zeroed dt_proj's bias as a Linear's
+        if isinstance(m, MambaVisionMixer):
+            mamba_init(m.A_log, m.D, m.dt_proj.bias)
     return model

@@ -1,8 +1,8 @@
 """Serving runtime: a live model of any family, or an exported artifact.
 
 Counterpart of ``mdhs_tpu/serving.py::ServingModel``. ``ServeFunction`` is
-the served step, (uint8 image, input_ids, attention_mask[, tabular]) ->
-float32 logits:
+the served step, (uint8 image, input_ids, attention_mask[, tabular][,
+first_hidden, last_hidden]) -> float32 logits:
 the eval preprocessing on the device (``ops/preprocess.py::eval_pipeline``),
 with ``tta`` (a tuple of ``ops/tta.py``'s transforms) the original and the
 variants as one batch with their logits averaged, and the family's logits:
@@ -34,8 +34,13 @@ model code. A serving process:
 A request is a dict of numpy arrays: ``image`` uint8 ``(n, H, W, 3)`` (a live
 baseline with a sequence encoder also takes ``(n, T, H, W, 3)``),
 ``input_ids`` and ``attention_mask`` ``(n, L)``, with ``n <= batch_size``,
-and for a baseline with the tabular branch ``tabular`` float32 ``(n,
-width)``. An artifact takes what its ``meta.json`` lists.
+for a baseline with the tabular branch ``tabular`` float32 ``(n,
+width)``, and for a live ConNexT with the Mamba fusion made with
+``hidden=True`` ``first_hidden`` and ``last_hidden`` float32 ``(n,
+llm_hidden_dim)`` (tiled to the variant batch under TTA, as JAX's eval step
+tiles them). An artifact takes what its ``meta.json`` lists: as JAX's
+served step, never the hidden vectors, so an exported Mamba fusion reads
+zeros in their place, as a live one given none does.
 
 The artifact is one file, ``torch.export.save``'s archive of the exported
 program (the weights inside it, the int8 weights and the stacked MoE bank as
@@ -66,11 +71,16 @@ META = "meta.json"
 _INPUTS = {"image": torch.uint8, "input_ids": torch.int64, "attention_mask": torch.int64}
 
 
-def model_inputs(model: nn.Module) -> dict:
+def model_inputs(model: nn.Module, hidden: bool = False) -> dict:
     """{name: dtype} of the inputs the served step of ``model`` takes: the image
-    and the tokens, and ``tabular`` for a baseline with the tabular branch."""
+    and the tokens, ``tabular`` for a baseline with the tabular branch, and
+    with ``hidden`` ``first_hidden`` and ``last_hidden`` for a model with the
+    Mamba fusion."""
     cfg = getattr(model, "cfg", None)
-    return {**_INPUTS, "tabular": torch.float32} if getattr(cfg, "tabular_enabled", False) else dict(_INPUTS)
+    out = {**_INPUTS, "tabular": torch.float32} if getattr(cfg, "tabular_enabled", False) else dict(_INPUTS)
+    if hidden and getattr(cfg, "use_mamba_fusion", False):
+        out.update(first_hidden=torch.float32, last_hidden=torch.float32)
+    return out
 
 
 class ServeFunction(nn.Module):
@@ -82,7 +92,7 @@ class ServeFunction(nn.Module):
     model exported from a config with ``model.tabular`` on takes the input)."""
 
     def __init__(self, model: nn.Module, image_size: int = 224, tta: Sequence[str] = (),
-                 ablation_mode: Optional[str] = None):
+                 ablation_mode: Optional[str] = None, hidden: bool = False):
         super().__init__()
         self.model = model
         self.image_size = int(image_size)
@@ -90,11 +100,15 @@ class ServeFunction(nn.Module):
         self.dtype = model.input_dtype
         self.tta = tuple(tta)
         self.forward_kwargs = {} if ablation_mode is None else {"ablation_mode": ablation_mode}
-        self.takes_tabular = "tabular" in model_inputs(model)
+        inputs = model_inputs(model, hidden)
+        self.takes_tabular, self.takes_hidden = "tabular" in inputs, "first_hidden" in inputs
 
-    def _logits(self, images, input_ids, attention_mask, tabular=None) -> torch.Tensor:
+    def _logits(self, images, input_ids, attention_mask, tabular=None, first_hidden=None,
+                last_hidden=None) -> torch.Tensor:
         """The model's float32 logits of a preprocessed batch."""
-        kwargs = {**self.forward_kwargs, "tabular": tabular} if self.takes_tabular else self.forward_kwargs
+        kwargs = {**self.forward_kwargs, "tabular": tabular} if self.takes_tabular else dict(self.forward_kwargs)
+        if self.takes_hidden:
+            kwargs.update(first_hidden=first_hidden, last_hidden=last_hidden)
         logits = self.model(images, input_ids, attention_mask, **kwargs)
         if isinstance(logits, dict):  # MIBF-Net's three heads
             return logits["image_text"]
@@ -103,11 +117,13 @@ class ServeFunction(nn.Module):
         return logits
 
     def forward(self, image: torch.Tensor, input_ids: torch.Tensor, attention_mask: torch.Tensor,
-                tabular: Optional[torch.Tensor] = None) -> torch.Tensor:
+                tabular: Optional[torch.Tensor] = None, first_hidden: Optional[torch.Tensor] = None,
+                last_hidden: Optional[torch.Tensor] = None) -> torch.Tensor:
         images = eval_pipeline(image, self.image_size, normalize=self.normalize, dtype=self.dtype)
+        extra = (tabular, first_hidden, last_hidden)
         if self.tta:
-            return tta_logits(self._logits, images, input_ids, attention_mask, tabular, transforms=self.tta)
-        return self._logits(images, input_ids, attention_mask, tabular)
+            return tta_logits(self._logits, images, input_ids, attention_mask, *extra, transforms=self.tta)
+        return self._logits(images, input_ids, attention_mask, *extra)
 
 
 def read_meta(path: str) -> dict:
@@ -126,15 +142,16 @@ def read_meta(path: str) -> dict:
 
 class ServingModel:
     def __init__(self, model: nn.Module, batch_size: int, device: str | torch.device = "cuda",
-                 image_size: int = 224, tta: Sequence[str] = (), ablation_mode: Optional[str] = None):
+                 image_size: int = 224, tta: Sequence[str] = (), ablation_mode: Optional[str] = None,
+                 hidden: bool = False):
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
         self.device = resolve_device(device)
         self.batch_size = int(batch_size)
         self.model = model.to(device=self.device, memory_format=torch.channels_last).eval()
-        self.fn = ServeFunction(self.model, image_size, tta, ablation_mode)
+        self.fn = ServeFunction(self.model, image_size, tta, ablation_mode, hidden)
         self.dtype, self.normalize, self.tta = self.fn.dtype, self.fn.normalize, self.fn.tta
-        self.inputs = model_inputs(self.model)
+        self.inputs = model_inputs(self.model, hidden)
         self.input_spec: Optional[dict] = None  # a live model takes the first request's shapes
         self._slots: list[dict] = []  # host staging buffers, one per in-flight request
 
@@ -187,8 +204,9 @@ class ServingModel:
             buf[:n].copy_(v)
             buf[n:].zero_()
         with torch.inference_mode():
-            dev = [bufs[k].to(self.device, non_blocking=True) for k in self.inputs]
-            logits = self.fn(*dev)
+            dev = {k: bufs[k].to(self.device, non_blocking=True) for k in self.inputs}
+            # a live step by name (the hidden vectors may come without tabular); an artifact in its spec's order
+            logits = self.fn(*dev.values()) if self.model is None else self.fn(**dev)
             if self.device.type != "cuda":
                 return logits, n
             host = torch.empty(logits.shape, dtype=logits.dtype, pin_memory=True)

@@ -13,7 +13,8 @@ anything is built, for what is not ported yet, naming its ROADMAP item.
 A step takes a host batch of numpy arrays as ``data/loader.py`` yields it
 (``image`` uint8 (B, S, S, 3), or (B, T, S, S, 3) for the sequence and
 multi-view modes, ``input_ids``, ``attention_mask``, ``label``, optional
-``tabular`` float32 (B, width) and ``n_valid``), copies it to the device
+``tabular`` float32 (B, width), ``first_hidden`` and ``last_hidden`` float32
+(B, llm_hidden_dim), which ConNexT's Mamba fusion reads, and ``n_valid``), copies it to the device
 through pinned staging buffers, augments on the device (a 5-D stack as one
 B * T batch with one draw, as ``trainer.py:407-456``) (``ops/augment.py``: crop, flips, the 3-shear
 rotation through the ``shear_sublane`` kernel; for the baseline and ConNexT
@@ -209,8 +210,7 @@ def preset_from_config(cfg: Config, family: str, bert: BertConfig) -> TrainPrese
 
 def check_trainable(cfg: Config, family: str) -> None:
     """Raise for what the port does not train yet, before anything is built:
-    the host augmentation, Muon, the LLM hidden states (the dataset's own
-    check), ``parallel.n_model`` > 1, and for the baseline family the model's
+    the host augmentation (the dataset's own check too), Muon, ``parallel.n_model`` > 1, and for the baseline family the model's
     own check (``remat``), each naming its ROADMAP item; and
     a stacked data mode (multi-view, sequence) for a family without a sequence
     encoder, whose towers take 4-D images."""
@@ -237,7 +237,8 @@ def check_trainable(cfg: Config, family: str) -> None:
 
 
 _INPUTS = {"image": torch.uint8, "input_ids": torch.int64, "attention_mask": torch.int64,
-           "label": torch.int64, "tabular": torch.float32}
+           "label": torch.int64, "tabular": torch.float32, "first_hidden": torch.float32,
+           "last_hidden": torch.float32}
 # float32 parameters inside a bf16 module: every one of these modules' own, and those a module
 # names in its ``float32_params`` (Mamba's dt_bias, A_log and D; the fusions' scalar weights)
 _FLOAT32_MODULES = (nn.BatchNorm2d, KANLinear, MoE, GroupKANLinear)
@@ -583,7 +584,8 @@ class Trainer:
             feats, logits, balance = self.model.features_and_logits(images, ids, mask, self.preset.ablation_mode,
                                                                     generator=gen, noise=noise, tabular=tab)
             return logits, logits, balance, feats
-        logits, balance = self.model(images, ids, mask, train=train, generator=gen, noise=noise)
+        logits, balance = self.model(images, ids, mask, train=train, generator=gen, noise=noise,
+                                     first_hidden=dev.get("first_hidden"), last_hidden=dev.get("last_hidden"))
         return logits, logits, balance, None
 
     def forward_backward(self, images: torch.Tensor, dev: dict, valid: Optional[torch.Tensor] = None,

@@ -229,13 +229,27 @@ def test_baseline_config_mirrors_the_jax_fields():
 
 
 @pytest.mark.parametrize("field, value, match", [
-    ("remat", "selective", "item 8"), ("image_backbone", "mamba_vision_S", "item 11"), ("remat", "full", "item 8"),
-    ("image_backbone", "mamba_vision_T", "item 11"),
+    ("remat", "selective", "item 8"), ("image_backbone", "mamba_vision_S", None), ("remat", "full", "item 8"),
+    ("image_backbone", "mamba_vision_T", None),
 ])
 def test_unported_options_raise(field, value, match):
+    """remat raises naming its item; the MambaVision towers, once refused, build at full
+    width and give finite logits with their taps' widths (S: 192, 384, 768; T: 160,
+    320, 640) in each ablation mode (tests/test_torch_port_mamba_vision.py holds
+    the tower against the JAX package)."""
     cfg = dataclasses.replace(_cfg(tbase, "multiscale", "mlp"), **{field: value})
-    with pytest.raises(NotImplementedError, match=match):
-        tbase.MultimodalBaselineModel(cfg)
+    if match is not None:
+        with pytest.raises(NotImplementedError, match=match):
+            tbase.MultimodalBaselineModel(cfg)
+        return
+    model = tbase.MultimodalBaselineModel(cfg).eval()
+    width = 96 if value.endswith("_S") else 80
+    assert [getattr(model.image_encoder, f"proj{i}").in_features for i in (2, 3, 4)] == [2 * width, 4 * width,
+                                                                                          8 * width]
+    with torch.no_grad():
+        for mode in tbase.ABLATION_MODES:
+            out = model(*_torch_args(*_inputs(1)), ablation_mode=mode)
+            assert out.shape == (B, 7) and bool(torch.isfinite(out).all()), mode
 
 
 @pytest.mark.parametrize("fusion", ["weighted_concat", "hadamard", "basic", "vmamba", "hierarchical", "concat",

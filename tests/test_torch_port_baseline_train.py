@@ -706,14 +706,27 @@ def test_run_train_trains_every_fusion(tmp_path, fusion):
 
 
 @pytest.mark.parametrize("overrides, exc, match", [
-    (["data.train_llm_hidden_json=hidden.json"], NotImplementedError, "Queue 1 item 11"),
+    (["data.train_llm_hidden_json=hidden.json"], None, None),
     (["training.optimizer=Muon"], NotImplementedError, "Queue 1 item 8"),
     (["data.augment.host=true"], NotImplementedError, "Queue 1 item 8"),
     (["parallel.n_model=2"], NotImplementedError, "Queue 1 item 12"),
     (["model.classifier_type=bagging"], KeyError, "classifier_type"),
 ])
 def test_unported_baseline_options_raise_before_anything_is_built(tmp_path, overrides, exc, match, monkeypatch):
+    """What the port does not train raises before anything is built; the LLM
+    hidden-state data mode, once refused, trains: run_train's train batches carry
+    the vectors (which the baseline family does not read) and a step runs."""
     _, path = _cli_config(tmp_path)
+    if exc is None:
+        names = sorted(os.listdir(tmp_path / "data" / "images"))
+        (tmp_path / "hidden.json").write_text(json.dumps({n: {"first_hidden_state": [1.0, 2.0],
+                                                              "last_hidden_state": [3.0] * 5000} for n in names}))
+        sets = [a for o in overrides for a in ("--set", o.replace("hidden.json", str(tmp_path / "hidden.json")))]
+        trainer = trun_train.main(["--config", path, "--device", "cpu", "--set", "training.num_epochs=1", *sets])
+        batch = next(iter(trainer.train_loader))
+        assert trainer.step > 0 and batch["first_hidden"].shape == (B, 3584)
+        assert batch["first_hidden"][:, :2].tolist() == [[1.0, 2.0]] * B and (batch["last_hidden"] == 3.0).all()
+        return
     built = []
     monkeypatch.setattr(Trainer, "_make_loader", lambda self, split: built.append(split))
     sets = [arg for o in overrides for arg in ("--set", o)]

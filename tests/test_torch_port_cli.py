@@ -284,17 +284,35 @@ def test_run_predict_serves_the_fusions(tmp_path, fusion):
 
 
 @pytest.mark.parametrize("overrides, item", [
-    (["model.image_encoder.backbone=mamba_vision_T"], "item 11"),
-    (["data.test_llm_hidden_json=hidden.json"], "item 11"),
+    (["model.image_encoder.backbone=mamba_vision_T"], None),
+    (["data.test_llm_hidden_json=hidden.json"], None),
 ])
 def test_unported_options_raise_naming_their_roadmap_item(tmp_path, overrides, item):
+    """The two options once refused run through run_predict --device cpu: the
+    MambaVision-T tower at full width, and a test split with LLM hidden vectors
+    (which the baseline family does not read): the CSV's rows and the logits of
+    the saved model, bit for bit."""
+    assert item is None  # nothing of this list is refused any more
     paths = generate_synthetic_dataset(str(tmp_path), num_images=2, image_size=16)
     cfg = synthetic_config(paths, str(tmp_path), max_length=8)
     cfg["model"]["fusion_type"] = "multiscale"
+    names = sorted(os.listdir(paths["image_dir"]))
+    (tmp_path / "hidden.json").write_text(json.dumps({n: {"first_hidden_state": [0.5] * 4,
+                                                          "last_hidden_state": [-0.5] * 4} for n in names}))
+    overrides = [o.replace("hidden.json", str(tmp_path / "hidden.json")) for o in overrides]
     Config(cfg).save_json(tmp_path / "c.json")
-    with pytest.raises(NotImplementedError, match=item):
-        p = tcommon.build_predictor(str(tmp_path / "c.json"), "baseline", overrides=overrides, device="cpu")
-        p.make_test_loader()
+    p = tcommon.build_predictor(str(tmp_path / "c.json"), "baseline", overrides=overrides, device="cpu")
+    init_parameters(p.model, torch.Generator().manual_seed(0))
+    tckpt.save_checkpoint(str(tmp_path / "w.pt"), p.model)
+    loader = p.make_test_loader()
+    want = tcommon.run_prediction(p, loader)[2]
+    got = tpredict.main(["--config", str(tmp_path / "c.json"), "--model_path", str(tmp_path / "w.pt"),
+                         "--output_path", str(tmp_path / "out.csv"), "--device", "cpu",
+                         *[a for o in overrides for a in ("--set", o)]])
+    assert len(_rows(tmp_path / "out.csv")) == 3 and got["logits"].shape == (2, 7)
+    assert np.isfinite(want).all() and np.array_equal(got["logits"], want)
+    if "llm" in overrides[0]:
+        assert next(iter(loader))["first_hidden"].shape == (p.batch_size, 3584) and not p.hidden
 
 
 def test_cuda_without_a_card_raises_and_builds_nothing(tmp_path, monkeypatch):

@@ -345,11 +345,24 @@ def test_connext_serves_on_the_cpu():
     assert model.normalize_input and model.input_dtype == torch.float32
 
 
-@pytest.mark.parametrize("field, value, match", [("use_mamba_fusion", True, "item 11"), ("remat", "full", "item 8")])
+@pytest.mark.parametrize("field, value, match", [("use_mamba_fusion", True, None), ("remat", "full", "item 8")])
 def test_unported_options_raise(field, value, match):
+    """remat raises naming its item; the Mamba fusion, once refused, builds and gives
+    finite float32 logits and a zero balance loss, with and without the hidden
+    vectors (tests/test_torch_port_multimodal_mamba.py holds it against JAX)."""
     cfg = dataclasses.replace(tconnext.ConNexTConfig(**_cfg(tbert, "linear")), **{field: value})
-    with pytest.raises(NotImplementedError, match=match):
-        tconnext.ConNexTClassifier(cfg)
+    if match is not None:
+        with pytest.raises(NotImplementedError, match=match):
+            tconnext.ConNexTClassifier(cfg)
+        return
+    model = init_parameters(tconnext.ConNexTClassifier(cfg), torch.Generator().manual_seed(21)).eval()
+    img, (ids, mask) = _images(22), _text(23)
+    hidden = torch.randn((B, cfg.llm_hidden_dim), generator=torch.Generator().manual_seed(24))
+    with torch.no_grad():
+        for first, last in ((None, None), (hidden, -hidden)):
+            out, balance = model(_nchw(img), T(ids), T(mask), first_hidden=first, last_hidden=last)
+            assert out.dtype == torch.float32 and out.shape == (B, 7) and bool(torch.isfinite(out).all())
+            assert float(balance) == 0.0
 
 
 def test_unknown_convnext_variant_raises():

@@ -1639,3 +1639,131 @@ def test_vmamba_fusion_forward_and_backward_match_the_plain_scan(dev, monkeypatc
     assert set(grads) == set(ref_grads) and all(g is not None for g in grads.values())
     for k in grads:
         _close_f32(grads[k], ref_grads[k])
+
+
+# --------------------------------------------------------------------------- MambaVision and ConNexT's Mamba fusion
+from mdhs_tpu_torch.models import mamba_vision as mv_mod  # noqa: E402
+from mdhs_tpu_torch.modules import multimodal_mamba as mm_mod  # noqa: E402
+
+
+@pytest.mark.parametrize("B, L, D, N", [(64, 196, 160, 8), (64, 49, 320, 8), (32, 52, 512, 128)])
+def test_selective_scan_at_the_mamba_slice_shapes_matches_plain(dev, B, L, D, N):
+    """MambaVision-T's stage-3 and stage-4 mixers at batch 64 and the ConNexT fusion's Mamba at batch 32."""
+    args = _scan_args(np.random.default_rng(L + D), B, L, D, N, dev)
+    n = ss.selective_scan.launches
+    out = ss.selective_scan(*args)
+    torch.cuda.synchronize()
+    assert ss.selective_scan.launches == n + 1
+    _close_f32(out, ss.selective_scan_reference(*args))
+
+
+def test_kan_forward_at_the_fusion_attention_shape_matches_plain(dev):
+    """The KAN attention's q, k and v: one layer (E = 1), 1,664 rows (batch 32 x 52 tokens), 256 -> 256."""
+    args = _kan_args(np.random.default_rng(1664), None, 1664, 256, 256, dev, False)
+    p = ks.plan(1, 1664, 256, 256, ks._sm_count(dev.index))
+    assert p.bn == ks.BATCH_ROWS and p.row_tiles * ks.ROWS_M >= 256 and p.col_tiles * ks.BATCH_ROWS >= 1664
+    n = ks.kan_forward.launches
+    out = ks.kan_forward(*args)
+    torch.cuda.synchronize()
+    assert ks.kan_forward.launches == n + 1
+    _close_f32(out, ks.kan_forward_reference(*args))
+
+
+def _kernel_and_plain(module, inputs, monkeypatch, plain_kan: bool):
+    """``module(*inputs)``'s output and every parameter's gradient of a fixed projection of it,
+    and the launches of (selective_scan, kan_forward): on the kernels, then with the scan (and
+    with ``plain_kan`` kan_forward) on the plain versions."""
+    scan, kan = ss.selective_scan, ks.kan_forward
+    got, w = {}, None
+    for which in ("kernel", "plain"):
+        with monkeypatch.context() as m:
+            if which == "plain":
+                m.setattr(ss, "selective_scan", ss.selective_scan_reference)
+                if plain_kan:
+                    m.setattr(ks, "kan_forward", ks.kan_forward_reference)
+            module.zero_grad(set_to_none=True)
+            counts = (scan.launches, kan.launches)
+            out = module(*inputs)
+            out = out["layer4"] if isinstance(out, dict) else out
+            if w is None:
+                w = torch.randn(out.shape, generator=torch.Generator(device=out.device).manual_seed(3), device=out.device)
+            (out.float() * w).sum().backward()
+            torch.cuda.synchronize()
+            got[which] = (out.detach(), {k: p.grad for k, p in module.named_parameters()},
+                          (scan.launches - counts[0], kan.launches - counts[1]))
+    return got["kernel"], got["plain"]
+
+
+def _close_tower(out, ref, grads, ref_grads):
+    """A whole tower on the kernels against the plain scan, float32: the scan's ~1e-6 relative
+    rounding passes through the blocks that follow it and their LayerNorms, so the output within
+    1e-4 of its largest entry and the gradients within 1e-4 of the largest gradient entry, their
+    flat cosine >= 0.9999. Returns the readings: each max |d| over its largest entry, the cosine
+    (MambaVision-T on an H100: 1.5e-6, 5.8e-6, 1 - 1e-12)."""
+    assert out.dtype == torch.float32 and out.shape == ref.shape and torch.isfinite(out).all()
+    out_rel = (out - ref).abs().max().item() / ref.abs().max().item()
+    assert out_rel <= 1e-4
+    assert set(grads) == set(ref_grads) and all(g is not None for g in grads.values())
+    scale = max(g.abs().max().item() for g in ref_grads.values())
+    grad_rel = max((grads[k] - ref_grads[k]).abs().max().item() for k in grads) / scale
+    assert grad_rel <= 1e-4
+    a = torch.cat([grads[k].double().flatten() for k in grads])
+    b = torch.cat([ref_grads[k].double().flatten() for k in grads])
+    cos = (a @ b / (a.norm() * b.norm())).item()
+    assert cos >= 0.9999
+    return {"out_rel": out_rel, "grad_rel": grad_rel, "grad_cos": cos}
+
+
+def test_mamba_vision_t_forward_and_backward_match_the_plain_scan(dev, monkeypatch, record_property):
+    """MambaVision-T at 224, float32, in eval mode: a forward launches selective_scan 6 times (stage
+    3's mixers 0-3 at (B, 196, 160), stage 4's 0-1 at (B, 49, 320)), and its layer4 tap and every
+    parameter's gradient (the backward the associative scan's VJP) match the same weights on the
+    plain scan (``_close_tower``)."""
+    tower = init_parameters(mv_mod.MambaVision("T", device=dev), torch.Generator(device=dev).manual_seed(5)).eval()
+    img = torch.randn((2, 3, 224, 224), generator=torch.Generator(device=dev).manual_seed(6), device=dev)
+    (out, grads, launched), (ref, ref_grads, plain) = _kernel_and_plain(tower, (img,), monkeypatch, False)
+    assert launched == (6, 0) and plain == (0, 0) and out.shape == (2, 640, 7, 7)
+    for name, value in _close_tower(out, ref, grads, ref_grads).items():
+        record_property(name, value)  # in the JUnit XML report (--junitxml)
+
+
+def test_the_mamba_fusion_forward_and_backward_match_the_plain_scan_and_kan_forward(dev, monkeypatch):
+    """ConNexT's fusion at its served widths (BERT-base's 768-wide CLS, ConvNeXt-base's 49
+    tokens 1024 wide, 3,584-wide hidden vectors), float32: a forward launches selective_scan once
+    at (B, 52, 512), N 128, and kan_forward 3 times at (B * 52, 256) -> 256, matches the plain
+    versions of both, and the backward gives every parameter's gradient within 1e-4 of its largest."""
+    fusion = init_parameters(mm_mod.MultimodalMamba(768, 1024, 3584, use_kan_attention=True, device=dev),
+                             torch.Generator(device=dev).manual_seed(7))
+    g = torch.Generator(device=dev).manual_seed(8)
+    inputs = tuple(torch.randn(shape, generator=g, device=dev) for shape in ((4, 768), (4, 49, 1024), (4, 3584),
+                                                                            (4, 3584)))
+    (out, grads, launched), (ref, ref_grads, plain) = _kernel_and_plain(fusion, inputs, monkeypatch, True)
+    assert launched == (1, 3) and plain == (0, 0) and out.shape == (4, 52, 256)
+    _close_f32(out, ref)
+    assert set(grads) == set(ref_grads) and all(g is not None for g in grads.values())
+    for k in grads:
+        _close_f32(grads[k], ref_grads[k])
+
+
+def test_connext_mamba_fusion_serves_on_its_kernels_in_bf16(dev):
+    """A bf16 ConNexT with the Mamba fusion (pico ConvNeXt, BERT-base at seq 512) served at batch
+    4: 12 fused_attention, 12 ffn_block, 1 selective_scan and 3 kan_forward launches a forward, and
+    logits that are finite."""
+    from mdhs_tpu_torch.models.convnext import register_convnext_variant
+    from mdhs_tpu_torch.presets import CONNEXT_HAM
+    from mdhs_tpu_torch.serving import ServingModel
+
+    register_convnext_variant("cuda_pico", (1, 1, 1, 1), (16, 16, 16, 1024))
+    cfg = dataclasses.replace(CONNEXT_HAM, convnext_variant="cuda_pico", use_mamba_fusion=True)
+    model = init_parameters(ConNexTClassifier(cfg, device=dev, dtype=torch.bfloat16),
+                            torch.Generator(device=dev).manual_seed(9))
+    rng = np.random.default_rng(10)
+    req = {"image": rng.integers(0, 256, (4, 256, 256, 3), dtype=np.uint8),
+           "input_ids": rng.integers(0, 30522, (4, 512)).astype(np.int64), "attention_mask": np.ones((4, 512), np.int64)}
+    before = {k: f.launches for k, f in (("fa", fa.fused_attention), ("fb", fb.ffn_block), ("ss", ss.selective_scan),
+                                        ("ks", ks.kan_forward))}
+    out = ServingModel(model, 4, dev).predict(req)
+    after = {k: f.launches for k, f in (("fa", fa.fused_attention), ("fb", fb.ffn_block), ("ss", ss.selective_scan),
+                                       ("ks", ks.kan_forward))}
+    assert {k: after[k] - before[k] for k in after} == {"fa": 12, "fb": 12, "ss": 1, "ks": 3}
+    assert out.shape == (4, 7) and np.isfinite(out).all()

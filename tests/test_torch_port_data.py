@@ -297,11 +297,32 @@ def test_dataset_without_pil_reads_png_and_zeroes_what_it_cannot_read(synth, tmp
             np.testing.assert_array_equal(r["image"], ref["image"])
 
 
-@pytest.mark.parametrize("opt, item", [("llm_hidden_json", "11"), ("host_augment", "8")])
-def test_unported_dataset_modes_raise_naming_their_item(synth, opt, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}"):
-        tdata.MultimodalDataset(synth["image_dir"], synth["json_path"], synth["label_csv"],
-                                ttok.WordPieceTokenizer.synthetic(), tdata.DatasetOptions(**{opt: True}))
+@pytest.mark.parametrize("opt, item", [("llm_hidden_json", None), ("host_augment", "8")])
+def test_unported_dataset_modes_raise_naming_their_item(synth, opt, item, tmp_path):
+    """The host augmentation raises naming its item; the LLM hidden-state mode, once
+    refused, gives every record JAX's ``first_hidden`` / ``last_hidden`` (a long
+    vector truncated, a short one zero-padded, an image the JSON lacks zeros) and
+    the loader stacks them."""
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}"):
+            tdata.MultimodalDataset(synth["image_dir"], synth["json_path"], synth["label_csv"],
+                                    ttok.WordPieceTokenizer.synthetic(), tdata.DatasetOptions(**{opt: True}))
+        return
+    names = sorted(os.listdir(synth["image_dir"]))
+    rng = np.random.default_rng(12)
+    hidden = {f"llm/{n}": {"first_hidden_state": rng.standard_normal(6 + 4 * (i % 3)).tolist(),
+                           "last_hidden_state": rng.standard_normal(9).tolist()} for i, n in enumerate(names[1:])}
+    path = tmp_path / "hidden.json"
+    path.write_text(json.dumps(hidden))
+    jd, td = _pair(synth, llm_hidden_json=str(path), llm_hidden_dim=10)
+    for i in range(len(td)):
+        for k in ("first_hidden", "last_hidden"):
+            assert td[i][k].shape == (10,) and td[i][k].dtype == np.float32
+            np.testing.assert_array_equal(td[i][k], jd[i][k])
+    first = [td[i] for i in range(len(td)) if td[i]["image_id"] == names[0]]
+    assert not first or not first[0]["first_hidden"].any()
+    batch = next(iter(tloader.DataLoader(td, batch_size=4, prefetch=0)))
+    assert batch["first_hidden"].shape == (4, 10) and batch["last_hidden"].dtype == np.float32
 
 
 # --- TTA -------------------------------------------------------------------------------------

@@ -49,6 +49,7 @@ from mdhs_tpu.cli import run_serve as jserve
 from mdhs_tpu.data.datasets import build_tabular_map as jtabular_map
 from mdhs_tpu_torch.cli import export_serving as texport
 from mdhs_tpu_torch.cli import run_serve as tserve
+from mdhs_tpu_torch.models import mamba_vision as tmv
 from mdhs_tpu_torch.models.baseline import BaselineConfig, MultimodalBaselineModel
 from mdhs_tpu_torch.models.bert import BertConfig
 from mdhs_tpu_torch.models.connext import ConNexTClassifier
@@ -111,8 +112,28 @@ def _connext():
     return init_parameters(ConNexTClassifier(cfg), torch.Generator().manual_seed(2)).eval()
 
 
+def _mamba_vision_basic():
+    """The baseline's basic fusion on a pico MambaVision tower, whose token stages pad (windows 3)."""
+    tmv.MAMBA_VISION_SPECS.setdefault("export_pico", dict(dim=8, in_dim=8, depths=(1, 1, 2, 2), heads=(2, 2, 2, 2),
+                                                          window=(4, 4, 3, 3), layer_scale=None))
+    cfg = BaselineConfig(hidden_dim=32, num_heads=4, fusion_type="basic", classifier_type="mlp",
+                         image_backbone="mamba_vision_export_pico", text_feature_dim=TINY_BERT.hidden_size,
+                         bert=TINY_BERT)
+    return init_parameters(MultimodalBaselineModel(cfg), torch.Generator().manual_seed(3)).eval()
+
+
+def _connext_mamba_fusion():
+    """ConNexT with the Mamba fusion: the artifact takes no hidden vectors, so it reads zeros."""
+    register_convnext_variant("pico", (1, 1, 1, 1), (8, 8, 8, 16))
+    cfg = dataclasses.replace(CONNEXT_HAM, convnext_variant="pico", use_mamba_fusion=True, llm_hidden_dim=24,
+                              bert=TINY_BERT)
+    return init_parameters(ConNexTClassifier(cfg), torch.Generator().manual_seed(4)).eval()
+
+
 # name: (model maker, family, seq, TTA)
 MODELS = {
+    "mamba_vision_basic": (_mamba_vision_basic, "baseline", SEQ, ()),
+    "connext_mamba_fusion": (_connext_mamba_fusion, "connext", SEQ, texport.TTA),
     "mibf_exact": (lambda: _mibf(TINY_BERT), "mibf", SEQ, ()),
     "mibf_int8": (lambda: _mibf(dataclasses.replace(TINY_BERT, fast_math=True, quantize="int8")), "mibf", SEQ, ()),
     "mibf_flash": (lambda: _mibf(dataclasses.replace(TINY_BERT, attention_impl="flash")), "mibf", 128, ()),

@@ -210,10 +210,22 @@ def test_tabular_width_comes_from_the_metadata_csv(spine):
     assert tdata.tabular_dim(tconfig.Config({"model": {}, "data": {"metadata_csv": spine["metadata_csv"]}})) == 0
 
 
-@pytest.mark.parametrize("opt, item", [("llm_hidden_json", "11"), ("host_augment", "8")])
-def test_only_llm_hidden_states_and_host_augmentation_stay_unported(spine, opt, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}"):
-        tdata.DatasetOptions(**{opt: True}).check_ported()
+@pytest.mark.parametrize("opt, item", [("llm_hidden_json", None), ("host_augment", "8")])
+def test_only_llm_hidden_states_and_host_augmentation_stay_unported(spine, opt, item, tmp_path):
+    """Only the host augmentation stays unported; the LLM hidden-state mode runs
+    beside a stacked mode and the tabular one, record for record as JAX's."""
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}"):
+            tdata.DatasetOptions(**{opt: True}).check_ported()
+    else:
+        path = tmp_path / "hidden.json"
+        path.write_text(json.dumps({n: {"first_hidden_state": [float(i)] * (i + 1), "last_hidden_state": [1.5] * 9}
+                                    for i, n in enumerate(CENTRES[1:])}))
+        tdata.DatasetOptions(llm_hidden_json=str(path)).check_ported()
+        jd, td = _pair(spine, sequence=True, tabular_enabled=True, llm_hidden_json=str(path), llm_hidden_dim=4)
+        for i in range(len(td)):
+            _same_record(jd[i], td[i])
+            assert td[i]["first_hidden"].shape == (4,)
     for mode in MODES.values():
         tdata.DatasetOptions(**mode).check_ported()
 

@@ -19,20 +19,37 @@ def _event(name, start, us, device=True, annotation=False):
     return SimpleNamespace(name=name, time_range=span, device_type=kind, is_user_annotation=annotation)
 
 
+def _markers(start, n=trace.LEAD_IN):
+    return [_event("void at::cuda::(anonymous namespace)::spin_kernel(long)", start + i, 0.5)
+            for i in range(n)]
+
+
 @pytest.fixture
 def traces(monkeypatch):
-    """A list to fill with the traces the stand-in profiler returns, in turn;
-    the calls of the traced function are counted in ``calls``."""
+    """A list to fill with the traces the stand-in profiler returns, in turn,
+    each between the window's two runs of markers; ``drop`` (or a list, one a
+    window) and ``drop_end`` records lost from the start and the end of each
+    window. The calls of the traced function are counted in
+    ``calls``."""
     queue, calls = [], []
+    state = SimpleNamespace(queue=queue, calls=calls, fn=lambda: calls.append(1), drop=0, drop_end=0)
+
+    def window():
+        events = queue.pop(0)
+        end = max((e.time_range.start for e in events), default=0) + 1
+        window = _markers(-trace.LEAD_IN - 1) + events + _markers(end, trace.LEAD_OUT)
+        drop = state.drop.pop(0) if isinstance(state.drop, list) else state.drop  # a list: one a window
+        return window[drop:len(window) - state.drop_end]
 
     @contextlib.contextmanager
     def profile(activities):
-        yield SimpleNamespace(events=lambda: queue.pop(0))
+        yield SimpleNamespace(events=window)
 
     monkeypatch.setattr(trace.torch.profiler, "profile", profile)
     monkeypatch.setattr(trace.torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(trace, "markers", lambda n=trace.LEAD_IN: None)
     monkeypatch.setattr(trace, "PAD_S", 0.0)
-    return SimpleNamespace(queue=queue, calls=calls, fn=lambda: calls.append(1))
+    return state
 
 
 def test_whole_calls_wants_each_kernel_a_multiple_of_reps():
@@ -128,3 +145,47 @@ def test_whole_trace_raises_where_the_second_census_does_not_help(traces):
     with pytest.raises(RuntimeError, match=f"each of {trace.TRIES} traces"):
         trace.whole_trace(traces.fn, 2)
     assert not traces.queue
+
+
+@pytest.mark.parametrize("drop", [0, 6, trace.LEAD_IN - 1])
+def test_a_window_that_lost_its_first_records_to_the_markers_is_whole(traces, drop):
+    """A loss at the window's start takes markers: the census finds no kernel
+    irregular and the trace of 2 calls is taken once, markers left out."""
+    traces.drop = drop
+    traces.queue.extend([_calls("abc", 1), _calls("abc", 2), _calls("abc", 2)])
+    events, census = trace.whole_trace(traces.fn, 2)
+    assert [e.name for e in events] == list("abcabc") and census["irregular"] == {} and not traces.queue
+
+
+def test_a_window_that_lost_more_than_its_markers_is_taken_again(traces):
+    """A trace whose first record is not a marker lost more than the markers
+    cover: taken again; the next one whose markers held is taken."""
+    traces.queue.extend([_calls("ab", 2), _calls("ab", 2)])
+    traces.drop = [trace.LEAD_IN + 1, 0]
+    events = trace.kernel_events(traces.fn, reps=2, complete=trace.whole_calls(2))
+    assert [e.name for e in events] == list("abab") and events.held and not traces.queue
+    assert len(traces.calls) == 1 + 2 * 2
+
+
+@pytest.mark.parametrize("where", ["drop", "drop_end"])
+def test_where_every_try_lost_the_markers_the_last_whole_trace_is_taken(traces, where):
+    """Where every try lost the markers at one end, the last trace that passes the
+    check is taken and says so (``held`` False); where none passes, this raises."""
+    setattr(traces, where, trace.LEAD_IN if where == "drop" else trace.LEAD_OUT)
+    traces.queue.extend([_calls("ab", 2)] * trace.TRIES)
+    events = trace.kernel_events(traces.fn, reps=2, complete=trace.whole_calls(2))
+    assert [e.name for e in events] == list("abab") and not events.held and not traces.queue
+    traces.queue.extend([_calls("ab", 2)[:-1]] * trace.TRIES)
+    with pytest.raises(RuntimeError, match=f"each of {trace.TRIES} traces"):
+        trace.kernel_events(traces.fn, reps=2, complete=trace.whole_calls(2))
+    assert not traces.queue
+
+
+@pytest.mark.parametrize("drop_end, taken", [(trace.LEAD_OUT - 1, 1), (trace.LEAD_OUT, trace.TRIES)])
+def test_a_window_that_lost_its_closing_markers_is_taken_again(traces, drop_end, taken):
+    """Records lost at the window's end take the closing markers; a trace that
+    lost them all is taken again, up to TRIES times."""
+    traces.drop_end = drop_end
+    traces.queue.extend([_calls("ab", 2)] * taken)
+    events = trace.kernel_events(traces.fn, reps=2)
+    assert [e.name for e in events] == list("abab") and events.held == (taken == 1) and not traces.queue

@@ -556,6 +556,50 @@ def test_a_torchvision_convnext_file_raises_naming_its_item(tmp_path):
                                                                512)), cfg, "mibf")
 
 
+def test_an_nvidia_mamba_vision_file_loads_into_the_baseline_tower(tmp_path, monkeypatch):
+    """``model.image_encoder.pretrained_path`` of a ``mamba_vision_*`` baseline: an
+    NVIDIA state dict (the Hugging Face wrapper's ``model.`` prefix, its ``norm`` and
+    ``head`` dropped) loads into ``image_encoder.model.`` bit for bit, the values
+    JAX's ``convert_mamba_vision`` reads from the file; a file of another network
+    raises naming the backbone."""
+    from mdhs_tpu.core.convert import convert_mamba_vision
+    from mdhs_tpu.models import mamba_vision as jmv
+    from mdhs_tpu_torch.core import pretrained
+    from mdhs_tpu_torch.core.convert import mamba_vision_state_dict_from_jax
+    from mdhs_tpu_torch.models import build_model
+    from mdhs_tpu_torch.models import mamba_vision as tmv
+
+    spec = dict(dim=16, in_dim=8, depths=(1, 1, 2, 2), heads=(2, 2, 2, 2), window=(4, 4, 2, 2), layer_scale=1e-5)
+    monkeypatch.setitem(tmv.MAMBA_VISION_SPECS, "PICO", spec)
+    monkeypatch.setitem(jmv.MAMBA_VISION_SPECS, "PICO", spec)
+    tower = init_parameters(tmv.MambaVision("PICO", num_classes=1000, head=True), torch.Generator().manual_seed(7))
+    sd = {"model." + k: v + 0.01 * torch.randn(v.shape, generator=torch.Generator().manual_seed(i))
+          if v.is_floating_point() else v for i, (k, v) in enumerate(tower.state_dict().items())}
+    path = str(tmp_path / "mambavision_pico.pth")
+    torch.save(sd, path)
+    paths = write_dataset(tmp_path / "data", n=2)
+    cfg = train_config(paths, tmp_path, "baseline")
+    cfg["model"]["image_encoder"].update(backbone="mamba_vision_PICO", pretrained_path=path)
+    cfg = Config(cfg)
+    model = build_model(cfg, "baseline", load_tokenizer(None, vocab_size=30522), dtype=torch.float32)
+    assert pretrained.load_pretrained(model, cfg, "baseline") == [path]
+    got = {k[len("image_encoder.model."):]: v for k, v in model.state_dict().items()
+           if k.startswith("image_encoder.model.")}
+    assert got and not any(k.startswith(("norm.", "head.")) for k in got)
+    for k, v in got.items():
+        assert torch.equal(v, sd["model." + k]), k
+    np_sd = {k[len("model."):]: v.numpy() for k, v in sd.items()}
+    jp, js = convert_mamba_vision(np_sd, variant="PICO")
+    via_jax = mamba_vision_state_dict_from_jax({k: v for k, v in jp.items() if k not in ("norm", "head")},
+                                               {k: v for k, v in js.items() if k != "norm"})
+    assert set(via_jax) == {k for k in got if not k.endswith("num_batches_tracked")}
+    assert all(torch.equal(via_jax[k], got[k]) for k in via_jax)
+    torch.save({"conv1.weight": torch.zeros(1)}, str(tmp_path / "resnet.pth"))
+    cfg.set("model.image_encoder.pretrained_path", str(tmp_path / "resnet.pth"))
+    with pytest.raises(ValueError, match="NVIDIA mamba_vision_PICO state dict for the 'baseline' family"):
+        pretrained.load_pretrained(model, cfg, "baseline")
+
+
 def test_training_profile_writes_a_trace(tmp_path):
     """training.profile: the first ``steps`` steps' torch.profiler trace in the run directory."""
     paths = write_dataset(tmp_path / "data", n=4)
