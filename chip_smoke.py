@@ -386,6 +386,25 @@ Phases, each printing JSON lines:
               kernels phase holds selective_scan at (64, 196, 160) and (64, 49,
               320), N 8, and (32, 52, 512), N 128, and kan_forward as one layer
               at (1664, 256) -> 256
+ 20. analysis (after mamba) 48 seeded 600 x 450 PNGs under 96 names (two
+              batches of 64, the second padded); for ham_base.json (ResNet18,
+              multiscale, GroupKAN) and ham_mamba_vision_v1.json (MambaVision-T,
+              basic), BERT-base at seq 128, bf16, seeded weights saved as a
+              port checkpoint: run_analysis.main with 80 CAMs (48 / 48
+              attention_block / ffn_block and 24 selective_scan for
+              MambaVision: a feature forward and a CAM step each batch), the 80
+              overlays read back as (224, 224, 3) uint8 PNGs, the printed line
+              the returned effective rank; a CAM step (12 / 12, + 6 scans)
+              against the same step with BERT's sublayers (and the scan) on
+              their plain versions: the logits within BF16_STEPS of the
+              largest, the averaged CAM on the rows of one class within the
+              CAM_* bounds, the feature rank within RANK_REL; the CAM step's
+              and the feature forward's ms, device ms, busy share and peak
+              memory beside the card's name and power limit; then a seeded
+              full-width ConNexT (connext_ham.json) saved as a bare reference
+              file and as a Lightning checkpoint under net.net. with its tower
+              under torchvision's names, each loaded by load_weights: the
+              served logits bit for bit the same
 Every device breakdown (device_profile) comes from a trace checked to hold
 whole calls: a census of one call against two names the kernels every call
 launches, and a trace that lost a record of one is taken again; the census,
@@ -413,6 +432,7 @@ import cProfile
 import dataclasses
 import gc
 import importlib.util
+import io
 import json
 import pstats
 import re
@@ -429,8 +449,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from mdhs_tpu_torch import native, resolve_device
+from mdhs_tpu_torch.analysis.feature_rank import FeatureRankAnalyzer
 from mdhs_tpu_torch.cli import common as cli_common
-from mdhs_tpu_torch.cli import export_serving, run_ablation_eval, run_evaluate, run_predict, run_serve, run_train
+from mdhs_tpu_torch.cli import (export_serving, run_ablation_eval, run_analysis, run_evaluate, run_predict, run_serve,
+                                run_train)
 from mdhs_tpu_torch.core.checkpoint import TopKCheckpointManager, load_torch_file, load_weights, save_checkpoint
 from mdhs_tpu_torch.core.config import load_config
 from mdhs_tpu_torch.data import datasets as cli_data
@@ -4366,6 +4388,236 @@ def phase_mamba(dev, seed: int) -> dict:
              {"fused_attention": layers, "ffn_block": layers, "selective_scan": 1, "kan_forward": FUSION_KAN})])
 
 
+ANALYSIS_DIR = REPO / "mdhs_tpu_torch" / "build" / "analysis_smoke"  # git-ignored; removed when the phase ends
+# 96 test records (two batches of 64, the second padded) over 48 seeded PNGs, each under two names; 80 CAMs
+ANALYSIS_RECORDS, ANALYSIS_PNGS, ANALYSIS_CAMS = 96, 48, 80
+# (configuration, its launches_by_path name, selective_scan a forward): base.yml (ResNet18, multiscale, GroupKAN)
+# and MambaVision-T (basic fusion), both with BERT-base at seq 128, batch 64
+ANALYSIS_CONFIGS = (("ham_base", "analysis_base", 0), (MAMBA_VISION, "analysis_mamba_vision", MV_SCANS))
+# a CAM step's averaged CAM, kernel route against plain route, on the rows both routes give one class (the mean and
+# max |d| of a row's 224 x 224 map in [0, 1]): at least CAM_SHARE of them within the first guess at the bf16 noise
+# (CAM_MEAN, CAM_MAX) and every one within CAM_MEAN_ALL, CAM_MAX_ALL, widened on the card's reading (PERF.md's
+# findings: a few rows in 64 moved to a mean of 0.038 and a max of 0.136); the feature rank's relative bound
+CAM_MEAN, CAM_MAX, CAM_SHARE, RANK_REL = 2.0 ** -7, 2.0 ** -3, 0.75, 0.01
+CAM_MEAN_ALL, CAM_MAX_ALL = 2.0 ** -4, 2.0 ** -2
+
+
+def _analysis_inputs(rng) -> dict:
+    """ANALYSIS_RECORDS records over ANALYSIS_PNGS seeded 600 x 450 PNGs in ANALYSIS_DIR, a JSON of their
+    descriptions (8-300 words) and a label CSV of all of them."""
+    img_dir = ANALYSIS_DIR / "images"
+    img_dir.mkdir(parents=True)
+    names = [f"ISIC_{i:07d}.png" for i in range(ANALYSIS_RECORDS)]
+    for i, name in enumerate(names):
+        if i < ANALYSIS_PNGS:
+            png.write_png(str(img_dir / name), _cli_image(rng))
+        else:
+            shutil.copyfile(img_dir / names[i % ANALYSIS_PNGS], img_dir / name)
+    (ANALYSIS_DIR / "descriptions.json").write_text(json.dumps(
+        [{"image_info": n, "description": " ".join(rng.choice(CLI_WORDS, int(rng.integers(8, 300))))} for n in names]))
+    (ANALYSIS_DIR / "labels.csv").write_text(
+        "image_id,label\n" + "".join(f"{n},{int(rng.integers(0, LABELS))}\n" for n in names))
+    return {"image_dir": str(img_dir), "json_path": str(ANALYSIS_DIR / "descriptions.json"),
+            "label_csv": str(ANALYSIS_DIR / "labels.csv")}
+
+
+def _analysis_run(dev, smi: str, name: str, scans: int, inputs: dict, seed: int) -> tuple[dict, dict]:
+    """run_analysis of mdhs_tpu_torch/configs/<name>.json over the test records with seeded full-width bf16
+    weights (a port checkpoint): launches (a feature forward and a CAM step each of the two batches), the
+    80 overlays read back, the printed line; then on the first batch a CAM step against the same step with
+    BERT's sublayers (and the scan) on their plain versions: the logits (BF16_STEPS of the largest), the
+    averaged CAM on the rows of one class (CAM_*), the feature rank (RANK_REL); the CAM step's
+    and the feature forward's ms, device ms, busy share and peak memory. Returns the line and the launches."""
+    layers = BertConfig().num_hidden_layers
+    cfg = load_config(REPO / "mdhs_tpu_torch" / "configs" / f"{name}.json")
+    for key, value in (("data.test_image_dir", inputs["image_dir"]), ("data.test_json_path", inputs["json_path"]),
+                       ("data.test_label_csv", inputs["label_csv"]), ("output.log_dir", str(ANALYSIS_DIR / "runs"))):
+        cfg.set(key, value)
+    cfg_path = str(ANALYSIS_DIR / f"{name}.json")
+    cfg.save_json(cfg_path)
+    model = init_parameters(build_model(cfg, "baseline", load_tokenizer_for(cfg), device=dev, dtype=torch.bfloat16),
+                            torch.Generator(device=dev).manual_seed(seed)).eval()
+    ckpt = str(ANALYSIS_DIR / f"{name}.pt")
+    save_checkpoint(ckpt, model, {"name": name})
+    del model
+    torch.cuda.empty_cache()
+    out_dir = ANALYSIS_DIR / f"{name}_out"
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        result = run_analysis.main(["--config", cfg_path, "--model_path", ckpt, "--output_dir", str(out_dir),
+                                    "--num_cam_images", str(ANALYSIS_CAMS), "--device", "cuda"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    run_peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    last = printed.getvalue().strip().splitlines()[-1]
+    a_forward = {"attention_block": layers, "ffn_block": layers, "selective_scan": scans}
+    want = {**dict.fromkeys(KERNELS, 0), **{k: 4 * v for k, v in a_forward.items()}}
+    check(launches == want, f"{name} run_analysis launches {launches}, expected {want}")
+    check(last == f"effective rank: {result['effective_rank']:.1f}; rank@1%: {result['rank_at_1pct']}; "
+                  f"CAMs written: {ANALYSIS_CAMS}", f"{name} run_analysis printed {last!r}, returned {result}")
+    mark(f"analysis/{name}/run")
+
+    predictor = cli_common.build_predictor(cfg_path, device=dev)
+    predictor.load_weights(ckpt)
+    model, size = predictor.model, predictor.image_size
+    loader = predictor.make_test_loader()
+    batches = list(loader)
+    ids = [m["image_id"] for m in loader.dataset.metadata[:ANALYSIS_CAMS]]
+    files = sorted(p.name for p in out_dir.glob("cam_*.png"))
+    overlays = [png.read_png(str(out_dir / f)) for f in files]
+    check(len(batches) == 2 and files == sorted(f"cam_{i}.png" for i in ids)
+          and all(o.shape == (size, size, 3) and o.dtype == np.uint8 for o in overlays),
+          f"{name}: {len(files)} overlays {files[:3]}, expected cam_<id>.png of the first {ANALYSIS_CAMS} records")
+    staged = [run_analysis.batch_inputs(b, model, dev, size) for b in batches]
+    images, ids_t, mask, tab = staged[0]
+    step = lambda: run_analysis.cam_step(model, images, ids_t, mask, tab, size)  # noqa: E731
+    zero_counts()
+    cams, logits = step()
+    step_launches = read_counts()
+    check(step_launches == {**dict.fromkeys(KERNELS, 0), **a_forward},
+          f"{name} CAM step launches {step_launches}, expected {a_forward}")
+    routes = BERT_PLAIN_128 + (SCAN_PLAIN if scans else [])
+    with contextlib.ExitStack() as stack:
+        for module, op, plain in routes:
+            stack.enter_context(_plain_op(module, op, plain))
+        zero_counts()
+        cams_p, logits_p = step()
+        plain_counts = read_counts()
+        rank_p = FeatureRankAnalyzer()
+        with torch.inference_mode():
+            for (im, i_, m_, t_), b in zip(staged, batches):
+                rank_p.add(model.forward_features(im, i_, m_, tabular=t_).float().cpu().numpy()[: int(b["n_valid"])])
+    check(all(plain_counts[op] == 0 for _, op, _ in routes), f"{name} plain CAM step launches {plain_counts}")
+    lmax, lmean = diff(logits, logits_p)
+    scale = float(logits_p.float().abs().max())
+    check(lmax <= BF16_STEPS * scale, f"{name} CAM step logits kernels vs plain: max {lmax} (bound {BF16_STEPS * scale})")
+    same = (logits.argmax(-1) == logits_p.argmax(-1)).cpu()
+    d = (cams - cams_p).abs().flatten(1).cpu()
+    row_mean, row_max = d.mean(dim=1)[same], d.amax(dim=1)[same]
+    n_same = int(same.sum())
+    under_mean, under_max = int((row_mean <= CAM_MEAN).sum()), int((row_max <= CAM_MAX).sum())
+    check(n_same >= 1 and min(under_mean, under_max) >= CAM_SHARE * n_same
+          and float(row_mean.max()) <= CAM_MEAN_ALL and float(row_max.max()) <= CAM_MAX_ALL,
+          f"{name} CAMs kernels vs plain on {n_same} rows of one class: {under_mean} within mean |d| {CAM_MEAN}, "
+          f"{under_max} within max |d| {CAM_MAX} (at least {CAM_SHARE} of them); every row's mean |d| "
+          f"{row_mean.tolist()} (bound {CAM_MEAN_ALL}), max |d| {row_max.tolist()} (bound {CAM_MAX_ALL})")
+    eff_p = rank_p.compute()["effective_rank"]
+    check(abs(result["effective_rank"] - eff_p) <= RANK_REL * eff_p,
+          f"{name} effective rank {result['effective_rank']} against {eff_p} with the plain routes")
+    mark(f"analysis/{name}/vs_plain")
+
+    cam_ms = cuda_ms(step, reps=3)
+    torch.cuda.reset_peak_memory_stats(dev)
+    step()
+    torch.cuda.synchronize()
+    cam_peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    cam_device = device_profile(step, cam_ms, reps=2, top=6)
+
+    def feature_forward():
+        with torch.inference_mode():
+            return model.forward_features(images, ids_t, mask, tabular=tab)
+
+    feature_ms = cuda_ms(feature_forward, reps=5)
+    feature_device = device_profile(feature_forward, feature_ms, reps=2, top=6)
+    line = {"config": name, "tower": [model.cfg.image_backbone, model.cfg.fusion_type, model.cfg.classifier_type],
+            "nvidia_smi": smi, "run_s": seconds, "launches": launches, "printed": last,
+            "effective_rank": result["effective_rank"], "rank_at_1pct": result["rank_at_1pct"],
+            "overlays": len(files), "cam_step_launches": step_launches,
+            "vs_plain": {"plain": [op for _, op, _ in routes], "logits_max_abs": lmax, "logits_mean_abs": lmean,
+                         "max_abs_logit": scale, "rows": len(same), "rows_same_class": int(same.sum()),
+                         "rows_under_cam_mean": under_mean, "rows_under_cam_max": under_max,
+                         "cam_mean_abs_max_row": float(row_mean.max()), "cam_max_abs_max_row": float(row_max.max()),
+                         "effective_rank_plain": eff_p},
+            "cam_step_ms": cam_ms, "cam_step_device_ms": cam_device["kernel_ms"],
+            "cam_step_busy_share": cam_device["busy_share"], "cam_step_peak_memory_gib": cam_peak,
+            "run_peak_memory_gib": run_peak, "feature_forward_ms": feature_ms,
+            "feature_forward_device_ms": feature_device["kernel_ms"],
+            "feature_forward_busy_share": feature_device["busy_share"],
+            "device": {"cam_step": cam_device, "feature_forward": feature_device}}
+    del predictor, model, batches, staged, cams, cams_p
+    torch.cuda.empty_cache()
+    return line, launches
+
+
+def _torchvision_tower(sd: dict) -> dict:
+    """ConNexT's state dict with its HF-named ConvNeXt tower under torchvision's ``features.*`` names
+    (``convert_convnext_torchvision``'s table; the layer scale (C, 1, 1)), the rest unchanged."""
+    out = {}
+    for k, v in sd.items():
+        if not k.startswith("image_encoder."):
+            out[k] = v
+            continue
+        p = k.split(".")[1:]
+        if p[0] == "embeddings":
+            tv = f"0.{0 if p[1] == 'patch_embeddings' else 1}.{p[-1]}"
+        elif p[3] == "downsampling_layer":
+            tv = f"{2 * int(p[2])}.{p[4]}.{p[5]}"
+        elif p[5] == "layer_scale_parameter":
+            tv, v = f"{1 + 2 * int(p[2])}.{p[4]}.layer_scale", v.reshape(-1, 1, 1)
+        else:
+            index = {"dwconv": 0, "layernorm": 2, "pwconv1": 3, "pwconv2": 5}[p[5]]
+            tv = f"{1 + 2 * int(p[2])}.{p[4]}.block.{index}.{p[6]}"
+        out["image_encoder.features." + tv] = v
+    return out
+
+
+def _connext_reference(dev, seed: int) -> dict:
+    """A seeded full-width ConNexT (connext_ham.json, bf16, layer scales LAYER_SCALE) saved as a reference
+    file twice, bare and as a Lightning checkpoint under ``net.net.`` with its tower under torchvision's
+    names; each loaded by load_weights into the model re-seeded in between: the served logits at batch 32,
+    seq 512 bit for bit the same for both, and not those of the re-seeded weights."""
+    cfg = load_config(REPO / "mdhs_tpu_torch" / "configs" / "connext_ham.json")
+    model = init_parameters(build_model(cfg, "connext", load_tokenizer_for(cfg), device=dev, dtype=torch.bfloat16),
+                            torch.Generator(device=dev).manual_seed(seed)).eval()
+    with torch.no_grad():
+        for p in _layer_scales(model):
+            p.fill_(LAYER_SCALE)
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    files = {"bare": ANALYSIS_DIR / "connext_bare.pth", "net.net.+torchvision": ANALYSIS_DIR / "connext_ref.ckpt"}
+    torch.save(sd, files["bare"])
+    torch.save({"state_dict": {"net.net." + k: v for k, v in _torchvision_tower(sd).items()}, "epoch": 0},
+               files["net.net.+torchvision"])
+    req = _request(np.random.default_rng([seed, 97]), CONNEXT_BATCH, CONNEXT_SEQ)
+    server = ServingModel(model, CONNEXT_BATCH, dev, image_size=CONNEXT_CROP)
+    out = {}
+    for tag, path in files.items():
+        init_parameters(model, torch.Generator(device=dev).manual_seed(seed + 1))
+        out["reseeded"] = server.predict(req)
+        load_weights(model, str(path), "connext")
+        out[tag] = server.predict(req)
+    check(np.array_equal(out["bare"], out["net.net.+torchvision"]) and not np.array_equal(out["bare"], out["reseeded"])
+          and bool(np.isfinite(out["bare"]).all()),
+          "connext: the net.net. / torchvision reference file's logits are not the bare file's bit for bit")
+    del model, server
+    torch.cuda.empty_cache()
+    return {"files": list(files), "tensors": len(sd), "logits_bit_equal": True,
+            "max_abs_logit": float(np.abs(out["bare"]).max())}
+
+
+def phase_analysis(dev, smi: str, seed: int) -> dict:
+    """run_analysis on the card (ANALYSIS_DIR) for each of ANALYSIS_CONFIGS, and the reference ConNexT
+    checkpoint read as the JAX package reads it (_connext_reference); returns each path's launches."""
+    shutil.rmtree(ANALYSIS_DIR, ignore_errors=True)
+    ANALYSIS_DIR.mkdir(parents=True)
+    t_phase = time.perf_counter()
+    try:
+        inputs = _analysis_inputs(np.random.default_rng([seed, 98]))
+        mark("analysis/inputs")
+        by_path = {}
+        for i, (name, path, scans) in enumerate(ANALYSIS_CONFIGS):
+            line, by_path[path] = _analysis_run(dev, smi, name, scans, inputs, seed + 98 + i)
+            emit({"phase": "analysis", **line})
+            mark(f"analysis/{name}")
+        emit({"phase": "analysis", "connext_reference": _connext_reference(dev, seed + 99),
+              "phase_seconds": time.perf_counter() - t_phase})
+    finally:
+        shutil.rmtree(ANALYSIS_DIR, ignore_errors=True)
+    return by_path
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4409,6 +4661,7 @@ def main() -> int:
     spine = timed("spine", phase_spine, dev, seed)
     fusion = timed("fusion", phase_fusion, dev, seed)
     mamba = timed("mamba", phase_mamba, dev, seed)
+    analysis = timed("analysis", phase_analysis, dev, smi, seed)
     emit({"phase_seconds": seconds, "total_seconds": sum(seconds.values()),
           "line_seconds": [[label, round(t, 2)] for label, t in SPANS]})
     main_path = {"attention_block": slice_launches, "ffn_block": slice_launches,
@@ -4423,7 +4676,7 @@ def main() -> int:
                "train": train["launches"], "train_bn_stats": train["ab_launches"], "flash": flash_launches,
                "train_flash": train_flash, "ablate": {"attention_ablate": ablate_launches},
                "connext": connext["launches"], "train_connext": train_connext, **train_baseline, **cli, **export,
-               **spine, **fusion, **mamba}
+               **spine, **fusion, **mamba, **analysis}
     # each layer's launches on the path that serves it: the baseline MoE's two, ConNexT's four, the fusion's q/k/v
     kan_by_layer = {**baseline["kan_forward_by_layer"], **connext["kan_forward_by_layer"],
                     (256, 256): mamba["mamba_serve_fusion"]["kan_forward"]}

@@ -13,7 +13,12 @@ Counterpart of ``mdhs_tpu/core/checkpoint.py`` (``save_checkpoint``,
 - ``load_state_dict_file`` reads such a file, or a reference torch
   checkpoint (``.pth``, ``.pt``, ``.bin``, a Lightning ``.ckpt`` holding
   ``state_dict``, ``.safetensors``), stripping a leading ``module.`` as
-  the JAX converters' ``_strip_prefix`` does, or a JAX ``save_checkpoint``
+  the JAX converters' ``_strip_prefix`` does (for the ``connext`` family a
+  reference file goes through ``convert_connext_full``'s reading,
+  ``connext_reference_state_dict``: the Lightning wrappers ``net.net.`` /
+  ``net.`` peeled, a torchvision-named image tower renamed, a missing name
+  and a Mamba-fusion model refused; a port file, which carries
+  ``metadata``, is read as it stands), or a JAX ``save_checkpoint``
   msgpack file, whose trees the inverse converters of ``core/convert.py``
   turn into torch names. The format is found from the file's first bytes,
   as ``_is_flax_msgpack`` finds it; ``msgpack`` is imported only for such a
@@ -118,17 +123,42 @@ def _strip_module(sd: Mapping) -> dict:
     return {k[len("module."):] if k.startswith("module.") else k: v for k, v in sd.items()}
 
 
-def load_torch_file(path: str) -> dict[str, torch.Tensor]:
-    """A torch or safetensors checkpoint's state_dict (``state_dict`` inside a
-    Lightning or port file), ``module.`` stripped."""
+def _read_torch_file(path: str) -> tuple[dict[str, torch.Tensor], bool]:
+    """(the state dict, ``module.`` stripped; whether the file is the port's own:
+    a dict holding ``state_dict`` beside the ``metadata`` every port file has)."""
     if path.endswith(".safetensors"):
         from safetensors.torch import load_file
 
-        return _strip_module(load_file(path))
+        return _strip_module(load_file(path)), False
     state = torch.load(path, map_location="cpu", weights_only=True)
+    port = isinstance(state, dict) and "state_dict" in state and "metadata" in state
     if isinstance(state, dict) and "state_dict" in state:
         state = state["state_dict"]
-    return _strip_module(state)
+    return _strip_module(state), port
+
+
+def load_torch_file(path: str) -> dict[str, torch.Tensor]:
+    """A torch or safetensors checkpoint's state_dict (``state_dict`` inside a
+    Lightning or port file), ``module.`` stripped."""
+    return _read_torch_file(path)[0]
+
+
+def connext_reference_state_dict(sd: Mapping, model: nn.Module, path: str) -> dict:
+    """A reference ConNexT state dict (``core/convert.py::connext_from_reference``)
+    for ``model``'s head, tower variant, BERT depth and expert count; a name the
+    JAX converter reads and the file lacks raises ValueError, as the JAX
+    Trainer's ``_import_full_torch`` raises it."""
+    from . import convert
+
+    cfg = model.cfg
+    try:
+        return convert.connext_from_reference(sd, head=cfg.head, convnext_variant=cfg.convnext_variant,
+                                              num_bert_layers=cfg.bert.num_hidden_layers,
+                                              moe_num_experts=cfg.moe_num_experts,
+                                              use_mamba_fusion=cfg.use_mamba_fusion)
+    except KeyError as exc:
+        raise ValueError(f"{path} does not look like a ConNexT Model4AAAI_MoE state dict for the 'connext' "
+                         f"family (missing key {exc})") from exc
 
 
 def state_dict_from_jax(trees: Mapping, family: str, model: nn.Module) -> dict[str, torch.Tensor]:
@@ -157,7 +187,10 @@ def load_state_dict_file(path: str, family: str, model: nn.Module) -> dict:
     """Any checkpoint ``load_weights`` takes, as a {torch name: tensor or array} dict."""
     if is_flax_msgpack(path):
         return state_dict_from_jax(load_checkpoint(path), family, model)
-    return load_torch_file(path)
+    sd, port = _read_torch_file(path)
+    if family == "connext" and not port:
+        return connext_reference_state_dict(sd, model, path)
+    return sd
 
 
 def merge_tolerant(target: Mapping, loaded: Mapping, prefix: str = "", warn_missing: bool = True) -> dict:

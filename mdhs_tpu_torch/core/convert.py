@@ -23,14 +23,27 @@ that ``load_state_dict`` takes. Layouts:
   names, the gates stacked in their order (i, f, g, o; r, z, n)
 
 Every value is copied, so the tensors never alias the caller's arrays.
+
+The second half reads reference torch state dicts as the JAX converters read
+them, name for name, and returns the port's names: ``resnet_from_torchvision``
+(``convert_resnet`` / ``convert_resnet_classifier``), ``bert_from_hf``
+(``convert_bert``), ``convnext_from_reference`` (``convert_convnext_any``: the
+HF ConvNextModel names, or torchvision's ``features.*`` renamed to them by
+``convert_convnext_torchvision``'s table) and ``connext_from_reference``
+(``convert_connext_full``: the Lightning wrappers peeled, the head, the
+Mamba-fusion refusal). A name the JAX converter reads and the file lacks
+raises KeyError, as there; the values are the file's own tensors.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Mapping
 
 import numpy as np
 import torch
+
+log = logging.getLogger(__name__)
 
 Tree = Mapping[str, object]
 
@@ -472,4 +485,168 @@ def connext_state_dict_from_jax(params: Tree, kan_state: Tree | None = None) -> 
         out.update(moe_state_dict_from_jax(params["moe"], kan_state["moe"], "moe."))
     else:
         _lin(params["fc"], "fc", out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Reference torch state dicts -> the port's names
+# ---------------------------------------------------------------------------
+# Each function reads what its ``mdhs_tpu.core.convert`` converter reads from a
+# reference state dict (``module.`` already stripped by ``core/checkpoint.py``),
+# and only that, raising KeyError on the same missing names; the output carries
+# the port's names (the reference's, but for the torchvision ConvNeXt's, which
+# become the HF names the port's tower has).
+
+_BN = ("weight", "bias", "running_mean", "running_var")
+_PAIR = ("weight", "bias")
+_BERT_LAYER = tuple(f"{m}.{p}" for m in ("attention.self.query", "attention.self.key", "attention.self.value",
+                                         "attention.output.dense", "attention.output.LayerNorm",
+                                         "intermediate.dense", "output.dense", "output.LayerNorm") for p in _PAIR)
+_CROSS = tuple(f"{a}_cross_attention.{q}_conv.{p}" for a in ("textbased", "imagbased")
+               for q in ("query", "key", "value") for p in _PAIR)
+
+
+def _strip_prefix(sd: Mapping, prefix: str) -> dict:
+    """``prefix`` stripped from the names that start with it (the others kept)."""
+    return {k[len(prefix):] if k.startswith(prefix) else k: v for k, v in sd.items()}
+
+
+def _sub(sd: Mapping, prefix: str) -> dict:
+    """The names under ``prefix``, stripped of it."""
+    return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+
+
+def resnet_from_torchvision(sd: Mapping, backbone: str = "resnet18", classifier: bool = False) -> dict:
+    """A torchvision ResNet's trunk as ``convert_resnet`` reads it (a block's
+    ``downsample`` where the file has one), with ``fc`` where ``classifier``
+    and the file has one (``convert_resnet_classifier``)."""
+    from ..models.resnet import STAGE_SIZES
+
+    names = ["conv1.weight", *(f"bn1.{s}" for s in _BN)]
+    n_convs = 3 if backbone == "resnet50" else 2
+    for stage, n_blocks in enumerate(STAGE_SIZES[backbone], 1):
+        for b in range(n_blocks):
+            base = f"layer{stage}.{b}."
+            for c in range(1, n_convs + 1):
+                names += [f"{base}conv{c}.weight", *(f"{base}bn{c}.{s}" for s in _BN)]
+            if f"{base}downsample.0.weight" in sd:
+                names += [f"{base}downsample.0.weight", *(f"{base}downsample.1.{s}" for s in _BN)]
+    if classifier and "fc.weight" in sd:
+        names += ["fc.weight", "fc.bias"]
+    return {n: sd[n] for n in names}
+
+
+def bert_from_hf(sd: Mapping, num_layers: int = 12, prefix: str = "bert.") -> dict:
+    """An HF BertModel as ``convert_bert`` reads it, rooted at ``prefix`` or
+    else at ``embeddings.``; the pooler, which the port's towers lack, left out."""
+    if not any(k.startswith(prefix) for k in sd):
+        if not any(k.startswith("embeddings.") for k in sd):
+            raise KeyError(f"bert_from_hf: no '{prefix}*' or 'embeddings.*' keys in the state dict "
+                           f"(roots: {sorted({k.split('.')[0] for k in sd})[:8]})")
+        prefix = ""
+    names = [f"embeddings.{e}_embeddings.weight" for e in ("word", "position", "token_type")]
+    names += [f"embeddings.LayerNorm.{p}" for p in _PAIR]
+    names += [f"encoder.layer.{i}.{n}" for i in range(num_layers) for n in _BERT_LAYER]
+    return {n: sd[prefix + n] for n in names}
+
+
+def _convnext_hf_names(depths) -> list[tuple[str, str]]:
+    """(HF ConvNextModel name, torchvision ``features`` name) of every tensor of a
+    ConvNeXt tower (``convert_convnext_hf`` / ``convert_convnext_torchvision``)."""
+    pairs = [(f"embeddings.patch_embeddings.{p}", f"0.0.{p}") for p in _PAIR]
+    pairs += [(f"embeddings.layernorm.{p}", f"0.1.{p}") for p in _PAIR]
+    for stage, depth in enumerate(depths):
+        hf, tv = f"encoder.stages.{stage}.", 1 + 2 * stage
+        if stage > 0:
+            pairs += [(f"{hf}downsampling_layer.{i}.{p}", f"{2 * stage}.{i}.{p}") for i in (0, 1) for p in _PAIR]
+        for b in range(depth):
+            for hf_m, tv_m in (("dwconv", 0), ("layernorm", 2), ("pwconv1", 3), ("pwconv2", 5)):
+                pairs += [(f"{hf}layers.{b}.{hf_m}.{p}", f"{tv}.{b}.block.{tv_m}.{p}") for p in _PAIR]
+            pairs.append((f"{hf}layers.{b}.layer_scale_parameter", f"{tv}.{b}.layer_scale"))
+    return pairs
+
+
+def convnext_from_reference(sd: Mapping, variant: str = "base") -> dict:
+    """A ConvNeXt tower under HF ConvNextModel names (a ``convnext.`` root
+    stripped; its final ``layernorm`` and any classifier not read) or
+    torchvision's ``features.*`` names, told apart as ``convert_convnext_any``
+    tells them, under the HF names of ``models/convnext.py``; a layer scale
+    flattened to (C,), as both JAX converters flatten it."""
+    from ..models.convnext import CONVNEXT_SPECS
+
+    pairs = _convnext_hf_names(CONVNEXT_SPECS[variant][0])
+    if any("patch_embeddings" in k or "downsampling_layer" in k for k in sd):
+        if any(k.startswith("convnext.") for k in sd):
+            sd = _strip_prefix(sd, "convnext.")
+        src = {hf: hf for hf, _ in pairs}
+    else:
+        if any(k.startswith("features.") for k in sd):
+            sd = _strip_prefix(sd, "features.")
+        src = dict(pairs)
+    out = {hf: sd[src[hf]] for hf, _ in pairs}
+    for k in out:
+        if k.endswith("layer_scale_parameter"):
+            out[k] = out[k].reshape(-1)
+    return out
+
+
+def _kan_bank_from_reference(sd: Mapping, prefix: str, num_experts=None) -> dict:
+    """A ModuleList of KAN experts as ``_convert_kan_bank`` reads it: the experts
+    counted in the file (a count that differs from ``num_experts`` raises
+    ValueError), each layer's ``base_weight`` and ``spline_weight``, and its
+    ``spline_scaler`` and ``grid`` where expert 0 has them."""
+    n_ckpt = 0
+    while f"{prefix}{n_ckpt}.layers.0.base_weight" in sd:
+        n_ckpt += 1
+    if n_ckpt == 0:
+        raise KeyError(f"{prefix}0.layers.0.base_weight")
+    if num_experts is not None and num_experts != n_ckpt:
+        raise ValueError(f"checkpoint has {n_ckpt} experts under '{prefix}' but the model "
+                         f"is configured with {num_experts} (model.moe.num_experts)")
+    n_layers = 0
+    while f"{prefix}0.layers.{n_layers}.base_weight" in sd:
+        n_layers += 1
+    names = []
+    for i in range(n_layers):
+        leaves = ["base_weight", "spline_weight"] + [n for n in ("spline_scaler", "grid")
+                                                     if f"{prefix}0.layers.{i}.{n}" in sd]
+        names += [f"{prefix}{e}.layers.{i}.{n}" for e in range(n_ckpt) for n in leaves]
+    return {n: sd[n] for n in names}
+
+
+def connext_from_reference(sd: Mapping, head: str = "linear", convnext_variant: str = "base",
+                           num_bert_layers: int = 12, moe_num_experts=None, use_mamba_fusion: bool = False) -> dict:
+    """A reference ConNexT state dict as ``convert_connext_full`` reads it: a
+    Lightning ``Model4AAAI_MoE`` (``net.net.*``), a bare
+    ``BaseLineConvNeXt_KAN_mamba`` (``net.*``) or a bare
+    ``OurClassfierConvnextV2``; BERT under ``text_encoder.bert.``, the image
+    tower in either naming (``convnext_from_reference``), the 1x1 reduction
+    ``conv``, both cross-attentions and the ``fc`` or ``moe`` head. A model with
+    the Mamba fusion is refused: no reference checkpoint has that head."""
+    if use_mamba_fusion:
+        raise ValueError("a reference ConNexT checkpoint cannot be imported into a mamba-fusion model "
+                         "(model.mamba_fusion.enabled): no reference checkpoint for that head exists; "
+                         "disable mamba fusion or train from scratch")
+    for wrapper in ("net.net.", "net."):  # Model4AAAI_MoE.net.net / wrapper.net
+        if any(k.startswith(wrapper + "text_encoder.") for k in sd):
+            sd = _sub(sd, wrapper)
+            break
+    out = {"text_encoder.bert." + k: v for k, v in bert_from_hf(sd, num_bert_layers, "text_encoder.bert.").items()}
+    out.update({"image_encoder." + k: v for k, v in
+                convnext_from_reference(_sub(sd, "image_encoder."), convnext_variant).items()})
+    out.update({n: sd[n] for n in ("conv.weight", "conv.bias", *_CROSS)})
+    roots = sorted({k.split(".")[0] for k in sd})
+    if head == "moe":
+        if "moe.w_gate" not in sd:
+            raise KeyError(f"head='moe' but no 'moe.w_gate' in the checkpoint (peeled keys start with: {roots})")
+        out.update({n: sd[n] for n in ("moe.w_gate", "moe.w_noise")})
+        out.update(_kan_bank_from_reference(sd, "moe.experts.", moe_num_experts))
+    else:
+        if "fc.weight" not in sd:
+            raise KeyError(f"head='linear' but no 'fc.weight' in the checkpoint (peeled keys start with: {roots})")
+        if "moe.w_gate" in sd:
+            log.warning("checkpoint contains a 'moe.*' subtree but head='linear': importing the fc head and "
+                        "discarding the MoE expert bank; set model.moe.enabled=true if the checkpoint was "
+                        "trained through the MoE head")
+        out.update({n: sd[n] for n in ("fc.weight", "fc.bias")})
     return out

@@ -16,11 +16,11 @@ Counterpart of the JAX Trainer's ``_load_pretrained``
   (``mamba_vision_*``, ``trainer.py:1124-1135``: NVIDIA's names, which the
   port's tower carries; a ``model.`` prefix, the Hugging Face wrapper's,
   stripped; ``norm`` and ``head`` dropped, the encoder's tower has neither),
-  or ConNexT's HF ``ConvNextModel``
-  (a ``convnext.`` prefix stripped, the
-  final ``layernorm`` and any ``classifier`` dropped, as
-  ``convert_convnext_hf`` drops them). The torchvision ConvNeXt naming
-  (``features.*``) raises: ROADMAP Queue 1 item 11.
+  or ConNexT's ConvNeXt: an HF ``ConvNextModel`` (a ``convnext.`` prefix
+  stripped, the final ``layernorm`` and any ``classifier`` not read, as
+  ``convert_convnext_hf`` reads none of them) or a torchvision
+  ``convnext_*`` (``features.*``, renamed by ``convert_convnext_torchvision``'s
+  table, ``core/convert.py::convnext_from_reference``).
 - ``model.text_encoder.pretrained_path``: an HF ``BertModel``, rooted at
   ``bert.`` or at ``embeddings.``; the pooler is dropped, as
   ``convert_bert`` returns it apart.
@@ -43,6 +43,7 @@ from torch import nn
 
 from ..models.mamba_vision import MambaVision
 from .checkpoint import is_flax_msgpack, load_torch_file, load_weights, merge_tolerant
+from .convert import convnext_from_reference
 
 log = logging.getLogger(__name__)
 
@@ -66,13 +67,7 @@ def _image_tower(sd: dict, family: str, model: nn.Module) -> tuple[dict, str]:
             return ({k: v for k, v in sd.items() if not k.startswith(("norm.", "head."))},
                     f"NVIDIA mamba_vision_{tower.variant}")
         return {k: v for k, v in sd.items() if not k.startswith("fc.")}, "torchvision ResNet"
-    if any(k.startswith("features.") for k in sd) and not any("patch_embeddings" in k for k in sd):
-        raise NotImplementedError("a torchvision ConvNeXt (features.*) state dict is not read yet: "
-                                  "ROADMAP Queue 1 item 11; give an HF ConvNextModel")
-    if any(k.startswith("convnext.") for k in sd):
-        sd = _under(sd, "convnext.")
-    return {k: v for k, v in sd.items() if not k.startswith(("layernorm.", "classifier.", "pooler."))}, \
-        "ConvNeXt (HF ConvNextModel)"
+    return convnext_from_reference(sd, model.cfg.convnext_variant), "ConvNeXt (HF or torchvision)"
 
 
 def _text_tower(sd: dict) -> dict:
@@ -85,7 +80,11 @@ def _load_tower(model: nn.Module, path: str, family: str, tower: str) -> None:
     sd = load_torch_file(path)
     baseline = family == "baseline"
     if tower == "image":
-        sub, what = _image_tower(sd, family, model)
+        try:
+            sub, what = _image_tower(sd, family, model)
+        except KeyError as exc:  # a name convnext_from_reference reads
+            raise ValueError(f"{path} does not look like a ConvNeXt (HF or torchvision) state dict for the "
+                             f"'{family}' family (missing key {exc})") from exc
         prefix = "image_encoder.model." if baseline else "image_encoder."
     else:
         sub, what = _text_tower(sd), "HF BertModel"

@@ -55,7 +55,11 @@ training forward (``baseline.py:352-358``): the fused feature, the logits and
 the MoE head's balance loss (None for the other heads). The fusion and head
 dropout is the config's clamped to 0.1, as in JAX; the ResNet's BatchNorm
 follows the module's train/eval mode. ``remat`` raises
-``NotImplementedError`` naming its ROADMAP item.
+``NotImplementedError`` naming its ROADMAP item. ``logits_and_taps`` is the
+analysis forward (``analysis/gradcam.py``): the logits of the ungated feature
+and the image tower's taps, with a ``perturbations`` dict added at each tap
+(``models/resnet.py::perturb``; both passes of the global/local stream add the
+same tensors, so its gradient is the sum of theirs, as flax's one variable's).
 """
 
 from __future__ import annotations
@@ -213,44 +217,49 @@ class MultimodalBaselineModel(nn.Module):
         """The dtype the image tower takes (its stem convolution's)."""
         return self.image_encoder.stem.weight.dtype
 
-    def _image_tokens(self, images: torch.Tensor):
-        """The tower's tokens of (N, 3, H, W) images, with the local stream combined in."""
-        tokens, _ = self.image_encoder(images)
+    def _image_tokens(self, images: torch.Tensor, perturbations: Optional[dict] = None):
+        """(the tower's tokens of (N, 3, H, W) images with the local stream combined
+        in, the taps of the first pass); both passes add ``perturbations``."""
+        tokens, taps = self.image_encoder(images, perturbations)
         if not self.cfg.global_local_enabled:
-            return tokens
-        local, _ = self.image_encoder(center_crop_resize(images, self.cfg.global_local_crop_ratio))
+            return tokens, taps
+        local, _ = self.image_encoder(center_crop_resize(images, self.cfg.global_local_crop_ratio), perturbations)
         if isinstance(tokens, dict):
-            return {k: 0.5 * (tokens[k] + local[k]) for k in tokens}
+            return {k: 0.5 * (tokens[k] + local[k]) for k in tokens}, taps
         if self.cfg.global_local_combine == "concat":
-            return self.global_local_proj(torch.cat([tokens, local], dim=-1))
-        return 0.5 * (tokens + local)
+            return self.global_local_proj(torch.cat([tokens, local], dim=-1)), taps
+        return 0.5 * (tokens + local), taps
 
-    def encode_images(self, images: torch.Tensor):
-        """(image tokens, pooled image feature) of (B, 3, H, W) images, or of a
-        (B, T, 3, H, W) sequence through the sequence encoder."""
+    def encode_images(self, images: torch.Tensor, perturbations: Optional[dict] = None):
+        """(image tokens, pooled image feature, the tower's taps) of (B, 3, H, W)
+        images, or of a (B, T, 3, H, W) sequence through the sequence encoder (no
+        taps: None, as in JAX)."""
         if images.ndim == 5:
             if not self.cfg.sequence_enabled:
                 raise ValueError("Sequence input provided but sequence encoder is disabled.")
             B, T = images.shape[:2]
-            pooled = pool_image(self._image_tokens(images.flatten(0, 1)))
+            pooled = pool_image(self._image_tokens(images.flatten(0, 1), perturbations)[0])
             seq = self.sequence_encoder(pooled.reshape(B, T, -1))
             if hasattr(self, "sequence_proj"):
                 seq = self.sequence_proj(seq)
-            return seq[:, None, :], seq
-        tokens = self._image_tokens(images)
-        return tokens, pool_image(tokens)
+            return seq[:, None, :], seq, None
+        tokens, taps = self._image_tokens(images, perturbations)
+        return tokens, pool_image(tokens), taps
 
     def forward_features(self, images: torch.Tensor, input_ids: torch.Tensor, attention_mask: torch.Tensor,
                          ablation_mode: Optional[str] = None, tabular: Optional[torch.Tensor] = None,
-                         encoded=None) -> torch.Tensor:
+                         encoded=None, text=None, perturbations: Optional[dict] = None, return_taps: bool = False):
         """The fused (B, hidden_dim) feature, or the pooled image feature for
-        ``image_only``; ``encoded`` is ``encode_images``' result where the caller has it."""
+        ``image_only``; with ``return_taps`` (feature, taps). ``encoded`` is
+        ``encode_images``' result and ``text`` the text tower's (last hidden
+        state, hidden states) where the caller has them; ``perturbations`` goes
+        to the image tower's taps."""
         if ablation_mode not in ABLATION_MODES:
             raise ValueError(f"ablation_mode={ablation_mode!r}: expected one of {ABLATION_MODES}")
-        tokens, pooled = encoded if encoded is not None else self.encode_images(images)
+        tokens, pooled, taps = encoded if encoded is not None else self.encode_images(images, perturbations)
         if ablation_mode == "image_only":
-            return pooled
-        text_tokens, text_hidden = self.text_encoder(input_ids, attention_mask)
+            return (pooled, taps) if return_taps else pooled
+        text_tokens, text_hidden = text if text is not None else self.text_encoder(input_ids, attention_mask)
         if ablation_mode == "text_off":
             text_tokens = torch.zeros_like(text_tokens)
             text_hidden = tuple(torch.zeros_like(h) for h in text_hidden)
@@ -264,7 +273,24 @@ class MultimodalBaselineModel(nn.Module):
             if tabular is None:
                 raise ValueError("tabular_input is required when tabular is enabled.")
             fused = self.tabular_fusion(torch.cat([fused, self.tabular_encoder(tabular)], dim=-1))
-        return fused
+        return (fused, taps) if return_taps else fused
+
+    def logits_and_taps(self, images: torch.Tensor, input_ids: torch.Tensor, attention_mask: torch.Tensor,
+                        tabular: Optional[torch.Tensor] = None, ablation_mode: Optional[str] = None,
+                        perturbations: Optional[dict] = None):
+        """The analysis forward (``baseline.py:338-350``): (the classifier's logits
+        of the ungated feature, the taps of the first image pass, None for a 5-D
+        input). The text tower runs without a graph: Grad-CAM differentiates with
+        respect to ``perturbations`` alone, for which the text features are
+        constants, as for ``jax.grad`` over the perturbations; BERT's eval kernels
+        have no backward."""
+        text = None
+        if ablation_mode != "image_only":
+            with torch.no_grad():
+                text = self.text_encoder(input_ids, attention_mask)
+        feats, taps = self.forward_features(images, input_ids, attention_mask, ablation_mode, tabular, text=text,
+                                            perturbations=perturbations, return_taps=True)
+        return self.classifier(feats), taps
 
     def forward(self, images: torch.Tensor, input_ids: torch.Tensor, attention_mask: torch.Tensor,
                 ablation_mode: Optional[str] = None, tabular: Optional[torch.Tensor] = None) -> torch.Tensor:

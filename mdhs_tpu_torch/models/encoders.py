@@ -16,6 +16,8 @@ ResNet and BERT names, ``convert_mamba_vision`` the MambaVision tower under
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
@@ -43,10 +45,11 @@ class ImageTokenEncoder(nn.Module):
             self.proj3 = nn.Linear(width["layer3"], feature_dim, **f)
         self.proj4 = nn.Linear(width["layer4"], feature_dim, **f)
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, perturbations: Optional[dict] = None):
         """x: (B, 3, H, W). Returns (tokens, taps): tokens (B, N, feature_dim),
-        or the {layer2, layer3, layer4} dict when multi_scale."""
-        taps = self.model(x)
+        or the {layer2, layer3, layer4} dict when multi_scale; ``perturbations``
+        goes to the trunk's taps (``models/resnet.py::perturb``)."""
+        taps = self.model(x, perturbations)
 
         def tokens(key: str, proj: nn.Linear) -> torch.Tensor:
             return proj(taps[key].flatten(2).transpose(1, 2))  # (B, C, H, W) -> (B, H*W, C)

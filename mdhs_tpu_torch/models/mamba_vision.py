@@ -57,6 +57,7 @@ from torch import nn
 from ..ops import selective_scan as _ss
 from ..ops.gelu import exact_gelu
 from .norm import BatchNorm2d
+from .resnet import perturb
 
 __all__ = ["MAMBA_VISION_SPECS", "Attention", "Block", "ConvBlock", "MambaVision", "MambaVisionMixer",
            "transformer_block_indices", "window_partition", "window_reverse"]
@@ -302,11 +303,13 @@ class MambaVision(nn.Module):
             self.norm = BatchNorm2d(self.out_channels, eps=1e-5, **f)
             self.head = nn.Linear(self.out_channels, num_classes, **f)
 
-    def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
-        x = self.patch_embed(x)
+    def forward(self, x: torch.Tensor, perturbations: Optional[dict] = None) -> dict[str, torch.Tensor]:
+        """The taps, named as the ResNet's; ``perturbations`` as ``models/resnet.py::perturb``
+        (``mdhs_tpu/models/mamba_vision.py:269-308``)."""
+        x = perturb(perturbations, "stem", self.patch_embed(x))
         taps = {"stem": x}
         for i, level in enumerate(self.levels):
-            x = level(x)
+            x = perturb(perturbations, f"layer{i + 1}", level(x))
             taps[f"layer{i + 1}"] = x
             if level.downsample is not None:
                 x = level.downsample(x)

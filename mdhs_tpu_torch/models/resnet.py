@@ -13,9 +13,17 @@ cuDNN's, in ``channels_last`` on the card. BatchNorm is ``models/norm.py``'s
 of them take training-mode statistics from the ``bn_stats`` kernel.
 The JAX package's space-to-depth stem (``S2DStemConv``) is a TPU layout
 trick computing the same dot products and is not ported.
+
+The taps (``stem`` after the max-pool, ``layer1`` .. ``layer4``) are flax's
+``perturb`` points (``mdhs_tpu/models/resnet.py:230-250``): given a
+``perturbations`` dict, ``forward`` adds its zero tensor at each (``perturb``),
+so that the gradient with respect to it is the activation's, which Grad-CAM
+reads (``analysis/gradcam.py``). Without one no op is added.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
@@ -93,9 +101,22 @@ class Bottleneck(nn.Module):
 BLOCK_CLS = {"resnet18": BasicBlock, "resnet34": BasicBlock, "resnet50": Bottleneck}
 
 
+def perturb(perturbations: Optional[dict], name: str, x: torch.Tensor) -> torch.Tensor:
+    """flax's ``Module.perturb``: ``x + perturbations[name]``, the entry made as
+    zeros of x's shape and dtype requiring grad where the dict has none (a second
+    pass of the same tower adds the same tensor, as flax reads one variable);
+    ``x`` itself where ``perturbations`` is None."""
+    if perturbations is None:
+        return x
+    p = perturbations.get(name)
+    if p is None:
+        p = perturbations[name] = torch.zeros_like(x, requires_grad=True)
+    return x + p
+
+
 class ResNet(nn.Module):
-    """ResNet trunk. ``forward(x)`` takes NCHW and returns the taps
-    ``stem`` (after the max-pool) and ``layer1`` .. ``layer4``."""
+    """ResNet trunk. ``forward(x, perturbations=None)`` takes NCHW and returns the
+    taps ``stem`` (after the max-pool) and ``layer1`` .. ``layer4``."""
 
     def __init__(self, backbone: str = "resnet18", bn_stats_kernel: bool = False, device=None, dtype=None):
         super().__init__()
@@ -115,11 +136,11 @@ class ResNet(nn.Module):
             setattr(self, f"layer{i + 1}", nn.Sequential(*blocks))
         self.out_channels = cin
 
-    def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
-        x = self.maxpool(torch.relu(self.bn1(self.conv1(x))))
+    def forward(self, x: torch.Tensor, perturbations: Optional[dict] = None) -> dict[str, torch.Tensor]:
+        x = perturb(perturbations, "stem", self.maxpool(torch.relu(self.bn1(self.conv1(x)))))
         taps = {"stem": x}
         for i in range(1, 5):
-            x = getattr(self, f"layer{i}")(x)
+            x = perturb(perturbations, f"layer{i}", getattr(self, f"layer{i}")(x))
             taps[f"layer{i}"] = x
         return taps
 

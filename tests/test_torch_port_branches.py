@@ -337,7 +337,7 @@ def test_gated_eval_shares_one_image_pass_and_training_runs_two(monkeypatch):
     _, _, model = model_pair("gate_tabular")
     calls = []
     real = model.image_encoder.forward
-    monkeypatch.setattr(model.image_encoder, "forward", lambda x: calls.append(1) or real(x))
+    monkeypatch.setattr(model.image_encoder, "forward", lambda x, *rest: calls.append(1) or real(x, *rest))
     img, ids, mask, tab = _inputs(4, 0, 7)
     with torch.no_grad():
         model(_torch_image(img), T(ids), T(mask), tabular=T(tab))

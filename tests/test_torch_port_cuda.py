@@ -1767,3 +1767,59 @@ def test_connext_mamba_fusion_serves_on_its_kernels_in_bf16(dev):
                                        ("ks", ks.kan_forward))}
     assert {k: after[k] - before[k] for k in after} == {"fa": 12, "fb": 12, "ss": 1, "ks": 3}
     assert out.shape == (4, 7) and np.isfinite(out).all()
+
+
+# --------------------------------------------------------------------------- the analysis surface
+def test_run_analysis_cam_step_on_the_card_matches_the_cpu(dev, tmp_path):
+    """run_analysis of base.yml's configuration (ResNet18, multiscale, GroupKAN) over 6 PNGs at
+    canvas 72 / crop 64, seq 128, batch 4, BERT-base in bf16 from a port checkpoint: on the card
+    two feature forwards and two CAM steps, each launching attention_block and ffn_block 12 times
+    (the text tower without a graph), and 6 overlays. Then one CAM step of the first batch on the
+    card and on the CPU (its plain path): no parameter's .grad written; the logits within the MIBF
+    model bound (max <= 0.15, mean < 0.01) and the averaged CAM, on the rows both devices give one
+    class, as chip_smoke.py's analysis phase holds it: three in four rows within mean |d| <= 2^-7
+    and max |d| <= 2^-3, every row within 2^-4 and 2^-2."""
+    from mdhs_tpu_torch.cli import common as cli_common
+    from mdhs_tpu_torch.cli import run_analysis
+
+    rng = np.random.default_rng(4)
+    img_dir = tmp_path / "images"
+    img_dir.mkdir()
+    names = [f"img_{i}.png" for i in range(6)]
+    for i, name in enumerate(names):
+        png.write_png(str(img_dir / name), rng.integers(0, 256, (60 + 20 * (i % 3), 80, 3), dtype=np.uint8))
+    (tmp_path / "d.json").write_text(json.dumps(
+        [{"image_info": n, "description": f"irregular pigment network {i} border"} for i, n in enumerate(names)]))
+    (tmp_path / "labels.csv").write_text("image_id,label\n" + "".join(f"{n},{i % 7}\n" for i, n in enumerate(names)))
+    cfg = load_config(Path(__file__).resolve().parent.parent / "mdhs_tpu_torch" / "configs" / "ham_base.json",
+                      overrides=["data.canvas=72", "data.image_size=64", "training.batch_size=4",
+                                 "tokenizer.max_length=128", f"data.test_image_dir={img_dir}",
+                                 f"data.test_json_path={tmp_path / 'd.json'}",
+                                 f"data.test_label_csv={tmp_path / 'labels.csv'}"])
+    cfg.save_json(tmp_path / "cfg.json")
+    model = build_model(cfg, "baseline", WordPieceTokenizer.synthetic(30522), dtype=torch.float32)
+    init_parameters(model, torch.Generator().manual_seed(0))
+    save_checkpoint(str(tmp_path / "w.pt"), model)
+    before = _counts()
+    run_analysis.main(["--config", str(tmp_path / "cfg.json"), "--model_path", str(tmp_path / "w.pt"),
+                       "--output_dir", str(tmp_path / "out"), "--num_cam_images", "6"])
+    assert [a - b for a, b in zip(_counts(), before)] == [48, 48, 0, 0, 0]
+    assert len(list((tmp_path / "out").glob("cam_*.png"))) == 6
+    out = {}
+    for device in ("cuda", "cpu"):
+        predictor = cli_common.build_predictor(str(tmp_path / "cfg.json"), device=device)
+        predictor.load_weights(str(tmp_path / "w.pt"))
+        inputs = run_analysis.batch_inputs(next(iter(predictor.make_test_loader())), predictor.model,
+                                           predictor.device, 64)
+        before = _counts()
+        out[device] = [t.float().cpu() for t in run_analysis.cam_step(predictor.model, *inputs, 64)]
+        assert [a - b for a, b in zip(_counts(), before)] == ([12, 12, 0, 0, 0] if device == "cuda" else [0] * 5)
+        assert all(p.grad is None for p in predictor.model.parameters())
+    (cams, logits), (cams_cpu, logits_cpu) = out["cuda"], out["cpu"]
+    d = (logits - logits_cpu).abs()
+    assert torch.isfinite(logits).all() and d.max() <= 0.15 and d.mean() < 0.01, (d.max(), d.mean())
+    same = logits.argmax(-1) == logits_cpu.argmax(-1)
+    dc = (cams - cams_cpu).abs().flatten(1)[same]
+    row_mean, row_max = dc.mean(1), dc.amax(1)
+    assert same.any() and row_mean.max() <= 2 ** -4 and row_max.max() <= 2 ** -2, (same, row_mean, row_max)
+    assert min((row_mean <= 2 ** -7).sum(), (row_max <= 2 ** -3).sum()) >= 0.75 * len(dc), (row_mean, row_max)

@@ -544,13 +544,17 @@ def test_the_eval_clis_load_pretrained_towers_named_in_the_config(tmp_path):
 
 
 def test_a_torchvision_convnext_file_raises_naming_its_item(tmp_path):
+    """A torchvision ConvNeXt (``features.*``) tower is read (tests/test_torch_port_convert.py
+    loads one); a file lacking its tensors raises naming the key and the namings it takes."""
     from mdhs_tpu_torch.core import pretrained
+    from mdhs_tpu_torch.models.connext import ConNexTClassifier, ConNexTConfig
 
     path = str(tmp_path / "tv.pth")
     torch.save({"features.0.0.weight": torch.zeros(1), "classifier.2.weight": torch.zeros(1)}, path)
     cfg = Config({"model": {"image_encoder": {"pretrained_path": path}}})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        pretrained.load_pretrained(torch.nn.Module(), cfg, "connext")
+    with pytest.raises(ValueError, match=r"ConvNeXt \(HF or torchvision\) state dict for the 'connext' family "
+                                         r"\(missing key '0.0.bias'\)"):
+        pretrained.load_pretrained(ConNexTClassifier(ConNexTConfig(), device="meta"), cfg, "connext")
     with pytest.raises(ValueError, match="does not look like a torchvision resnet50 state dict for the 'mibf'"):
         pretrained.load_pretrained(MIBFNet(7, bert_config_from(Config({"model": {"text_encoder": {"preset": "tiny"}}}),
                                                                512)), cfg, "mibf")
